@@ -15,19 +15,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    and k = 3;
 3. kernel 1 (radius sampler) against its plain version: P = 256
    ``'random'`` and P = 128 ``'distance'``;
-4. the whole tile step on a small tile, on the card against the port's
-   CPU path (the path the CPU tests hold against the JAX package), scored
-   as ``tools/parity_check.py`` scores two paths;
-5. one production-shaped 3D-only tile (a 250 000-point core at
-   100 pts/m^2 with symmetric 10 m margins, ~490 k points per cloud,
-   bucket 524288) through ``run_fusion3d_tiles`` with the
-   ``fusion_3d_brienz.yaml`` statics and seeded random weights: asserts
-   both kernels launched during the step, finite outputs, and recovery of
-   the planted displacement between the sound and the broken readings of
-   random-init descriptors (see ``RECOVERY``);
-6. a ``kernels`` JSON line: launches on the tile step, time, plain-version
-   time, the least time the card could take (bound) and what bounds it;
-7. last line: ``{"ok": true, "device": {...}}``.
+4. kernel 3 (feature kNN) against its plain version: the F2S3 tile's
+   shape (524 288 x 524 288 x 64, k = 1, refs past 489 362 masked) and
+   65 536 x 65 536 x 64 at k = 8 with ``exclude_self``, on seeded
+   unit-norm features; the plain version on the first 2 048 query rows;
+5. small tiles on the card against the port's CPU path (the path the CPU
+   tests hold against the JAX package): the fusion step with the gated
+   and with the ungated global match (scored as ``tools/parity_check.py``
+   scores two paths), the F2S3 step, and the host F2S3 tile
+   (``run_f2s3_tile``, on a tile above ``median_nn_distance``'s 4096-point
+   grid threshold);
+6. one production-shaped tile (a 250 000-point core at 100 pts/m^2 with
+   symmetric 10 m margins, ~490 k points per cloud, bucket 524288) through
+   ``run_fusion3d_tiles`` with the ``fusion_3d_brienz.yaml`` statics and
+   seeded random weights: asserts the grid kernels launched during the
+   step, finite outputs, and recovery of the planted displacement between
+   the sound and the broken readings of random-init descriptors (see
+   ``RECOVERY``);
+7. the same tile through ``run_f2s3_tiles`` with the ``f2s3_brienz.yaml``
+   statics and seeded random weights: asserts all three kernels launched
+   during the step, finite outputs, the result tables, and recovery
+   readings between the sound and a broken run (see ``RECOVERY_F2S3``);
+   prints stage times, peak memory and the kept fraction; then the same
+   tile through the host tile ``run_f2s3_tile`` (launches, time, peak
+   memory, tables, finite outputs);
+8. a ``kernels`` JSON line: launches on the F2S3 tile step (and per
+   path), time, plain-version time, the least time the card could take
+   (bound), what bounds it, and a library yardstick where one exists;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
 back to the CPU or to the plain versions.
@@ -60,9 +75,35 @@ F32_FLOPS = 67e12
 #: witness holds the emulated JAX step and the port's CPU step on reduced
 #: tiles of this geometry).
 RECOVERY = {"static_assigned": 0.42, "static_err_m": 4.0e-3, "moving_err_m": 8.5e-3}
+#: Floors of the same tile through the F2S3 runner with ``seeded_models(0)``
+#: and ``seeded_filter(0)``. On an H100 80GB HBM3 (700 W) the port keeps
+#: 0.176% of the tile; its kept moving-core points read the planted shift
+#: to 4.5e-6 m (exact matches), its kept static-core points err 2.46 m
+#: (median). With the target descriptors permuted
+#: (``tests/test_torch_recovery.py --pipeline f2s3``, run
+#: ``port:tgt_shuffle``) it keeps 0.117%, at 3.30 m moving and 3.63 m
+#: static error. ``refine_results: false`` (run ``port:no_refine``) reads
+#: the same errors as the sound run. Each floor lies between the sound and
+#: the shuffled reading: a regression alarm for these weights, not a
+#: quality bound.
+RECOVERY_F2S3 = {"kept": 0.0015, "static_err_m": 3.0, "moving_err_m": 1.0e-2}
 #: float32 operations per candidate evaluation in each kernel.
 OPS_GRID_KNN = 7  # 3 mul + 3 add for the score, 1 compare
 OPS_RADIUS_SAMPLE = 19  # centring, |r|^2, score, d^2, 2 compares
+#: Kernel 3's plain version runs on this many query rows.
+KNN_PLAIN_ROWS = 2048
+#: f2s3_brienz.yaml's settings that the F2S3 runner reads.
+F2S3_CFG = {
+    "voxel_size": 0.1,
+    "max_disp_magnitude": 5,
+    "filter_median_magnitude": True,
+    "fill_gaps_c2c": True,
+    "refine_results": True,
+    "n_normals": 30,
+    "small_patch_removal": True,
+    "feat_patch_points": 256,
+    "feat_chunk": 2048,
+}
 
 
 def log(msg: str) -> None:
@@ -104,6 +145,265 @@ def window_work(win, chunk: int, b0: int = 0, b1: int | None = None) -> tuple[in
     return int(scans.sum()), int(scans.sum()) * win.block
 
 
+def reset_launches() -> None:
+    from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def read_launches() -> dict:
+    from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
+
+    return dict(LAUNCHES)
+
+
+def padded_small_tile(src_margin: float, tgt_margin: float):
+    """A ~3k-point split tile, centred and padded to its buckets (numpy)."""
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
+
+    src, tgt, _, _ = synth_split_tile(1000, src_margin, tgt_margin, halo=2.0)
+    n, m = src.shape[0], tgt.shape[0]
+    sb = np.zeros((bucket_size(n), 3), np.float32)
+    sb[:n] = src - src.mean(0)
+    tb = np.zeros((bucket_size(m), 3), np.float32)
+    tb[:m] = tgt - src.mean(0)
+    return sb, np.arange(len(sb)) < n, tb, np.arange(len(tb)) < m, n, m
+
+
+def fusion_small_parity(dev, global_gated: bool) -> dict:
+    """The fusion step on a small tile, card vs the port's CPU path; the
+    card run's kernel launches are read just after it."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_models
+    from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
+
+    sb, sm, tb, tm, ns, _ = padded_small_tile(1.0, 1.5)
+    small = dict(levels=(1, 2), patch_points=128, chunk=512, k_neighbors=8,
+                 sv_cap=256, member_cap=128, agg_max_points=64, small_patch=3,
+                 icp_max_iter=8, fine_max_matches=64, global_gated=global_gated)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        dm, am = seeded_models(0, d)
+        reset_launches()
+        outs.append(fusion3d_tile_step(
+            dm, am, torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
+            torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d),
+            5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d, **small,
+        ))
+        if d is dev:
+            torch.cuda.synchronize()
+            launches = read_launches()
+    g, c = outs
+    vg, vc = g.valid[:ns].cpu().numpy(), c.valid[:ns].numpy()
+    common = vg & vc
+    gap = np.linalg.norm(g.moved[:ns].cpu().numpy()[common] - c.moved[:ns].numpy()[common], axis=1)
+    parity = {
+        "n_vox": [int(g.n_vox_src), int(c.n_vox_src), int(g.n_vox_tgt), int(c.n_vox_tgt)],
+        "median_res_rel": abs(float(g.median_res) - float(c.median_res)) / float(c.median_res),
+        "assigned": [int(vg.sum()), int(vc.sum())],
+        "overlap_frac": float(common.sum()) / max(int(vg.sum()), int(vc.sum()), 1),
+        "median_delta_disp_m": float(np.median(gap)) if gap.size else None,
+        "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+        "launches": launches,
+    }
+    log(f"# phase small-tile fusion parity (global_gated={global_gated}, card vs CPU "
+        f"path, {ns} pts): {json.dumps(parity)}")
+    nv = parity["n_vox"]
+    check(nv[0] == nv[1] and nv[2] == nv[3], parity)
+    # Ungated, the random-init descriptors' global 1-NN mostly falls outside
+    # the magnitude gate: ~2% of the points are assigned (10%+ gated).
+    min_assigned = 0.1 if global_gated else 0.01
+    check(parity["median_res_rel"] <= 1e-6 and vg.sum() > min_assigned * ns, parity)
+    check(parity["overlap_frac"] >= 0.99 and parity["median_delta_disp_m"] < 1e-4, parity)
+    check(parity["frac_gt_10mm"] <= 0.01, parity)
+    check(bool(torch.isfinite(g.moved).all()), "non-finite moved points")
+    return launches
+
+
+def f2s3_small_parity(dev) -> dict:
+    """The F2S3 step on a small tile, card vs the port's CPU path, scored
+    as ``tests/test_torch_f2s3.py`` scores the port against JAX."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
+    from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
+
+    sb, sm, tb, tm, ns, _ = padded_small_tile(1.5, 1.5)
+    small = dict(patch_points=128, chunk=512, k_neighbors=30, sv_cap=256, member_cap=256)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        dm, _ = seeded_models(0, d)
+        reset_launches()
+        outs.append(f2s3_tile_step(
+            dm, seeded_filter(0, d), torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
+            torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d), 5.0, 0.1,
+            device=d, **small,
+        ))
+        if d is dev:
+            torch.cuda.synchronize()
+            launches = read_launches()
+    g, c = (o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)})
+            for o in outs)
+    lab = c.labels[:ns].numpy()
+    nn_same = (g.nn_tgt[:ns] == c.nn_tgt[:ns]).all(1).numpy()
+    same = ~np.isin(lab, lab[~nn_same & (lab >= 0)])
+    kg, kc_ = g.keep[:ns].numpy() & same, c.keep[:ns].numpy() & same
+    both = kg & kc_
+    gap = np.linalg.norm((g.new_tgt[:ns] - c.new_tgt[:ns]).numpy()[both], axis=1)
+    cg, cc = g.c2c[:ns].double().numpy(), c.c2c[:ns].double().numpy()
+    parity = {
+        "median_res_rel": abs(float(g.median_res) - float(c.median_res)) / float(c.median_res),
+        "labels_equal_frac": float((g.labels[:ns] == c.labels[:ns]).double().mean()),
+        "n_dropped": [int(g.n_dropped), int(c.n_dropped)],
+        "nn_equal_frac": float(nn_same.mean()),
+        "kept": [int(kg.sum()), int(kc_.sum())],
+        "keep_overlap_frac": float(both.sum()) / max(int(kg.sum()), int(kc_.sum()), 1),
+        "median_delta_tgt_m": float(np.median(gap)) if gap.size else None,
+        "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+        "c2c_within_1e-5_frac": float((np.abs(cg - cc) <= 1e-5).mean()),
+        "c2c_sq_max_err": float(np.abs(cg**2 - cc**2).max()),
+        "launches": launches,
+    }
+    log(f"# phase small-tile F2S3 parity (card vs CPU path, {ns} pts): {json.dumps(parity)}")
+    check(parity["median_res_rel"] <= 1e-6 and parity["labels_equal_frac"] >= 0.99, parity)
+    check(parity["nn_equal_frac"] >= 0.99 and kg.sum() > 0.01 * ns, parity)
+    check(parity["keep_overlap_frac"] >= 0.99 and parity["median_delta_tgt_m"] < 1e-4, parity)
+    check(parity["frac_gt_10mm"] <= 0.01 and parity["c2c_within_1e-5_frac"] >= 0.995, parity)
+    check(parity["c2c_sq_max_err"] <= 8e-6 and min(launches.values()) > 0, parity)
+    check(bool(torch.isfinite(g.new_tgt).all()), "non-finite F2S3 targets")
+    return launches
+
+
+def f2s3_host_small_parity(dev) -> dict:
+    """The host F2S3 tile (``run_f2s3_tile``) on a 5.6 k-point tile, card
+    vs the port's CPU path, scored as ``tests/test_torch_f2s3_host.py``
+    scores the port against JAX; the card run's launches are read just
+    after it."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
+    from fusion4landslide_tpu_torch.ops.knn import knn
+    from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
+
+    src, tgt, _, _ = synth_split_tile(2000, 1.5, 1.5, halo=2.0)
+    n = src.shape[0]
+    check(n > 4096, "the host parity tile must take median_nn_distance's grid loop")
+    c2c_name = os.path.join("combined_with_c2c", "f2s3_dvfms_combined_with_c2c_of_tile_0.txt")
+    outs, written, c2c = [], [], []
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        for d in (dev, torch.device("cpu")):
+            dm, _ = seeded_models(0, d)
+            cfg = dict(F2S3_CFG, output_dir=os.path.join(tmp, d.type), output_folder="run")
+            reset_launches()
+            outs.append(run_f2s3_tile(cfg, dm, seeded_filter(0, d), src, tgt, device=d))
+            if d is dev:
+                torch.cuda.synchronize()
+                launches = read_launches()
+            results = os.path.join(tmp, d.type, "run", "results")
+            written.append(sorted(os.path.relpath(os.path.join(r, f), results)
+                                  for r, _, fs in os.walk(results) for f in fs))
+            c2c.append(np.loadtxt(os.path.join(results, c2c_name)).reshape(-1, 4)[:, 3])
+    g, c = outs
+    # Feature 1-NN on each side's descriptors; rows that differ must be
+    # near-ties of the CPU side (descriptor distance gap within 5e-5).
+    fg, fc = torch.from_numpy(g["src_feat"]), torch.from_numpy(c["src_feat"])
+    tg, tc = torch.from_numpy(g["tgt_feat"]), torch.from_numpy(c["tgt_feat"])
+    d2, i2 = knn(fc, tc, 2)
+    _, ig = knn(fg, tg, 1)
+    nn_same = (ig[:, 0] == i2[:, 0]).numpy()
+    tie = (torch.sqrt(d2[:, 1]) - torch.sqrt(d2[:, 0]) <= 5e-5).numpy()
+    lab = c["labels"]
+    same = ~np.isin(lab, lab[~nn_same & (lab >= 0)])
+    kg, kc_ = g["keep"] & same, c["keep"] & same
+    # Each side's written targets per point, keyed by the exact source
+    # coordinates the tile writes (centred in float32, centre added back).
+    centre = src.mean(axis=0)
+    index = {tuple(p): i for i, p in enumerate((src - centre).astype(np.float32) + centre)}
+
+    def targets(o):
+        t = np.full((n, 3), np.nan)
+        t[[index[tuple(p)] for p in o["dvfs"][:, :3]]] = o["dvfs"][:, 3:6]
+        return t
+
+    pg, pc = targets(g), targets(c)
+    both = same & ~np.isnan(pg[:, 0]) & ~np.isnan(pc[:, 0])
+    gap = np.linalg.norm(pg[both] - pc[both], axis=1)
+    parity = {
+        "points": n,
+        "labels_equal_frac": float((g["labels"] == c["labels"]).mean()),
+        "feat_max_abs_err": float(max((fg - fc).abs().max(), (tg - tc).abs().max())),
+        "nn_equal_frac": float(nn_same.mean()),
+        "nn_unexplained": int((~nn_same & ~tie).sum()),
+        "same_frac": float(same.mean()),
+        "kept": [int(kg.sum()), int(kc_.sum())],
+        "keep_overlap_frac": float((kg & kc_).sum()) / max(int(kg.sum()), int(kc_.sum()), 1),
+        "median_delta_tgt_m": float(np.median(gap)) if gap.size else None,
+        "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+        "c2c_within_1e-5_frac": float((np.abs(c2c[0] - c2c[1])[same] <= 1e-5).mean()),
+        "tables_equal": written[0] == written[1],
+        "launches": launches,
+    }
+    log(f"# phase small-tile host F2S3 parity (run_f2s3_tile, card vs CPU path): "
+        f"{json.dumps(parity)}")
+    check(parity["labels_equal_frac"] >= 0.99 and parity["feat_max_abs_err"] <= 1e-4, parity)
+    check(parity["nn_unexplained"] == 0 and parity["same_frac"] > 0.9, parity)
+    check(kg.sum() > 0.01 * n and parity["keep_overlap_frac"] >= 0.99, parity)
+    check(gap.size and parity["median_delta_tgt_m"] < 1e-4 and parity["frac_gt_10mm"] <= 0.01, parity)
+    check(parity["c2c_within_1e-5_frac"] >= 0.99 and parity["tables_equal"], parity)
+    check(min(launches.values()) > 0 and np.isfinite(g["dvfs"]).all(), parity)
+    return launches
+
+
+def knn_phase(dev, N: int, n_valid: int) -> dict:
+    """Kernel 3 against its plain version at the F2S3 tile's shape and at
+    k = 8 with exclude_self; times the kernel, the plain version (on
+    ``KNN_PLAIN_ROWS`` query rows) and the composite library yardstick."""
+    from fusion4landslide_tpu_torch.checks import knn_agreement
+    from fusion4landslide_tpu_torch.ops import knn_cuda as kc
+
+    # The check goes through the wrapper the F2S3 step calls (ref mask to
+    # +inf norms, dispatch); the timing through the launcher alone.
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def unit_feats(rows: int) -> torch.Tensor:
+        x = torch.randn((rows, 64), generator=gen, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    worst, rows = 0.0, KNN_PLAIN_ROWS
+    n8 = min(65536, N)
+    for n_k, m_valid, k, excl in ((N, n_valid, 1, False), (n8, n8 - n8 // 64, 8, True)):
+        fq, fr = unit_feats(n_k), unit_feats(n_k)
+        ref_mask = torch.arange(n_k, device=dev) < m_valid
+        q2 = kc.sq_norms(fq)
+        r2 = torch.where(ref_mask, kc.sq_norms(fr), torch.inf)
+        d_k, i_k = kc.knn_feature(fq, fr, k, ref_mask, exclude_self=excl)
+        # The first rows: local and global row numbers agree (exclude_self).
+        d_p, i_p = kc.knn_plain(fq[:rows], fr, k + 1, q2[:rows], r2, exclude_self=excl)
+        agr = knn_agreement(d_p[:, :k], i_p[:, :k], d_k[:rows], i_k[:rows], d_next=d_p[:, k])
+        agr["bit_equal"] = bool(torch.equal(d_p[:, :k], d_k[:rows]) and torch.equal(i_p[:, :k], i_k[:rows]))
+        log(f"# feature kNN {n_k} x {n_k} x 64 k={k} exclude_self={excl} rows={rows}: {json.dumps(agr)}")
+        check(agr["finite_equal"] and agr["dist_ok"] and agr["index_mismatch"] == 0, agr)
+        worst = max(worst, agr["max_abs_err"])
+        if k == 1:
+            ms = cuda_ms(lambda: kc._knn_cuda(fq, fr, 1, q2, r2, exclude_self=False), reps=2)
+            plain_ms = cuda_ms(lambda: kc.knn_plain(fq[:rows], fr, 1, q2[:rows], r2), reps=1)
+
+            def library():
+                # Composite yardstick (no single call): chunked matmul + min.
+                for s0 in range(0, n_k, 2048):
+                    torch.min(r2[None, :] - 2.0 * torch.matmul(fq[s0:s0 + 2048], fr.T), dim=1)
+
+            library_ms = cuda_ms(library, reps=1)
+            b_ms, b_by = bound(4 * (2 * n_k * 64 + 2 * n_k + 2 * n_k), 2.0 * n_k * m_valid * 64)
+    log(f"# phase feature kNN: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {rows} rows, "
+        f"composite matmul + min {library_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return dict(
+        name="knn", route="cuda", source="fusion4landslide_tpu_torch/csrc/knn.cu",
+        replaces="fusion4landslide_tpu/ops/knn_pallas.py:50", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, plain_rows=rows, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, library="chunked torch.matmul + torch.min (composite, TF32 off)",
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -115,7 +415,7 @@ def main() -> int:
         sample_agreement,
         sampler_borderline_rows,
     )
-    from fusion4landslide_tpu_torch.models.convert import seeded_models
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
     from fusion4landslide_tpu_torch.ops import cuda_build, hashgrid_cuda as hc
     from fusion4landslide_tpu_torch.ops.hashgrid import (
         _density_radius,
@@ -123,7 +423,8 @@ def main() -> int:
         median_nn_distance_traced,
     )
     from fusion4landslide_tpu_torch.ops.segments import bucket_size
-    from fusion4landslide_tpu_torch.parallel.pipeline import run_fusion3d_tiles
+    from fusion4landslide_tpu_torch.parallel.pipeline import run_f2s3_tiles, run_fusion3d_tiles
+    from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
     from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_split_tile
 
     dev = resolve_device("cuda")
@@ -141,14 +442,20 @@ def main() -> int:
     for name in cuda_build.SOURCES:
         lib = cuda_build.load(name)
         check(lib is not None, f"{name} did not load")
-        for line in logs[name].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"# nvcc {name}: {line.strip()}")
+        # One line per source: each template instance's registers, stack
+        # frame and spills, from -Xptxas -v.
+        lines = logs[name].splitlines()
+        regs = [int(x.split("Used ")[1].split()[0]) for x in lines if "Used " in x]
+        stack = [int(x.split()[0]) for x in lines if "bytes stack frame" in x]
+        spills = sum(int(x.split(",")[1].split()[0]) for x in lines if "spill stores" in x)
+        log(f"# nvcc {name}: {len(regs)} instances, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)}, stack frame <= {max(stack, default=0)} B, "
+            f"spill stores {spills} B")
     log(f"# phase build: {len(cuda_build.SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # The production tile (phase 5) also supplies the production-density
-    # cloud for the kernel checks.
+    # The production tile (phases 6 and 7) also supplies the
+    # production-density cloud for the kernel checks.
     halo, density, margin, n_core = 20.0, 100.0, 10.0, 250_000
     src, tgt, core, moving = synth_split_tile(n_core, margin, margin, halo=halo, density=density)
     n = src.shape[0]
@@ -241,48 +548,20 @@ def main() -> int:
     del win, win_r, grid, grid_r, cen
     torch.cuda.empty_cache()
 
-    # ---- 4. whole step on a small tile: card vs the port's CPU path ------
-    from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
+    # ---- 4. kernel 3: feature-space kNN ----------------------------------
+    kernels["knn"] = knn_phase(dev, N, n)
+    torch.cuda.empty_cache()
 
-    s_src, s_tgt, _, _ = synth_split_tile(1000, 1.0, 1.5, halo=2.0)
-    ns, mt_ = s_src.shape[0], s_tgt.shape[0]
-    Ns, Mt = bucket_size(ns), bucket_size(mt_)
-    sb = torch.zeros((Ns, 3))
-    sb[:ns] = torch.from_numpy(s_src - s_src.mean(0))
-    tb = torch.zeros((Mt, 3))
-    tb[:mt_] = torch.from_numpy(s_tgt - s_src.mean(0))
-    small = dict(levels=(1, 2), patch_points=128, chunk=512, k_neighbors=8,
-                 sv_cap=256, member_cap=128, agg_max_points=64, small_patch=3,
-                 icp_max_iter=8, fine_max_matches=64)
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        dm, am = seeded_models(0, d)
-        outs.append(fusion3d_tile_step(
-            dm, am, sb.to(d), (torch.arange(Ns) < ns).to(d), tb.to(d),
-            (torch.arange(Mt) < mt_).to(d), 5.0, 0.1, 0.1, 10, 10, 0.5, 0.15,
-            device=d, **small,
-        ))
-    g, c = outs
-    vg, vc = g.valid[:ns].cpu().numpy(), c.valid[:ns].numpy()
-    common = vg & vc
-    gap = np.linalg.norm(g.moved[:ns].cpu().numpy()[common] - c.moved[:ns].numpy()[common], axis=1)
-    parity = {
-        "n_vox": [int(g.n_vox_src), int(c.n_vox_src), int(g.n_vox_tgt), int(c.n_vox_tgt)],
-        "median_res_rel": abs(float(g.median_res) - float(c.median_res)) / float(c.median_res),
-        "assigned": [int(vg.sum()), int(vc.sum())],
-        "overlap_frac": float(common.sum()) / max(int(vg.sum()), int(vc.sum()), 1),
-        "median_delta_disp_m": float(np.median(gap)) if gap.size else None,
-        "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+    # ---- 5. small tiles: card vs the port's CPU path ---------------------
+    by_path = {
+        "fusion3d_small": fusion_small_parity(dev, global_gated=True),
+        "fusion3d_ungated_small": fusion_small_parity(dev, global_gated=False),
+        "f2s3_small": f2s3_small_parity(dev),
+        "f2s3_host_small": f2s3_host_small_parity(dev),
     }
-    log(f"# phase small-tile parity (card vs CPU path, {ns} pts): {json.dumps(parity)}")
-    nv = parity["n_vox"]
-    check(nv[0] == nv[1] and nv[2] == nv[3], parity)
-    check(parity["median_res_rel"] <= 1e-6 and vg.sum() > 0.1 * ns, parity)
-    check(parity["overlap_frac"] >= 0.99 and parity["median_delta_disp_m"] < 1e-4, parity)
-    check(parity["frac_gt_10mm"] <= 0.01, parity)
-    check(bool(torch.isfinite(g.moved).all()), "non-finite moved points")
+    check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
 
-    # ---- 5. the production tile through the runner ----------------------
+    # ---- 6. the production tile through the fusion runner ---------------
     cfg = {
         "dataset": "brienz_tls",
         "voxel_size_init": 0.1,
@@ -311,18 +590,18 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
         cfg.update(output_dir=tmp, output_folder="smoke")
-        for key in hc.LAUNCHES:
-            hc.LAUNCHES[key] = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_fusion3d_tiles(cfg, dips, agg, [(0, src, tgt)], device=dev, timings=timings)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        launches = dict(hc.LAUNCHES)
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         written = sorted(os.listdir(os.path.join(tmp, "smoke", "results")))
     out = res[0]
+    by_path["fusion3d"] = launches
     log(f"# tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
     log("# stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
@@ -345,12 +624,97 @@ def main() -> int:
     check(float(np.median(err_sta)) < RECOVERY["static_err_m"], "static displacement error")
     check(err_mov.size and float(np.median(err_mov)) < RECOVERY["moving_err_m"], "moving displacement error")
 
-    # ---- 6. kernels line + 7. result line --------------------------------
+    # ---- 7. the production tile through the F2S3 runner -----------------
+    filt = seeded_filter(0, dev)
+    f_timings: dict = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        f_cfg = dict(F2S3_CFG, output_dir=tmp, output_folder="smoke")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_f2s3_tiles(f_cfg, dips, filt, [(0, src, tgt)], device=dev, timings=f_timings)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results = os.path.join(tmp, "smoke", "results")
+        written = sorted(
+            os.path.relpath(os.path.join(d, f), results)
+            for d, _, fs in os.walk(results) for f in fs
+        )
+    by_path["f2s3"] = launches
+    out = res[0]
+    log(f"# F2S3 tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
+        f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
+    log("# F2S3 stages (s): " + json.dumps({k: round(v, 3) for k, v in f_timings.items()}))
+    log(f"# F2S3 tables: {written}")
+    check(min(launches.values()) > 0, launches)
+    for name in ("f2s3_dvfs_of_tile_0.txt", "f2s3_dvfms_of_tile_0.txt",
+                 "f2s3_dvfms_of_tile_0_visualize_0_5.txt",
+                 "f2s3_dvfms_without_pruning_of_tile_0.txt",
+                 os.path.join("filtered_by_magnitude", "f2s3_dvfms_filtered_by_median_mag_of_tile_0.txt"),
+                 os.path.join("combined_with_c2c", "f2s3_dvfms_combined_with_c2c_of_tile_0.txt")):
+        check(name in written, (name, written))
+    keep = out["keep"]
+    disp = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
+    check(keep.any() and np.isfinite(disp).all() and np.isfinite(out["magnitudes"]).all(),
+          "F2S3 outputs empty or not finite")
+    disp_all = np.zeros((n, 3))
+    disp_all[keep] = disp
+    err_mov = np.linalg.norm(disp_all[core & moving & keep] - PLANTED_SHIFT, axis=1)
+    err_sta = np.linalg.norm(disp_all[static & keep], axis=1)
+    log(f"# F2S3 recovery: kept {keep.mean():.6f} of the tile, static core kept "
+        f"{keep[static].mean():.6f}, moving core kept {keep[core & moving].mean():.6f}, "
+        f"median err moving {np.median(err_mov) if err_mov.size else float('nan'):.3e} m, "
+        f"static {np.median(err_sta) if err_sta.size else float('nan'):.3e} m "
+        f"(floors {json.dumps(RECOVERY_F2S3)})")
+    check(float(keep.mean()) > RECOVERY_F2S3["kept"], "F2S3 kept fraction")
+    check(err_sta.size and float(np.median(err_sta)) < RECOVERY_F2S3["static_err_m"],
+          "F2S3 static displacement error")
+    check(err_mov.size and float(np.median(err_mov)) < RECOVERY_F2S3["moving_err_m"],
+          "F2S3 moving displacement error")
+
+    # The same tile through the host tile (main_f2s3.py on one device):
+    # unpadded clouds, uncapped supervoxel buckets.
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        f_cfg = dict(F2S3_CFG, output_dir=tmp, output_folder="smoke")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_f2s3_tile(f_cfg, dips, filt, src, tgt, device=dev)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results = os.path.join(tmp, "smoke", "results")
+        h_written = sorted(
+            os.path.relpath(os.path.join(d, f), results)
+            for d, _, fs in os.walk(results) for f in fs
+        )
+    by_path["f2s3_host"] = launches
+    keep = out["keep"]
+    # keep is the pruning's; the max-magnitude gate then drops rows of the
+    # written table (the device step's keep includes the gate).
+    log(f"# F2S3 host tile: {step_s:.2f} s, peak {peak:.2f} GiB, launches {launches}, "
+        f"{int(out['labels'].max()) + 1} supervoxels, pruning kept {keep.mean():.6f} of "
+        f"the tile, {out['dvfs'].shape[0] / n:.6f} written after the magnitude gate")
+    check(min(launches.values()) > 0, launches)
+    check(h_written == written, (h_written, written))
+    check(keep.any() and np.isfinite(out["dvfs"]).all() and np.isfinite(out["magnitudes"]).all(),
+          "host F2S3 outputs empty or not finite")
+
+    # ---- 8. kernels line + 9. result line --------------------------------
     for name, row in kernels.items():
-        row["launches"] = launches[name]
+        row["launches"] = by_path["f2s3"][name]
+        row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kernels[n_][k] for k in order} for n_ in kernels]}))
+    log(json.dumps({"kernels": [
+        {**{k: row[k] for k in order}, **{k: v for k, v in row.items() if k not in order}}
+        for row in kernels.values()
+    ]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -6,10 +6,12 @@ counterpart is easy to find. It imports ``torch`` and never ``jax`` nor
 anything of ``fusion4landslide_tpu``.
 
 Ported so far: the 3D-only fusion tile step
-(``pipelines.fusion_device.fusion3d_tile_step``) and its single-GPU runner
-(``parallel.pipeline.run_fusion3d_tiles``), with the two Pallas grid
-kernels of that path written in CUDA C++ for ``sm_90a``
-(``csrc/grid_knn.cu``, ``csrc/radius_sample.cu``).
+(``pipelines.fusion_device.fusion3d_tile_step``) and the F2S3 tile step
+(``pipelines.f2s3_device.f2s3_tile_step``) with their single-GPU runners
+(``parallel.pipeline.run_fusion3d_tiles`` / ``run_f2s3_tiles``) and the
+host F2S3 tile (``pipelines.f2s3.run_f2s3_tile``). All three Pallas
+kernels of the JAX package are written in CUDA C++ for ``sm_90a``
+(``csrc/grid_knn.cu``, ``csrc/radius_sample.cu``, ``csrc/knn.cu``).
 """
 
 from fusion4landslide_tpu_torch.device import resolve_device

@@ -17,8 +17,15 @@ import torch
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.models.aggregation import ClusterFeatureNet
 from fusion4landslide_tpu_torch.models.dips import EvalBatchNorm, PointNetFeature
+from fusion4landslide_tpu_torch.models.filtering import FilteringNetwork
 
-__all__ = ["params_from_flax", "seeded_models", "state_dict_from_flax"]
+__all__ = [
+    "filter_from_flax",
+    "params_from_flax",
+    "seeded_filter",
+    "seeded_models",
+    "state_dict_from_flax",
+]
 
 
 def state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -48,6 +55,16 @@ def params_from_flax(dips_params: Mapping, agg_params: Mapping):
     return state_dict_from_flax(dips_params), state_dict_from_flax(agg_params)
 
 
+def filter_from_flax(filt_params: Mapping) -> FilteringNetwork:
+    """The FilteringNetwork of a Flax parameter tree, its depth counted
+    from the tree's ``block{i}`` entries as the JAX runners count it."""
+    sd = state_dict_from_flax(filt_params)
+    num_layers = len({k.split(".")[0] for k in sd if k.startswith("block")})
+    net = FilteringNetwork(num_layers=num_layers)
+    net.load_state_dict(sd)
+    return net.eval()
+
+
 def _seeded_init(module: torch.nn.Module, gen: torch.Generator) -> None:
     """LeCun-normal kernels and zero biases (Flax ``Dense`` defaults);
     identity BatchNorm statistics."""
@@ -73,3 +90,13 @@ def seeded_models(seed: int = 0, device=None):
     _seeded_init(agg, gen)
     dev = resolve_device(device)
     return dips.eval().to(dev), agg.eval().to(dev)
+
+
+def seeded_filter(seed: int = 0, device=None) -> FilteringNetwork:
+    """FilteringNetwork (12 blocks) with seeded random weights from its own
+    generator, in eval mode on ``device`` (default ``cuda``; raises without
+    a card)."""
+    gen = torch.Generator().manual_seed(seed)
+    net = FilteringNetwork()
+    _seeded_init(net, gen)
+    return net.eval().to(resolve_device(device))

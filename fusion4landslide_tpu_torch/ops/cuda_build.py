@@ -5,7 +5,9 @@ with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds. Libraries go to ``_build/`` beside the package
 (listed in ``.gitignore``), named by a hash of their source so an edited
 kernel is rebuilt. ``build_all`` starts one ``nvcc`` per source, all at
-once; ``load`` builds a single library at first use.
+once; ``load`` builds a single library at first use. ``LAUNCHES`` counts
+each kernel's launches (its wrapper adds one per launch; calls of the
+plain versions are not counted).
 
 Arithmetic is compiled with ``-fmad=false``: no product and sum is fused
 unless the source says so (``__fmaf_rn``), so each operation rounds as in
@@ -20,11 +22,13 @@ import os
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["LAUNCHES", "SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("grid_knn", "radius_sample")
+SOURCES = ("grid_knn", "radius_sample", "knn")
+#: Kernel launches per source.
+LAUNCHES = {name: 0 for name in SOURCES}
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

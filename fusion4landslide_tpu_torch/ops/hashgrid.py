@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.ops.hashgrid_cuda import hash_grid_knn_window
@@ -26,6 +27,7 @@ __all__ = [
     "hash_grid_knn",
     "knn_grid_traced",
     "median_nn_distance_traced",
+    "nn1_spatial",
 ]
 
 #: Static bound on the dense cell table (int32 entries).
@@ -217,3 +219,35 @@ def median_nn_distance_traced(points, mask=None, *, max_doublings: int = 8):
         radius = radius * 2.0
         it += 1
     return med, overflow
+
+
+#: Radius doublings ``nn1_spatial`` tries (a 4096-fold radius).
+_NN1_DOUBLINGS = 12
+
+
+def nn1_spatial(query, ref):
+    """Unbounded spatial 1-NN through the grid join with radius growth:
+    the radius starts at the bounding-box density 4 sqrt(area / m) and
+    doubles until every query found a neighbour. Returns ((n,) squared
+    distances, (n,) int32 indices); queries still unmatched after
+    ``_NN1_DOUBLINGS`` (an empty reference only) get +inf / 0."""
+    n, m = query.shape[0], ref.shape[0]
+    dev = query.device
+    valid = torch.ones((m,), dtype=torch.bool, device=dev)
+    best_d = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return best_d, best_i
+    ext = (ref.max(dim=0).values - ref.min(dim=0).values).cpu().numpy()
+    area = float(max(ext[0], 1e-9) * max(ext[1], 1e-9))
+    radius = 4.0 * float(np.sqrt(area / m))
+    for _ in range(_NN1_DOUBLINGS):
+        grid = build_hash_grid(ref, radius, valid)
+        d, i, _ = hash_grid_knn(query, grid, radius, 1)
+        found_new = torch.isfinite(d[:, 0]) & ~torch.isfinite(best_d)
+        best_d = torch.where(found_new, d[:, 0], best_d)
+        best_i = torch.where(found_new, i[:, 0], best_i)
+        if bool(torch.isfinite(best_d).all()):
+            break
+        radius *= 2.0
+    return best_d, best_i

@@ -14,10 +14,10 @@ under componentwise order). Two kernels scan those windows:
 
 Each wrapper launches its CUDA kernel for tensors on the card (or raises)
 and runs the plain PyTorch version, kept beside it, for tensors on the
-CPU. ``LAUNCHES`` counts kernel launches. Every window function returns
-its overflow count: the blocks whose true window exceeded ``window`` (those
-results are truncated, as on the TPU, where the traced callers cannot fall
-back either).
+CPU. ``LAUNCHES`` (``cuda_build.LAUNCHES``) counts kernel launches. Every
+window function returns its overflow count: the blocks whose true window
+exceeded ``window`` (those results are truncated, as on the TPU, where the
+traced callers cannot fall back either).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.ops import cuda_build
+from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
 
 __all__ = [
     "LAUNCHES",
@@ -42,10 +43,6 @@ __all__ = [
 ]
 
 _LANES = 128
-
-#: Kernel launches per wrapper (plain-version calls are not counted).
-LAUNCHES = {"grid_knn": 0, "radius_sample": 0}
-
 
 class Window(NamedTuple):
     qorder: torch.Tensor  # (n,) int64 sort permutation of the queries

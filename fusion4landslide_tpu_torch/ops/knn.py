@@ -1,17 +1,26 @@
-"""Brute-force k-nearest-neighbour search (plain PyTorch).
+"""Brute-force k-nearest-neighbour search.
 
-Port of the exact XLA path of ``fusion4landslide_tpu.ops.knn``
-(``_knn_xla``, ``pairwise_sqdist``): it serves the small brute-force
-supervoxel graph (n <= 8192) and the per-pair ICP correspondence search.
-Feature-space kNN through the third Pallas kernel (``knn_pallas``) is not
-ported yet.
+Port of ``fusion4landslide_tpu.ops.knn``. ``knn`` dispatches as the JAX
+package does on an accelerator: feature-space inputs (D > 8, k <= 128) go
+to kernel 3 (``ops.knn_cuda.knn_feature``: the CUDA kernel on the card,
+its plain version on the CPU), which selects on the Pallas kernel's raw
+score; everything else (the 3-d supervoxel graph for n <= 8192, the
+per-pair ICP correspondence search) takes the exact XLA path
+(``_knn_xla``, ``pairwise_sqdist``), ported as plain PyTorch.
+``median_nn_distance`` is the host tiles' point-cloud resolution: the
+grid loop above 4096 points, brute force below.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["pairwise_sqdist", "knn"]
+from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
+from fusion4landslide_tpu_torch.ops.knn_cuda import MAX_K, knn_feature
+from fusion4landslide_tpu_torch.ops.segments import bucket_size
+
+__all__ = ["pairwise_sqdist", "knn", "nn1", "median_nn_distance"]
 
 _DIFF_DIM_MAX = 8
 _QUERY_BLOCK = 4096  # query rows per distance slab
@@ -36,9 +45,12 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def knn(query, ref, k: int, ref_mask=None, *, exclude_self: bool = False):
     """Exact k nearest neighbours ((n, k) squared distances ascending,
     (n, k) indices; masked/missing slots are +inf / 0). Ties go to the
-    lower reference index, as ``lax.top_k`` resolves them. Leading batch
+    lower reference index, as ``lax.top_k`` resolves them. D > 8 and
+    k <= 128: kernel 3 on (n, D) / (m, D) inputs. Otherwise leading batch
     dimensions of ``query``/``ref`` are supported for ``exclude_self``
     False."""
+    if query.shape[-1] > _DIFF_DIM_MAX and k <= MAX_K:
+        return knn_feature(query, ref, k, ref_mask, exclude_self=exclude_self)
     n, m = query.shape[-2], ref.shape[-2]
     dev = query.device
     mask = (
@@ -72,3 +84,57 @@ def knn(query, ref, k: int, ref_mask=None, *, exclude_self: bool = False):
         best_i = torch.cat([best_i, torch.zeros(fill, dtype=best_i.dtype, device=dev)], -1)
     best_i = torch.where(torch.isfinite(best_d), best_i, 0)
     return best_d, best_i.to(torch.int32)
+
+
+def nn1(query, ref, ref_mask=None, **kw):
+    """1-NN: ((n,) squared distances, (n,) indices)."""
+    d, i = knn(query, ref, 1, ref_mask, **kw)
+    return d[:, 0], i[:, 0]
+
+
+def _median_of_first(d_sorted: torch.Tensor, cnt) -> torch.Tensor:
+    """Median of the first ``cnt`` entries of an ascending vector."""
+    lo = max((int(cnt) - 1) // 2, 0)
+    hi = max(int(cnt) // 2, 0)
+    return 0.5 * (d_sorted[lo] + d_sorted[hi])
+
+
+def median_nn_distance(points, mask=None):
+    """Median distance to the closest *other* point (reference
+    src/f2s3.py:481-507). Above 4096 points the radius-bounded grid
+    search: the radius starts at 4 sqrt(area / n) of the bounding box and
+    doubles until over half the points have an in-radius neighbour, when
+    the median is exact. Brute force below (or if 8 doublings fail)."""
+    n = points.shape[0]
+    dev = points.device
+    if n > 4096:
+        valid = (
+            torch.ones((n,), dtype=torch.bool, device=dev)
+            if mask is None
+            else mask.to(torch.bool)
+        )
+        lo = torch.where(valid[:, None], points, torch.inf).min(dim=0).values
+        hi = torch.where(valid[:, None], points, -torch.inf).max(dim=0).values
+        ext = (hi - lo).cpu().numpy()
+        cnt = int(valid.sum())
+        area = float(max(ext[0], 1e-9) * max(ext[1], 1e-9))
+        radius = 4.0 * float(np.sqrt(area / max(cnt, 1)))
+        nb = bucket_size(n)
+        pts_b = torch.cat([points, points.new_zeros((nb - n, 3))])
+        valid_b = torch.cat([valid, valid.new_zeros((nb - n,))])
+        for _ in range(8):
+            r = torch.tensor(radius, dtype=points.dtype, device=dev)
+            grid = build_hash_grid(pts_b, r, valid_b)
+            sqd, _, _ = hash_grid_knn(pts_b, grid, r, 1, exclude_self=True)
+            d = torch.sqrt(sqd[:, 0])
+            found = valid_b & torch.isfinite(d)
+            med = _median_of_first(torch.sort(torch.where(found, d, torch.inf)).values, cnt)
+            if 2 * int(found.sum()) > cnt:
+                return med
+            radius *= 2.0
+    sqd, _ = knn(points, points, 1, mask, exclude_self=True)
+    d = torch.sqrt(sqd[:, 0])
+    if mask is None:
+        return _median_of_first(torch.sort(d).values, n)
+    valid = mask.to(torch.bool) & torch.isfinite(d)
+    return _median_of_first(torch.sort(torch.where(valid, d, torch.inf)).values, valid.sum())

@@ -1,11 +1,12 @@
-"""Single-GPU tile runner for the 3D-only fusion step.
+"""Single-GPU tile runners for the 3D-only fusion step and the F2S3 step.
 
 Port of ``fusion4landslide_tpu.parallel.pipeline.run_fusion3d_tiles_sharded``
-for one device: the JAX mesh runs tiles with no collectives, so the
-multi-GPU form is one such tile stream per GPU. Statics are derived from
-the config exactly as the JAX runner derives them; each tile is centred on
-its source mean, padded to its bucket, run through
-``fusion3d_tile_step``, and its ``c2f_*`` result tables are written.
+and ``run_f2s3_tiles_sharded`` for one device: the JAX mesh runs tiles
+with no collectives, so the multi-GPU form is one such tile stream per
+GPU. Statics are derived from the config exactly as the JAX runners derive
+them; each tile is centred on its source mean, padded to its bucket, run
+through the tile step, and its result tables (``c2f_*`` / ``f2s3_*``) are
+written.
 """
 
 from __future__ import annotations
@@ -24,9 +25,33 @@ from fusion4landslide_tpu_torch.io.results import (
     visual_clamp_magnitude,
 )
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
+from fusion4landslide_tpu_torch.pipelines.f2s3 import is_rockfall, write_f2s3_outputs
+from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
 from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
 
-__all__ = ["fusion3d_statics", "run_fusion3d_tiles"]
+__all__ = ["f2s3_statics", "fusion3d_statics", "run_f2s3_tiles", "run_fusion3d_tiles"]
+
+
+def _padded_tile(src: np.ndarray, tgt: np.ndarray, N: int, M: int, dev):
+    """(centre, src (N, 3), smask (N,), tgt (M, 3), tmask (M,)) of one
+    tile, centred on its source mean and zero-padded to its buckets."""
+    n, m = src.shape[0], tgt.shape[0]
+    center = src.mean(axis=0)
+    sb = np.zeros((N, 3), np.float32)
+    sb[:n] = src - center
+    tb = np.zeros((M, 3), np.float32)
+    tb[:m] = tgt - center
+    return (
+        center,
+        torch.from_numpy(sb).to(dev), torch.arange(N, device=dev) < n,
+        torch.from_numpy(tb).to(dev), torch.arange(M, device=dev) < m,
+    )
+
+
+def _buckets(tiles: list) -> tuple[int, int]:
+    """(N, M): the buckets of the largest source and target tile."""
+    return (bucket_size(max(t[1].shape[0] for t in tiles)),
+            bucket_size(max(t[2].shape[0] for t in tiles)))
 
 
 def fusion3d_statics(cfg: dict, N: int, M: int) -> dict:
@@ -60,7 +85,6 @@ def fusion3d_statics(cfg: dict, N: int, M: int) -> dict:
 
 
 def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
-                       n_bucket: int | None = None, m_bucket: int | None = None,
                        logger=None, timings: dict | None = None) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
     on one device and write the ``c2f_*`` result tables under
@@ -74,8 +98,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     tiles = list(tiles)
     if not tiles:
         return {}
-    N = n_bucket or bucket_size(max(t[1].shape[0] for t in tiles))
-    M = m_bucket or bucket_size(max(t[2].shape[0] for t in tiles))
+    N, M = _buckets(tiles)
     statics = fusion3d_statics(cfg, N, M)
     remove_low = bool(cfg.get("remove_low_quality_patch_matches", True))
     scalars = dict(
@@ -96,16 +119,9 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     results: dict = {}
     for tile_id, src, tgt in tiles:
         n, m = src.shape[0], tgt.shape[0]
-        center = src.mean(axis=0)
-        sb = np.zeros((N, 3), np.float32)
-        sb[:n] = src - center
-        tb = np.zeros((M, 3), np.float32)
-        tb[:m] = tgt - center
+        center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         out = fusion3d_tile_step(
-            dips, agg,
-            torch.from_numpy(sb).to(dev), torch.arange(N, device=dev) < n,
-            torch.from_numpy(tb).to(dev), torch.arange(M, device=dev) < m,
-            timings=timings, device=dev, **scalars, **statics,
+            dips, agg, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,
         )
         valid = out.valid[:n].cpu().numpy()
         moved = out.moved[:n].cpu().numpy()
@@ -154,5 +170,88 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             "assigned_fraction": float(valid.mean()) if n else 0.0,
             "n_dropped": n_dropped,
             "overflow": int(out.overflow),
+        }
+    return results
+
+
+def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
+    """Static F2S3 step options from a flat config dict (the JAX runner's
+    derivation, ``parallel/pipeline.py:146-170``). The filter's depth is
+    the FilteringNetwork module's own; the CPU-branch sampler options
+    (``feat_k_max``, ``feat_sample_cap``, ``feat_sample_priority``) feed
+    nothing on the accelerator branch and are not read."""
+    return dict(
+        patch_points=int(cfg.get("feat_patch_points", 256)),
+        feat_dtype=cfg.get("feat_dtype"),
+        chunk=min(int(cfg.get("feat_chunk", 2048)), N),
+        k_neighbors=int(cfg.get("n_normals", 30)),
+        sv_cap=int(cfg.get("sv_cap", 0)) or max(bucket_size(max(N // 16, 1)), 64),
+        member_cap=int(cfg.get("member_cap", 0)) or 1024,
+        rockfall=is_rockfall(cfg),
+        refine_results=bool(cfg.get("refine_results", True)),
+        small_patch_removal=bool(cfg.get("small_patch_removal", True)),
+        with_c2c=bool(cfg.get("fill_gaps_c2c", False)),
+    )
+
+
+def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
+                   logger=None, timings: dict | None = None) -> dict:
+    """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
+    on one device through ``f2s3_tile_step`` and write the ``f2s3_*``
+    result tables (the pre-pruning ``f2s3_dvfms_without_pruning_of_tile_*``
+    included) under ``<output_dir>/<output_folder>/results``.
+
+    Returns {tile_id: {"dvfs", "magnitudes", "keep", "n_dropped",
+    "overflow"}}. ``timings`` (optional dict) collects per-stage seconds
+    of the step, synchronised at each stage boundary.
+    """
+    dev = resolve_device(device)
+    tiles = list(tiles)
+    if not tiles:
+        return {}
+    N, M = _buckets(tiles)
+    statics = f2s3_statics(cfg, N, M)
+    max_disp = float(cfg.get("max_disp_magnitude", 0) or 0)
+    voxel_size = float(cfg.get("voxel_size", 0.0) or 0.0)
+    results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")), "results")
+    os.makedirs(results_dir, exist_ok=True)
+    dips = dips.to(dev).eval()
+    filt = filt.to(dev).eval()
+
+    results: dict = {}
+    for tile_id, src, tgt in tiles:
+        n, m = src.shape[0], tgt.shape[0]
+        center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
+        out = f2s3_tile_step(
+            dips, filt, sb, sm, tb, tm, max_disp, voxel_size,
+            timings=timings, device=dev, **statics,
+        )
+        n_dropped = int(out.n_dropped)
+        if n_dropped and logger:
+            logger.warning(
+                "tile %s: %d points exceeded the supervoxel caps (sv_cap=%d, "
+                "member_cap=%d) and were not filtered",
+                tile_id, n_dropped, statics["sv_cap"], statics["member_cap"],
+            )
+        s = sb[:n].cpu().numpy()
+        t = tb[:m].cpu().numpy()
+        keep = out.keep[:n].cpu().numpy()
+        # Pre-pruning table (f2s3.py:286-294).
+        mag0 = np.linalg.norm(out.nn_tgt[:n].cpu().numpy() - s, axis=1)
+        save_txt(
+            osp.join(results_dir, f"f2s3_dvfms_without_pruning_of_tile_{tile_id}.txt"),
+            np.hstack([s + center, mag0[:, None]]),
+        )
+        pruned = np.hstack([s, out.new_tgt[:n].cpu().numpy()])
+        c2c = out.c2c[:n].cpu().numpy() if statics["with_c2c"] else None
+        written = write_f2s3_outputs(cfg, tile_id, center, s, t, pruned, keep,
+                                     c2c=c2c, logger=logger, device=dev)
+        if logger:
+            logger.info("tile %s (f2s3): %d kept correspondences", tile_id, int(keep.sum()))
+        results[tile_id] = {
+            **written,
+            "keep": keep,
+            "n_dropped": n_dropped,
+            "overflow": out.overflow,
         }
     return results

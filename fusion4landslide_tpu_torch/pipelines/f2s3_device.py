@@ -1,17 +1,72 @@
-"""Device-resident helpers shared by the tile steps.
+"""The F2S3 tile step on one device, and helpers shared by the tile steps.
 
-Port of the parts of ``fusion4landslide_tpu.pipelines.f2s3_device`` that
-the fusion tile step uses: ``dips_features_device`` (its accelerator
-branch), ``drop_small_and_compact`` and ``masked_median``.
+Port of ``fusion4landslide_tpu.pipelines.f2s3_device``: ``f2s3_tile_step``
+(median resolution -> DIPs descriptors -> supervoxels of the source ->
+feature-space 1-NN -> learned per-supervoxel pruning -> magnitude gate ->
+C2C spatial 1-NN) on padded, centred tile tensors, following the JAX
+step's accelerator branch; ``dips_features_device``,
+``drop_small_and_compact`` (defined in ``pipelines.f2s3``) and
+``masked_median`` (also used by the fusion step) and ``StageTimer``.
+
+Fixed-shape conventions as in the JAX step: supervoxel buckets use static
+caps ``(sv_cap, member_cap)``; supervoxels past the cap, or members past
+``member_cap``, fall out of the learned filter (``keep=False``) and are
+counted in ``n_dropped``.
 """
 
 from __future__ import annotations
 
+import time
+from typing import NamedTuple
+
 import torch
 
-from fusion4landslide_tpu_torch.pipelines.f2s3 import compute_dips_features
+from fusion4landslide_tpu_torch.device import resolve_device
+from fusion4landslide_tpu_torch.ops.hashgrid import (
+    knn_grid_traced,
+    median_nn_distance_traced,
+)
+from fusion4landslide_tpu_torch.ops.knn import nn1
+from fusion4landslide_tpu_torch.ops.segments import label_members
+from fusion4landslide_tpu_torch.ops.supervoxel import (
+    supervoxel_graph,
+    supervoxel_segmentation,
+)
+from fusion4landslide_tpu_torch.pipelines.f2s3 import (
+    compute_dips_features,
+    drop_small_and_compact,
+    filter_supervoxel_buckets,
+)
 
-__all__ = ["dips_features_device", "drop_small_and_compact", "masked_median"]
+__all__ = [
+    "F2S3TileResult",
+    "StageTimer",
+    "dips_features_device",
+    "drop_small_and_compact",
+    "f2s3_tile_step",
+    "masked_median",
+]
+
+
+class StageTimer:
+    """Per-stage wall seconds, synchronised with the device at each mark
+    (only when the caller passes a ``timings`` dict)."""
+
+    def __init__(self, timings: dict | None, device: torch.device):
+        self.timings, self.device = timings, device
+        self.last = self._now() if timings is not None else 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.timings is None:
+            return
+        now = self._now()
+        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
+        self.last = now
 
 
 def masked_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -42,18 +97,151 @@ def dips_features_device(model, query, support, support_mask, radius, *,
     )
 
 
-def drop_small_and_compact(labels: torch.Tensor, valid: torch.Tensor, min_count):
-    """Labels with <= min_count valid members become -1; survivors are
-    renumbered 0..K-1 in order. Returns (labels (n,), n_labels ())."""
-    n = labels.shape[0]
-    has = valid & (labels >= 0)
-    lab0 = torch.where(has, labels, 0).long()
-    counts = torch.zeros((n,), dtype=torch.int32, device=labels.device)
-    counts.index_add_(0, lab0, has.to(torch.int32))
-    ok = has & (counts[lab0] > min_count)
-    used = torch.zeros((n,), dtype=torch.int32, device=labels.device).scatter_reduce(
-        0, lab0, ok.to(torch.int32), reduce="amax"
+class F2S3TileResult(NamedTuple):
+    new_tgt: torch.Tensor  # (N, 3) matched / rigid-predicted target per src point
+    keep: torch.Tensor  # (N,) survived learned pruning + max-magnitude gate
+    mag: torch.Tensor  # (N,) |new_tgt - src| (0 where not kept)
+    nn_tgt: torch.Tensor  # (N, 3) pre-pruning 1-NN target
+    labels: torch.Tensor  # (N,) supervoxel label per src point (-1 dropped)
+    median_res: torch.Tensor  # () max(src, tgt) median resolution
+    c2c: torch.Tensor  # (N,) spatial 1-NN distance src -> tgt (inf if disabled)
+    n_dropped: torch.Tensor  # () points lost to the static supervoxel caps
+    overflow: int  # grid-window blocks truncated to the window, this step
+
+
+def _count_bound(mask: torch.Tensor) -> int:
+    """Last valid row + 1 (not the mask sum, which undercounts a mask with
+    interior holes)."""
+    idx = torch.arange(1, mask.shape[0] + 1, device=mask.device)
+    return int(torch.where(mask, idx, 0).max())
+
+
+@torch.inference_mode()
+def f2s3_tile_step(
+    dips,
+    filt,
+    src: torch.Tensor,
+    smask: torch.Tensor,
+    tgt: torch.Tensor,
+    tmask: torch.Tensor,
+    max_disp: float = 0.0,
+    voxel_size: float = 0.0,
+    *,
+    patch_points: int = 256,
+    chunk: int = 2048,
+    k_neighbors: int = 30,
+    sv_cap: int = 1024,
+    member_cap: int = 512,
+    rockfall: bool = False,
+    refine_results: bool = True,
+    small_patch_removal: bool = True,
+    with_c2c: bool = True,
+    feat_dtype: str | None = None,
+    timings: dict | None = None,
+    device=None,
+) -> F2S3TileResult:
+    """One F2S3 tile: padded, centred (N, 3) ``src`` / (M, 3) ``tgt``
+    clouds with masks, on ``device`` (default ``cuda``; a CUDA run without
+    a card raises). ``dips`` is the PointNetFeature module, ``filt`` the
+    FilteringNetwork (its depth is the module's). ``max_disp`` <= 0
+    disables the magnitude gate; ``rockfall`` pins the supervoxel radius
+    to 0.1 (f2s3.py:185-186).
+
+    The JAX step takes a PRNG key and the CPU branches' sampler options
+    (``k_max``, ``sample_cap``, ``sample_priority``); on the accelerator
+    branch this port follows they feed nothing, so the port takes none.
+    ``timings`` (optional dict) accumulates per-stage seconds,
+    synchronising the device at each stage boundary.
+    """
+    if feat_dtype not in (None, "float32"):
+        raise NotImplementedError("only float32 descriptors are ported")
+    if patch_points % 128:
+        raise NotImplementedError("patch_points must be a multiple of 128")
+    dev = resolve_device(device)
+    src = torch.as_tensor(src, dtype=torch.float32, device=dev)
+    tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+    smask = torch.as_tensor(smask, device=dev).to(torch.bool)
+    tmask = torch.as_tensor(tmask, device=dev).to(torch.bool)
+    dips, filt = dips.to(dev), filt.to(dev)
+    f32 = src.dtype
+    stages = StageTimer(timings, dev)
+    n = src.shape[0]
+
+    # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
+    med_s, ov_s = median_nn_distance_traced(src, smask)
+    med_t, ov_t = median_nn_distance_traced(tgt, tmask)
+    median_res = torch.maximum(med_s, med_t)
+    overflow = ov_s + ov_t
+    radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
+    stages.mark("median_res")
+
+    # 2. DIPs descriptors (f2s3.py:91-154); rows past the last valid one
+    # skip the network.
+    feat_kw = dict(patch_points=patch_points, chunk=chunk)
+    src_feat, ov_s = dips_features_device(dips, src, src, smask, radius,
+                                          query_count=_count_bound(smask), **feat_kw)
+    tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius,
+                                          query_count=_count_bound(tmask), **feat_kw)
+    overflow = overflow + ov_s + ov_t
+    stages.mark("dips_features")
+
+    # 3. Supervoxels of the source (f2s3.py:183-189), small patches out.
+    if rockfall:
+        svl_radius = torch.tensor(0.1, dtype=f32, device=dev)
+    else:
+        svl_radius = torch.clamp(radius, min=float(voxel_size))
+    gi, gm, ov = supervoxel_graph(src, svl_radius, smask, k_neighbors=k_neighbors)
+    overflow = overflow + ov
+    seg = supervoxel_segmentation(src, svl_radius, smask, neigh_idx=gi, neigh_mask=gm)
+    labels, _ = drop_small_and_compact(seg.labels, smask, 10 if small_patch_removal else 1)
+    stages.mark("supervoxels")
+
+    # 4. Feature-space 1-NN (f2s3.py:273-285) through kernel 3; padded
+    # target rows masked.
+    nn_sq, nn_idx = nn1(src_feat, tgt_feat, tmask)
+    nn_tgt = tgt[nn_idx.long()]
+    nn_ok = smask & torch.isfinite(nn_sq)
+    correspondences = torch.cat([src, nn_tgt], dim=1)
+    stages.mark("feature_nn1")
+
+    # 5. Per-supervoxel learned pruning (f2s3.py:321-366).
+    member_idx, member_mask = label_members(labels, sv_cap, member_cap)
+    new_tgt_b, keep_b, scores_b, _ = filter_supervoxel_buckets(
+        filt, correspondences, member_idx, member_mask, rockfall=rockfall
     )
-    remap = torch.cumsum(used, 0) - 1
-    new = torch.where(ok, remap[lab0], -1)
-    return new.to(torch.int32), used.sum()
+    if not refine_results:
+        keep_b = member_mask & (scores_b > 0.99999)
+        new_tgt_b = correspondences[member_idx.long()][..., 3:6]
+    rows = member_idx[member_mask].long()
+    new_tgt = nn_tgt.clone()
+    new_tgt[rows] = new_tgt_b[member_mask]
+    keep = torch.zeros((n,), dtype=torch.bool, device=dev)
+    keep[rows] = keep_b[member_mask]
+    keep = keep & nn_ok
+    in_filter = torch.zeros((n,), dtype=torch.bool, device=dev)
+    in_filter[rows] = True
+    n_dropped = (smask & (labels >= 0) & ~in_filter).sum()
+    stages.mark("filter")
+
+    # 6. Max-magnitude gate (f2s3.py:392-394).
+    mag = torch.linalg.norm(new_tgt - src, dim=-1)
+    keep = keep & ((max_disp <= 0) | (mag <= max_disp))
+    mag = torch.where(keep, mag, 0.0)
+    stages.mark("gates")
+
+    # 7. C2C spatial 1-NN for the gap fill (f2s3.py:452-477).
+    if with_c2c:
+        c2c_sq, _, ov = knn_grid_traced(
+            src, tgt, 1, r0=4.0 * median_res, ref_mask=tmask, query_mask=smask,
+            max_doublings=10,
+        )
+        overflow = overflow + ov
+        c2c = torch.sqrt(c2c_sq[:, 0])
+    else:
+        c2c = torch.full((n,), torch.inf, dtype=f32, device=dev)
+    stages.mark("c2c")
+
+    return F2S3TileResult(
+        new_tgt=new_tgt, keep=keep, mag=mag, nn_tgt=nn_tgt, labels=labels,
+        median_res=median_res, c2c=c2c, n_dropped=n_dropped, overflow=int(overflow),
+    )

@@ -1,8 +1,9 @@
-"""Fine per-pair matching: quality gate + SVD + ICP.
+"""Global voxel matching and fine per-pair matching.
 
-Port of ``fusion4landslide_tpu.pipelines.fusion.fine_match_pairs``
-(reference base:3254-3436) with one correspondence channel (3D matches)
-and point2point ICP.
+Port of ``fusion4landslide_tpu.pipelines.fusion``: ``global_matches_3d``
+(the ungated search-then-gate feature 1-NN, reference base:2756-2889) and
+``fine_match_pairs`` (quality gate + SVD + ICP, reference base:3254-3436)
+with one correspondence channel (3D matches) and point2point ICP.
 """
 
 from __future__ import annotations
@@ -12,9 +13,29 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
+from fusion4landslide_tpu_torch.ops.knn import nn1
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 
-__all__ = ["FinePairResult", "fine_match_pairs"]
+__all__ = ["FinePairResult", "fine_match_pairs", "global_matches_3d"]
+
+
+def global_matches_3d(src_vox_feat, tgt_vox_feat, src_vox, tgt_vox, max_magnitude,
+                      src_valid=None, tgt_valid=None):
+    """Feature-space 1-NN voxel matches (kernel 3), gated by displacement
+    magnitude: (tgt_idx (Vs,) int32, valid (Vs,)). The JAX function pads
+    its inputs to bucket sizes for compile reuse; padding changes no row
+    of the result (padded refs are masked), so none is added here."""
+    n = src_vox_feat.shape[0]
+    dev = src_vox_feat.device
+    sv = (
+        torch.ones((n,), dtype=torch.bool, device=dev)
+        if src_valid is None
+        else src_valid.to(torch.bool)
+    )
+    sqd, idx = nn1(src_vox_feat, tgt_vox_feat, tgt_valid)
+    mag = torch.linalg.norm(src_vox - tgt_vox[idx.long()], dim=-1)
+    valid = torch.isfinite(sqd) & (mag <= max_magnitude) & sv
+    return idx, valid
 
 
 class FinePairResult(NamedTuple):

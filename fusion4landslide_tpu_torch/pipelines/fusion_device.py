@@ -14,12 +14,11 @@ member_cap)`` and what falls past them is counted in ``n_dropped``.
 
 Not ported yet (raise ``NotImplementedError``): the RGB 2D-match channel
 (image inputs), precomputed partition inputs (``sp_lab_*``), ICP types
-other than point2point, the ungated global match, and bf16 descriptors.
+other than point2point, and bf16 descriptors.
 """
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -38,10 +37,11 @@ from fusion4landslide_tpu_torch.ops.supervoxel import (
 )
 from fusion4landslide_tpu_torch.ops.voxel import segment_sum, voxel_downsample
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import (
+    StageTimer,
     dips_features_device,
     drop_small_and_compact,
 )
-from fusion4landslide_tpu_torch.pipelines.fusion import fine_match_pairs
+from fusion4landslide_tpu_torch.pipelines.fusion import fine_match_pairs, global_matches_3d
 
 __all__ = [
     "Fusion3DTileResult",
@@ -152,27 +152,6 @@ class Fusion3DTileResult(NamedTuple):
     overflow: int  # grid-window blocks truncated to the window, this step
 
 
-class _Stages:
-    """Per-stage wall seconds, synchronised with the device at each mark
-    (only when the caller passes a ``timings`` dict)."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings, self.device = timings, device
-        self.last = self._now() if timings is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.timings is None:
-            return
-        now = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
-        self.last = now
-
-
 def _per_level_caps(cap, n_levels: int):
     if isinstance(cap, int):
         floor = min(256, cap)
@@ -235,8 +214,6 @@ def fusion3d_tile_step(
         raise NotImplementedError("precomputed partition inputs are not ported yet")
     if icp_type != "point2point":
         raise NotImplementedError(f"icp_type {icp_type!r} is not ported yet")
-    if not global_gated:
-        raise NotImplementedError("the ungated global match is not ported yet")
     if feat_dtype not in (None, "float32"):
         raise NotImplementedError("only float32 descriptors are ported")
     if patch_points % 128:
@@ -248,7 +225,7 @@ def fusion3d_tile_step(
     tmask = torch.as_tensor(tmask, device=dev).to(torch.bool)
     dips, agg = dips.to(dev), agg.to(dev)
     f32 = src.dtype
-    stages = _Stages(timings, dev)
+    stages = StageTimer(timings, dev)
     N, M = src.shape[0], tgt.shape[0]
 
     # 1. median resolution + voxel subsampling on the union min corner.
@@ -277,10 +254,17 @@ def fusion3d_tile_step(
     overflow = overflow + ov_s + ov_t
     stages.mark("dips_features")
 
-    # 3. Gated global 3D voxel matches.
-    _, g_idx, g_valid = gated_feature_nn1(
-        src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
-    )
+    # 3. Global 3D voxel matches: the banded magnitude-gated search, or
+    # (global_gated=False) the reference's search-then-gate brute force
+    # through kernel 3.
+    if global_gated:
+        _, g_idx, g_valid = gated_feature_nn1(
+            src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
+        )
+    else:
+        g_idx, g_valid = global_matches_3d(
+            src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
+        )
     stages.mark("global_match")
 
     base_svl = torch.clamp(radius, min=float(voxel_size_init))

@@ -24,6 +24,17 @@ CPU path), ``port:no_icp`` (fine stage without ICP refinement),
 seed, so the two epochs' descriptors stop corresponding) and ``stages``
 (each stage of the port's step replayed through its JAX twin on the
 same inputs, see ``stages``).
+
+``--pipeline f2s3`` runs the F2S3 step instead (``f2s3_brienz.yaml``
+statics, ``seeded_models(0)`` and ``seeded_filter(0)``); "assigned" then
+reads "kept by the learned filter". Runs: ``jax``, ``port``,
+``port:no_refine`` (``refine_results: false``: only scores > 0.99999
+survive, no rigid re-fit) and ``port:tgt_shuffle`` (the target
+descriptors permuted, so feature matches are random):
+
+    PYTHONPATH=. python tests/test_torch_recovery.py --pipeline f2s3 \
+        --device cuda --n-core 250000 --margin 10 --halo 20 --chunk 2048 \
+        --runs port port:no_refine port:tgt_shuffle
 """
 
 from __future__ import annotations
@@ -38,9 +49,13 @@ import numpy as np
 import pytest
 import torch
 
-from fusion4landslide_tpu_torch.models.convert import params_from_flax, seeded_models
+from fusion4landslide_tpu_torch.models.convert import (
+    params_from_flax,
+    seeded_filter,
+    seeded_models,
+)
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
-from fusion4landslide_tpu_torch.parallel.pipeline import fusion3d_statics
+from fusion4landslide_tpu_torch.parallel.pipeline import f2s3_statics, fusion3d_statics
 from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_split_tile
 
 #: ``chip_smoke.py``'s production config (fusion_3d_brienz.yaml statics).
@@ -50,6 +65,13 @@ CFG = {
     "fine_max_matches": 256, "global_matching_gated": True, "output_tgt2src": False,
 }
 SCALARS = (5.0, 0.1, 0.1, 10, 10, 0.5, 0.15)
+#: ``chip_smoke.py``'s F2S3 config (f2s3_brienz.yaml statics) and its
+#: step scalars (max_disp_magnitude, voxel_size).
+F2S3_CFG = {
+    "n_normals": 30, "fill_gaps_c2c": True, "refine_results": True,
+    "small_patch_removal": True, "feat_patch_points": 256,
+}
+F2S3_SCALARS = (5.0, 0.1)
 
 
 def flax_from_state_dict(sd: dict) -> dict:
@@ -141,7 +163,23 @@ def _fault(name: str | None):
             from fusion4landslide_tpu_torch.pipelines import f2s3_device
 
             mp.setattr(f2s3_device, "compute_dips_features", counted)
-        elif name not in (None, "no_icp"):
+        elif name == "tgt_shuffle":
+            from fusion4landslide_tpu_torch.pipelines import f2s3_device
+
+            feats = f2s3_device.dips_features_device
+            calls = {"clouds": 0}
+
+            def shuffled(*a, query_count=None, **kw):
+                out, overflow = feats(*a, query_count=query_count, **kw)
+                calls["clouds"] += 1
+                if calls["clouds"] == 2:  # the target cloud
+                    gen = torch.Generator().manual_seed(0)
+                    perm = torch.randperm(int(query_count), generator=gen).to(out.device)
+                    out[: int(query_count)] = out[perm]
+                return out, overflow
+
+            mp.setattr(f2s3_device, "dips_features_device", shuffled)
+        elif name not in (None, "no_icp", "no_refine"):
             raise ValueError(f"unknown fault {name!r}")
         yield
 
@@ -187,6 +225,47 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
                      median_res=float(out.median_res), overflow=out.overflow)
     rec = recovery(valid, moved, tile["sb"][:n], tile["core"], tile["moving"])
     return {"run": kind, **rec, **extra, "valid": valid, "moved": moved,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_f2s3(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
+    """One F2S3 run (``jax``, ``port`` or ``port:<fault>``) on ``tile``
+    with ``seeded_models(0)`` and ``seeded_filter(0)``; returns its
+    recovery readings over the points the filter kept."""
+    N, M, n = tile["sb"].shape[0], tile["tb"].shape[0], tile["n"]
+    statics = f2s3_statics({**F2S3_CFG, "feat_chunk": chunk}, N, M)
+    td, _ = seeded_models(0, "cpu")
+    tf = seeded_filter(0, "cpu")
+    fault = kind.split(":", 1)[1] if ":" in kind else None
+    if fault == "no_refine":
+        statics["refine_results"] = False
+    t0 = time.perf_counter()
+    if kind == "jax":
+        import jax
+
+        from fusion4landslide_tpu.pipelines.f2s3_device import f2s3_tile_step
+
+        with tpu_branch_emulated():
+            out = f2s3_tile_step(
+                flax_from_state_dict(td.state_dict()), flax_from_state_dict(tf.state_dict()),
+                tile["sb"], tile["sm"], tile["tb"], tile["tm"], jax.random.PRNGKey(0),
+                *F2S3_SCALARS, num_layers=tf.num_layers,
+                **{k: v for k, v in statics.items() if k != "feat_dtype"},
+            )
+            keep, moved = np.asarray(out.keep[:n]), np.asarray(out.new_tgt[:n])
+    else:
+        from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
+
+        with _fault(fault):
+            out = f2s3_tile_step(
+                td, tf, torch.from_numpy(tile["sb"]), torch.from_numpy(tile["sm"]),
+                torch.from_numpy(tile["tb"]), torch.from_numpy(tile["tm"]), *F2S3_SCALARS,
+                device=device, **statics,
+            )
+        keep, moved = out.keep[:n].cpu().numpy(), out.new_tgt[:n].cpu().numpy()
+    rec = recovery(keep, moved, tile["sb"][:n], tile["core"], tile["moving"])
+    return {"run": "f2s3:" + kind, **rec, "kept": float(keep.mean()),
+            "median_res": float(out.median_res), "valid": keep, "moved": moved,
             "seconds": time.perf_counter() - t0}
 
 
@@ -356,6 +435,7 @@ def main() -> None:
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--chunk", type=int, default=512)
     ap.add_argument("--runs", nargs="+", default=["jax", "port"])
+    ap.add_argument("--pipeline", choices=("fusion", "f2s3"), default="fusion")
     args = ap.parse_args()
     torch.set_grad_enabled(False)
     tile = split_tile(args.n_core, args.margin, args.halo)
@@ -369,15 +449,16 @@ def main() -> None:
         if kind == "stages":
             print(json.dumps({"stages": stages(tile, args.chunk)}), flush=True)
             continue
-        res = run(kind, tile, args.device, args.chunk)
+        res = (run_f2s3 if args.pipeline == "f2s3" else run)(kind, tile, args.device, args.chunk)
         done.append(res)
         print(json.dumps({k: v for k, v in res.items() if k not in ("valid", "moved")}),
               flush=True)
     by = {r["run"]: r for r in done}
-    if "jax" in by and "port" in by:
-        vj, vt = by["jax"]["valid"], by["port"]["valid"]
+    pre = "f2s3:" if args.pipeline == "f2s3" else ""
+    if pre + "jax" in by and pre + "port" in by:
+        vj, vt = by[pre + "jax"]["valid"], by[pre + "port"]["valid"]
         common = vj & vt
-        gap = np.linalg.norm(by["jax"]["moved"][common] - by["port"]["moved"][common], axis=1)
+        gap = np.linalg.norm(by[pre + "jax"]["moved"][common] - by[pre + "port"]["moved"][common], axis=1)
         print(json.dumps({"jax_vs_port": {
             "overlap_frac": float(common.sum()) / max(int(vj.sum()), int(vt.sum()), 1),
             "median_gap_m": float(np.median(gap)) if gap.size else None,

@@ -77,7 +77,7 @@ def _port_step(tile, td, ta, **kw):
     )
 
 
-def test_fusion3d_tile_step_matches_emulated_jax(tile, params, monkeypatch):
+def _emulated_jax_step(tile, params, monkeypatch, **kw):
     from fusion4landslide_tpu.ops import hashgrid_pallas, knn_pallas
 
     jax.clear_caches()
@@ -90,16 +90,19 @@ def test_fusion3d_tile_step_matches_emulated_jax(tile, params, monkeypatch):
         monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name), interpret=True))
     from fusion4landslide_tpu.pipelines.fusion_device import fusion3d_tile_step
 
-    dips, agg, td, ta = params
+    dips, agg, _, _ = params
     jo = fusion3d_tile_step(
         dips, agg, tile["sb"], tile["sm"], tile["tb"], tile["tm"],
-        jax.random.PRNGKey(0), *SCALARS, **STATICS,
+        jax.random.PRNGKey(0), *SCALARS, **STATICS, **kw,
     )
     jo = jax.tree.map(np.asarray, jo)
     jax.clear_caches()
-    to = _port_step(tile, td, ta, **STATICS)
-    n, m = tile["n"], tile["m"]
+    return jo
 
+
+def _assert_step_parity(jo, to, tile):
+    """``tools/parity_check.py``'s scoring of two paths."""
+    n, m = tile["n"], tile["m"]
     assert int(jo.n_vox_src) == int(to.n_vox_src)
     assert int(jo.n_vox_tgt) == int(to.n_vox_tgt)
     assert abs(float(jo.median_res) - float(to.median_res)) <= 1e-6 * float(jo.median_res)
@@ -119,6 +122,20 @@ def test_fusion3d_tile_step_matches_emulated_jax(tile, params, monkeypatch):
     both = tj & tt
     t2s_gap = np.linalg.norm(jo.t2s_src_est[:m][both] - to.t2s_src_est[:m].numpy()[both], axis=1)
     assert np.median(t2s_gap) < 1e-4
+
+
+def test_fusion3d_tile_step_matches_emulated_jax(tile, params, monkeypatch):
+    jo = _emulated_jax_step(tile, params, monkeypatch)
+    _, _, td, ta = params
+    _assert_step_parity(jo, _port_step(tile, td, ta, **STATICS), tile)
+
+
+def test_fusion3d_ungated_global_match_matches_emulated_jax(tile, params, monkeypatch):
+    """``global_matching_gated: false``: the search-then-gate feature 1-NN
+    through kernel 3 (``knn_pallas`` in the JAX step)."""
+    jo = _emulated_jax_step(tile, params, monkeypatch, global_gated=False)
+    _, _, td, ta = params
+    _assert_step_parity(jo, _port_step(tile, td, ta, **STATICS, global_gated=False), tile)
 
 
 def test_runner_writes_the_step_tables(tile, params, tmp_path):
@@ -155,7 +172,7 @@ def test_runner_writes_the_step_tables(tile, params, tmp_path):
 
 def test_unported_options_raise(tile, params):
     _, _, td, ta = params
-    for kw in (dict(icp_type="point2plane"), dict(global_gated=False),
+    for kw in (dict(icp_type="point2plane"),
                dict(feat_dtype="bfloat16"), dict(patch_points=64),
                dict(pix_matches=np.zeros((1, 4, 4), np.float32)),
                dict(sp_lab_src=np.zeros((1, 4), np.int32))):
