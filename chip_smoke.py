@@ -14,11 +14,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    a production-density grid: k = 1 with and without ``exclude_self``,
    and k = 3;
 3. kernel 1 (radius sampler) against its plain version: P = 256
-   ``'random'`` and P = 128 ``'distance'``;
-4. kernel 3 (feature kNN) against its plain version: the F2S3 tile's
-   shape (524 288 x 524 288 x 64, k = 1, refs past 489 362 masked) and
-   65 536 x 65 536 x 64 at k = 8 with ``exclude_self``, on seeded
-   unit-norm features; the plain version on the first 2 048 query rows;
+   ``'random'`` and P = 128 ``'distance'``, each timed at its main-path
+   launch shape: 128 blocks at P = 256 ``'random'`` (DIPs) and every
+   block at P = 128 ``'distance'`` (the F2S3 supervoxel graph);
+4. kernel 3 (feature kNN) against its plain version, bit for bit: the
+   F2S3 tile's shape (524 288 x 524 288 x 64, k = 1, refs past 489 362
+   masked) and 65 536 x 65 536 x 64 at k = 8 with ``exclude_self``, on
+   seeded unit-norm features, the plain version on the first 2 048 query
+   rows; and a near-tie stress shape (32 768 rows of 64, self-kNN at
+   k = 8 with ``exclude_self``: exact duplicates, rows one ulp apart,
+   norms over 1e-3..1e3) on every row; prints the rescored candidates per
+   row and the tensor-core bound beside the float32 one;
 5. small tiles on the card against the port's CPU path (the path the CPU
    tests hold against the JAX package): the fusion step with the gated
    and with the ungated global match (scored as ``tools/parity_check.py``
@@ -40,8 +46,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    tile through the host tile ``run_f2s3_tile`` (launches, time, peak
    memory, tables, finite outputs);
 8. a ``kernels`` JSON line: launches on the F2S3 tile step (and per
-   path), time, plain-version time, the least time the card could take
-   (bound), what bounds it, and a library yardstick where one exists;
+   path), time, the time before this redesign (``ms_before``),
+   plain-version time, the least time the card could take (bound), what
+   bounds it, and a library yardstick where one exists;
 9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
@@ -60,9 +67,11 @@ import time
 import numpy as np
 import torch
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s.
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
+#: FLOP/s, dense TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 #: Recovery floors of the production tile with ``seeded_models(0)``. On an
 #: H100 80GB HBM3 (700 W) the port reads 45.6% of the static core
 #: assigned, 3.57 mm median static and 7.91 mm median moving error; the
@@ -89,7 +98,16 @@ RECOVERY = {"static_assigned": 0.42, "static_err_m": 4.0e-3, "moving_err_m": 8.5
 RECOVERY_F2S3 = {"kept": 0.0015, "static_err_m": 3.0, "moving_err_m": 1.0e-2}
 #: float32 operations per candidate evaluation in each kernel.
 OPS_GRID_KNN = 7  # 3 mul + 3 add for the score, 1 compare
-OPS_RADIUS_SAMPLE = 19  # centring, |r|^2, score, d^2, 2 compares
+OPS_RADIUS_SAMPLE = 9  # the 7 of d^2 (3-term dot, + |r|^2, + |qc|^2), 2 tests
+#: Kernel 1's operations per (query block, window position), counted once
+#: per block: centring (3), |r|^2 in the frame (5), mask and hash (~4).
+OPS_RADIUS_STAGE = 12
+#: Kernel 3's epilogue operations per (query, ref) pair on the CUDA cores:
+#: two FMAs (s^ - delta) and a min.
+OPS_KNN_EPILOGUE = 5
+#: Each kernel's time per launch before this round of redesign, on an
+#: H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py of the parent tree).
+MS_BEFORE = {"grid_knn": 4.073, "radius_sample": 5.620, "knn": 1623.3}
 #: Kernel 3's plain version runs on this many query rows.
 KNN_PLAIN_ROWS = 2048
 #: f2s3_brienz.yaml's settings that the F2S3 runner reads.
@@ -130,9 +148,11 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes at the HBM rate and
+    the operations at ``peak`` FLOP/s."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -353,10 +373,28 @@ def f2s3_host_small_parity(dev) -> dict:
     return launches
 
 
+def near_tie_feats(rows: int, gen) -> torch.Tensor:
+    """(rows, 64) features built to flip a TF32 selection: norms spread
+    over 1e-3..1e3, every 8th row an exact copy of the row 5 before it,
+    and every 8th row (from row 3) one ulp above the row before it in
+    every element."""
+    dev = gen.device
+    x = torch.randn((rows, 64), generator=gen, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    x = x * 10.0 ** (6.0 * torch.rand((rows, 1), generator=gen, device=dev) - 3.0)
+    dup = torch.arange(8, rows, 8, device=dev)
+    x[dup] = x[dup - 5]
+    ulp = torch.arange(3, rows, 8, device=dev)
+    x[ulp] = torch.nextafter(x[ulp - 1], torch.full_like(x[ulp - 1], torch.inf))
+    return x
+
+
 def knn_phase(dev, N: int, n_valid: int) -> dict:
-    """Kernel 3 against its plain version at the F2S3 tile's shape and at
-    k = 8 with exclude_self; times the kernel, the plain version (on
-    ``KNN_PLAIN_ROWS`` query rows) and the composite library yardstick."""
+    """Kernel 3 against its plain version, bit for bit: at the F2S3 tile's
+    shape, at k = 8 with exclude_self and on a near-tie stress shape;
+    prints the rescored candidates per row; times the kernel, the plain
+    version (on ``KNN_PLAIN_ROWS`` query rows) and the composite library
+    yardstick."""
     from fusion4landslide_tpu_torch.checks import knn_agreement
     from fusion4landslide_tpu_torch.ops import knn_cuda as kc
 
@@ -370,21 +408,33 @@ def knn_phase(dev, N: int, n_valid: int) -> dict:
 
     worst, rows = 0.0, KNN_PLAIN_ROWS
     n8 = min(65536, N)
-    for n_k, m_valid, k, excl in ((N, n_valid, 1, False), (n8, n8 - n8 // 64, 8, True)):
-        fq, fr = unit_feats(n_k), unit_feats(n_k)
-        ref_mask = torch.arange(n_k, device=dev) < m_valid
+    ns = min(32768, N)
+    stress = near_tie_feats(ns, gen)
+    shapes = (
+        ("tile", unit_feats(N), unit_feats(N), n_valid, 1, False, rows),
+        ("k8", unit_feats(n8), unit_feats(n8), n8 - n8 // 64, 8, True, rows),
+        # Self-kNN of the stress rows: exact duplicates tie at distance 0.
+        ("near_tie", stress, stress, ns, 8, True, ns),
+    )
+    rescored = {}
+    for tag, fq, fr, m_valid, k, excl, rows_k in shapes:
+        n_k = fq.shape[0]
+        ref_mask = torch.arange(fr.shape[0], device=dev) < m_valid
         q2 = kc.sq_norms(fq)
         r2 = torch.where(ref_mask, kc.sq_norms(fr), torch.inf)
         d_k, i_k = kc.knn_feature(fq, fr, k, ref_mask, exclude_self=excl)
+        rescored[tag] = int(kc.RESCORED[0]) / n_k
         # The first rows: local and global row numbers agree (exclude_self).
-        d_p, i_p = kc.knn_plain(fq[:rows], fr, k + 1, q2[:rows], r2, exclude_self=excl)
-        agr = knn_agreement(d_p[:, :k], i_p[:, :k], d_k[:rows], i_k[:rows], d_next=d_p[:, k])
-        agr["bit_equal"] = bool(torch.equal(d_p[:, :k], d_k[:rows]) and torch.equal(i_p[:, :k], i_k[:rows]))
-        log(f"# feature kNN {n_k} x {n_k} x 64 k={k} exclude_self={excl} rows={rows}: {json.dumps(agr)}")
-        check(agr["finite_equal"] and agr["dist_ok"] and agr["index_mismatch"] == 0, agr)
+        d_p, i_p = kc.knn_plain(fq[:rows_k], fr, k + 1, q2[:rows_k], r2, exclude_self=excl)
+        agr = knn_agreement(d_p[:, :k], i_p[:, :k], d_k[:rows_k], i_k[:rows_k], d_next=d_p[:, k])
+        agr["bit_equal"] = bool(torch.equal(d_p[:, :k], d_k[:rows_k]) and torch.equal(i_p[:, :k], i_k[:rows_k]))
+        agr["rescored_per_row"] = rescored[tag]
+        log(f"# feature kNN {tag}: {n_k} x {fr.shape[0]} x 64 k={k} exclude_self={excl} "
+            f"rows={rows_k}: {json.dumps(agr)}")
+        check(agr["bit_equal"] and agr["finite_equal"] and agr["index_mismatch"] == 0, agr)
         worst = max(worst, agr["max_abs_err"])
-        if k == 1:
-            ms = cuda_ms(lambda: kc._knn_cuda(fq, fr, 1, q2, r2, exclude_self=False), reps=2)
+        if tag == "tile":
+            ms = cuda_ms(lambda: kc._knn_cuda(fq, fr, 1, q2, r2, exclude_self=False), reps=3)
             plain_ms = cuda_ms(lambda: kc.knn_plain(fq[:rows], fr, 1, q2[:rows], r2), reps=1)
 
             def library():
@@ -393,14 +443,25 @@ def knn_phase(dev, N: int, n_valid: int) -> dict:
                     torch.min(r2[None, :] - 2.0 * torch.matmul(fq[s0:s0 + 2048], fr.T), dim=1)
 
             library_ms = cuda_ms(library, reps=1)
-            b_ms, b_by = bound(4 * (2 * n_k * 64 + 2 * n_k + 2 * n_k), 2.0 * n_k * m_valid * 64)
-    log(f"# phase feature kNN: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {rows} rows, "
-        f"composite matmul + min {library_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+            # Bound: the 3xTF32 products of the refs up to the last unmasked
+            # one on the tensor cores; beside it the same dot in float32 off
+            # the tensor cores and the epilogue's per-pair operations.
+            in_out = 4 * (2 * n_k * 64 + 2 * n_k + 2 * n_k)
+            pairs = n_k * m_valid
+            b_ms, b_by = bound(in_out, 3 * 2.0 * pairs * 64, TF32_FLOPS)
+            f32_ms, _ = bound(in_out, 2.0 * pairs * 64)
+            epi_ms = OPS_KNN_EPILOGUE * pairs / F32_FLOPS * 1e3
+    log(f"# phase feature kNN: kernel {ms:.3f} ms (before {MS_BEFORE['knn']} ms), plain "
+        f"{plain_ms:.1f} ms on {rows} rows, composite matmul + min {library_ms:.1f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}, 3 x 2 n m D TF32 at 495 TF/s; float32 off the "
+        f"tensor cores {f32_ms:.3f} ms, epilogue {epi_ms:.3f} ms), rescored per row "
+        f"{json.dumps(rescored)}")
     return dict(
         name="knn", route="cuda", source="fusion4landslide_tpu_torch/csrc/knn.cu",
         replaces="fusion4landslide_tpu/ops/knn_pallas.py:50", max_abs_err=worst, ms=ms,
         plain_ms=plain_ms, plain_rows=rows, bound_ms=b_ms, bound_by=b_by,
         library_ms=library_ms, library="chunked torch.matmul + torch.min (composite, TF32 off)",
+        bound_f32_ms=f32_ms, bound_epilogue_ms=epi_ms, rescored_per_row=rescored,
     )
 
 
@@ -416,7 +477,7 @@ def main() -> int:
         sampler_borderline_rows,
     )
     from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
-    from fusion4landslide_tpu_torch.ops import cuda_build, hashgrid_cuda as hc
+    from fusion4landslide_tpu_torch.ops import cuda_build, hashgrid_cuda as hc, knn_cuda as kc
     from fusion4landslide_tpu_torch.ops.hashgrid import (
         _density_radius,
         build_hash_grid,
@@ -528,23 +589,35 @@ def main() -> int:
         log(f"# sampler P={P} {prio}: {json.dumps(agr)}")
         check(agr["exact_frac"] >= 0.999 and agr["unexplained_rows"] == 0, agr)
         worst = max(worst, err)
-    # Timed at the main path's launch shape: one range of 128 query blocks,
-    # P = 256 'random' (the DIPs patch sampler).
+    # Timed at the main path's launch shapes: one range of 128 query blocks,
+    # P = 256 'random' (the DIPs patch sampler), and every block at
+    # P = 128 'distance' (the F2S3 supervoxel graph, at the patch radius).
+    def sampler_bound(b1: int, P: int) -> tuple[float, str]:
+        positions, cands = window_work(win_r, chunk, 0, b1)
+        rows_out = b1 * 512
+        return bound(positions * 20 + rows_out * 12 + rows_out * P * 20,
+                     cands * OPS_RADIUS_SAMPLE + positions * OPS_RADIUS_STAGE)
+
     b1 = min(128, win_r.nb)
     ms = cuda_ms(lambda: hc._radius_sample_cuda(win_r, cen, r2, 256, 0, "random", chunk=chunk, b0=0, b1=b1))
     plain_ms = cuda_ms(lambda: hc.radius_sample_plain(win_r, cen, r2, 256, 0, "random", chunk=chunk, blocks=range(b1)), reps=1)
-    positions, cands = window_work(win_r, chunk, 0, b1)
-    rows_out = b1 * 512
-    b_ms, b_by = bound(positions * 20 + rows_out * 12 + rows_out * 256 * 20, cands * OPS_RADIUS_SAMPLE)
+    b_ms, b_by = sampler_bound(b1, 256)
+    sv_ms = cuda_ms(lambda: hc._radius_sample_cuda(win_r, cen, r2, 128, 0, "distance", chunk=chunk, b0=0, b1=win_r.nb))
+    sv_b_ms, sv_b_by = sampler_bound(win_r.nb, 128)
     kernels["radius_sample"] = dict(
         name="radius_sample", route="cuda",
         source="fusion4landslide_tpu_torch/csrc/radius_sample.cu",
         replaces="fusion4landslide_tpu/ops/hashgrid_pallas.py:288",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, graph_ms=sv_ms, graph_bound_ms=sv_b_ms,
     )
-    log(f"# phase sampler: kernel {ms:.3f} ms per {b1}-block launch, plain "
-        f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), {cands} candidate evaluations")
+    log(f"# phase sampler: kernel {ms:.3f} ms per {b1}-block P = 256 'random' launch "
+        f"(before {MS_BEFORE['radius_sample']} ms), plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}, {window_work(win_r, chunk, 0, b1)[1]} evaluations x "
+        f"{OPS_RADIUS_SAMPLE} + {window_work(win_r, chunk, 0, b1)[0]} block positions x "
+        f"{OPS_RADIUS_STAGE} f32 ops); supervoxel-graph launch ({win_r.nb} blocks, P = 128 "
+        f"'distance') {sv_ms:.3f} ms, bound {sv_b_ms:.3f} ms ({sv_b_by}, "
+        f"{window_work(win_r, chunk)[1]} evaluations)")
     del win, win_r, grid, grid_r, cen
     torch.cuda.empty_cache()
 
@@ -646,7 +719,8 @@ def main() -> int:
     by_path["f2s3"] = launches
     out = res[0]
     log(f"# F2S3 tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
-        f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
+        f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}, "
+        f"kernel 3 rescored {int(kc.RESCORED[0]) / N:.2f} candidates per row")
     log("# F2S3 stages (s): " + json.dumps({k: round(v, 3) for k, v in f_timings.items()}))
     log(f"# F2S3 tables: {written}")
     check(min(launches.values()) > 0, launches)
@@ -698,6 +772,7 @@ def main() -> int:
     # keep is the pruning's; the max-magnitude gate then drops rows of the
     # written table (the device step's keep includes the gate).
     log(f"# F2S3 host tile: {step_s:.2f} s, peak {peak:.2f} GiB, launches {launches}, "
+        f"kernel 3 rescored {int(kc.RESCORED[0]) / n:.2f} candidates per row, "
         f"{int(out['labels'].max()) + 1} supervoxels, pruning kept {keep.mean():.6f} of "
         f"the tile, {out['dvfs'].shape[0] / n:.6f} written after the magnitude gate")
     check(min(launches.values()) > 0, launches)
@@ -707,6 +782,7 @@ def main() -> int:
 
     # ---- 8. kernels line + 9. result line --------------------------------
     for name, row in kernels.items():
+        row["ms_before"] = MS_BEFORE[name]
         row["launches"] = by_path["f2s3"][name]
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

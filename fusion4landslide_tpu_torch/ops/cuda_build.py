@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds. Libraries go to ``_build/`` beside the package
-(listed in ``.gitignore``), named by a hash of their source so an edited
-kernel is rebuilt. ``build_all`` starts one ``nvcc`` per source, all at
+(listed in ``.gitignore``), named by a hash of their source, the ``csrc``
+headers it includes and the compiler flags, so an edited kernel, header or
+flag is rebuilt. ``build_all`` starts one ``nvcc`` per source, all at
 once; ``load`` builds a single library at first use. ``LAUNCHES`` counts
 each kernel's launches (its wrapper adds one per launch; calls of the
 plain versions are not counted).
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -33,6 +35,7 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -43,8 +46,16 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    """Library path named by a hash of the source, of every ``csrc`` header
+    it includes (``#include "x.cuh"``) and of the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src)
+    for header in sorted(set(_INCLUDE.findall(src.decode()))):
+        path = CSRC / header
+        if path.exists():
+            h.update(path.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

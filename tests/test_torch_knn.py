@@ -12,6 +12,7 @@ with the port's (k+1)-th distance.
 
 import functools
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +24,15 @@ from fusion4landslide_tpu.ops.knn_pallas import knn_pallas
 from fusion4landslide_tpu_torch.checks import knn_agreement
 from fusion4landslide_tpu_torch.ops import knn as tknn
 from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
-from fusion4landslide_tpu_torch.ops.knn_cuda import knn_feature, knn_plain, sq_norms
+from fusion4landslide_tpu_torch.ops.knn_cuda import (
+    filter_terms,
+    knn_feature,
+    knn_plain,
+    sq_norms,
+    tf32_pack,
+    tf32_split,
+)
+from hypothesis import given, settings, strategies as st
 
 # The JAX ``ops`` package re-exports the function ``knn`` under the
 # module's name.
@@ -199,10 +208,235 @@ def test_median_nn_distance_and_nn1_spatial_match_jax(tpu_branch):
     assert (np.asarray(ji) == ti.numpy()).mean() >= 0.999
 
 
+# --------------------------------------------------------------------------
+# Kernel 3's TF32 filter, emulated: the split, the certified margin, and
+# filter-then-rescore selection. The CUDA kernel itself runs on the card
+# only; these hold its arithmetic argument on the CPU.
+# --------------------------------------------------------------------------
+
+_F32_BITS = st.integers(min_value=0, max_value=2**32 - 1).map(
+    lambda b: np.array([b], np.uint32).view(np.float32)[0]
+).filter(math.isfinite)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(st.lists(_F32_BITS, min_size=1, max_size=64))
+def test_tf32_split_is_exact(values):
+    """hi keeps no low 13 mantissa bits, hi + lo == x bit for bit, and lo
+    is below 2^-10 |hi| for normal x."""
+    x = torch.tensor(np.array(values, np.float32))
+    hi, lo = tf32_split(x)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert torch.equal((hi + lo).view(torch.int32), x.view(torch.int32))
+    normal = x.abs() >= 2.0**-126
+    assert (lo.abs() <= hi.abs() * 2.0**-10)[normal].all()
+
+
+def test_tf32_pack_pads_narrow_rows_with_zeros():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(37, 20)).astype(np.float32))
+    packed = tf32_pack(x, 128)
+    hi, lo = tf32_split(x)
+    assert packed.shape == (128, 128)
+    assert torch.equal(packed[:37, :20], hi) and torch.equal(packed[:37, 64:84], lo)
+    assert not packed[:37, 20:64].any() and not packed[:37, 84:].any()
+    assert not packed[37:].any()
+    assert torch.equal(packed[:37, :64] + packed[:37, 64:], torch.nn.functional.pad(x, (0, 44)))
+
+
+def _tf32_trunc(x: np.ndarray) -> np.ndarray:
+    """What the tensor core reads of a float32 operand: the low 13 mantissa
+    bits dropped."""
+    return (x.astype(np.float32).view(np.int32) & np.int32(-(1 << 13))).view(np.float32)
+
+
+def _f32_toward_zero(x: np.ndarray) -> np.ndarray:
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(y, np.float32(0)), y)
+
+
+def _emulated_3xtf32_dot(q: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """(n, m) c^ = sum_d lo_q hi_r + hi_q lo_r + hi_q hi_r with both parts
+    TF32-truncated, the products exact, summed in float32 in groups of 8
+    (reversed order inside a group), group sums added in turn, every sum
+    rounded toward zero (a tensor core may truncate)."""
+    q_hi, r_hi = _tf32_trunc(q), _tf32_trunc(r)
+    q_lo, r_lo = _tf32_trunc(q - q_hi), _tf32_trunc(r - r_hi)
+
+    def add(a, b):
+        return _f32_toward_zero(a.astype(np.float64) + b)
+
+    acc = np.zeros((q.shape[0], r.shape[0]), np.float32)
+    for d0 in range(0, q.shape[1], 8):
+        terms = []
+        for d in range(d0, min(d0 + 8, q.shape[1])):
+            for a, b in ((q_lo, r_hi), (q_hi, r_lo), (q_hi, r_hi)):
+                terms.append(np.multiply.outer(a[:, d], b[:, d]).astype(np.float32))
+        group = np.zeros_like(acc)
+        for t in reversed(terms):
+            group = add(group, t)
+        acc = add(acc, group)
+    return acc
+
+
+def _exact_scores(q, r, r2) -> np.ndarray:
+    """(n, m) |r|^2 - 2 q.r with the kernel's unfused float32 chain."""
+    acc = np.zeros((q.shape[0], r.shape[0]), np.float32)
+    for d in range(q.shape[1]):
+        acc = acc + np.multiply.outer(q[:, d], r[:, d]).astype(np.float32)
+    return (r2[None, :] - np.float32(2.0) * acc).astype(np.float32)
+
+
+def _kernel_lower_bounds(q, r, r2):
+    """((n, m) lower_ij, (n,) B_i) as the kernel forms them from
+    ``filter_terms``: an emulated 3xTF32 centred dot product (truncating
+    sums), then lower = fma(-W_j, P_i, fma(-2, c', A_j)) in float32."""
+    ft = filter_terms(torch.from_numpy(q), torch.from_numpy(r), torch.from_numpy(r2))
+    n, m, d = q.shape[0], r.shape[0], q.shape[1]
+    a = (ft.qpack[:n, :d] + ft.qpack[:n, 64:64 + d]).numpy()
+    b = (ft.rpack[:m, :d] + ft.rpack[:m, 64:64 + d]).numpy()
+    c = _emulated_3xtf32_dot(a, b).astype(np.float64)
+    inner = (ft.ref_a[:m].double().numpy()[None, :] - 2.0 * c).astype(np.float32)
+    lower = (inner - np.multiply.outer(ft.row_p[:n].double().numpy(), ft.ref_w[:m].double().numpy())).astype(np.float32)
+    return lower, ft.row_b[:n].numpy()
+
+
+@pytest.mark.parametrize("kind", ["unit", "spread", "clustered"])
+@pytest.mark.parametrize("d", [16, 33, 64])
+def test_margin_bounds_emulated_3xtf32_score(kind, d):
+    """The kernel's certified lower bound never exceeds the exact chain:
+    lower_ij + B_i <= s_ij for an emulated tensor-core score (TF32
+    truncation of both parts, truncating float32 sums in k8 groups,
+    reversed within a group), on unit-norm features, on unnormalised ones
+    with row norms over 1e-3..1e3, and on clustered unit features (the
+    random-init DIPs descriptors sit within ~0.04 of their mean)."""
+    rng = np.random.default_rng(100 + d)
+    q, r = _feats(rng, 120, d), _feats(rng, 150, d)
+    if kind == "spread":
+        q = (q * 10.0 ** rng.uniform(-3, 3, size=(120, 1))).astype(np.float32)
+        r = (r * 10.0 ** rng.uniform(-3, 3, size=(150, 1))).astype(np.float32)
+    elif kind == "clustered":
+        centre = _feats(rng, 1, d)
+        q = centre + 0.04 * q
+        r = centre + 0.04 * r
+        q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+        r = (r / np.linalg.norm(r, axis=1, keepdims=True)).astype(np.float32)
+    r2 = sq_norms(torch.from_numpy(r)).numpy()
+    exact = _exact_scores(q, r, r2).astype(np.float64)
+    lower, b = _kernel_lower_bounds(q, r, r2)
+    bound = lower.astype(np.float64) + b.astype(np.float64)[:, None]
+    assert (bound <= exact).all(), (bound - exact).max()
+    # The margin stays a small multiple of the chain's own rounding.
+    qn = np.linalg.norm(q.astype(np.float64), axis=1)
+    rn = np.linalg.norm(r.astype(np.float64), axis=1)
+    scale = np.multiply.outer(qn, rn) + (rn * rn)[None, :]
+    assert ((exact - bound) / scale).max() < 2.0 ** -11
+
+
+def _near_tie_feats(rng, rows: int) -> np.ndarray:
+    """Rows built to flip a TF32 selection (as ``chip_smoke.py``'s stress
+    shape): norms over 1e-3..1e3, exact duplicates, rows one ulp apart."""
+    x = _feats(rng, rows, 64) * 10.0 ** rng.uniform(-3, 3, size=(rows, 1))
+    x = x.astype(np.float32)
+    dup = np.arange(8, rows, 8)
+    x[dup] = x[dup - 5]
+    ulp = np.arange(3, rows, 8)
+    x[ulp] = np.nextafter(x[ulp - 1], np.float32(np.inf))
+    return x
+
+
+def _primed(bd, b):
+    """The kernel's threshold: an upper bound of bd - B (+inf if bd is)."""
+    t = (np.float32(bd) - np.float32(b)).astype(np.float32)
+    t = np.float32(t + np.float32(2.0**-22) * (abs(np.float32(bd)) + abs(np.float32(b))))
+    return np.float32(np.inf) if not np.isfinite(bd) else t
+
+
+def _filter_then_rescore(q, r, k, exclude_self):
+    """The kernel's selection, emulated: per row, four lists (the columns
+    8 jc + 2 tq + e of each 128-ref tile belong to thread tq); per tile a
+    thread's threshold is primed(its k-th best) (for k = 1 the best of the
+    four); a ref is rescored with the exact chain only when its certified
+    lower bound is at most the threshold, then inserted with strict <; the
+    four lists merge by (score, index). Returns the output and the count of
+    rescored candidates."""
+    n, m = q.shape[0], r.shape[0]
+    r2 = sq_norms(torch.from_numpy(r)).numpy()
+    q2 = sq_norms(torch.from_numpy(q)).numpy()
+    exact = _exact_scores(q, r, r2)
+    lower, bb = _kernel_lower_bounds(q, r, r2)
+    best = np.full((n, 4, k), np.inf, np.float32)
+    idx = np.zeros((n, 4, k), np.int64)
+    rescored = 0
+    for j0 in range(0, m, 128):
+        quad = best[:, :, k - 1].min(axis=1)
+        for tq in range(4):
+            cols = [j for j in range(j0, min(j0 + 128, m)) if (j % 8) // 2 == tq]
+            for i in range(n):
+                thr = _primed(quad[i] if k == 1 else best[i, tq, k - 1], bb[i])
+                for j in cols:
+                    if not lower[i, j] <= thr:
+                        continue
+                    rescored += 1
+                    s = np.float32(np.inf) if exclude_self and i == j else exact[i, j]
+                    if s < best[i, tq, k - 1]:
+                        pos = int((best[i, tq] <= s).sum())
+                        best[i, tq, pos + 1:] = best[i, tq, pos:-1].copy()
+                        idx[i, tq, pos + 1:] = idx[i, tq, pos:-1].copy()
+                        best[i, tq, pos], idx[i, tq, pos] = s, j
+                        thr = min(thr, _primed(best[i, tq, k - 1], bb[i]))
+    flat_d, flat_i = best.reshape(n, 4 * k), idx.reshape(n, 4 * k)
+    out_d = np.empty((n, k), np.float32)
+    out_i = np.empty((n, k), np.int32)
+    for i in range(n):
+        order = np.lexsort((flat_i[i], flat_d[i]))[:k]
+        dd = np.maximum(flat_d[i, order] + q2[i], np.float32(0.0)).astype(np.float32)
+        out_d[i] = dd
+        out_i[i] = np.where(np.isfinite(dd), flat_i[i, order], 0)
+    return out_d, out_i, rescored
+
+
+@pytest.mark.parametrize("k", [1, 8, 128])
+def test_filter_then_rescore_equals_plain_on_near_ties(k):
+    """Filter-then-rescore selects exactly what the plain version selects,
+    bit for bit, on duplicates, one-ulp neighbours and a wide norm spread
+    (self-kNN with exclude_self)."""
+    rng = np.random.default_rng(40 + k)
+    x = _near_tie_feats(rng, 200)
+    d, i, rescored = _filter_then_rescore(x, x, k, exclude_self=True)
+    xt = torch.from_numpy(x)
+    pd_, pi = knn_plain(xt, xt, k, sq_norms(xt), sq_norms(xt), exclude_self=True)
+    np.testing.assert_array_equal(d, pd_.numpy())
+    np.testing.assert_array_equal(i, pi.numpy())
+    if k == 1:
+        assert rescored < 0.25 * x.shape[0] ** 2, rescored
+
+
+@pytest.mark.parametrize("m,k,exclude_self", [(50, 1, False), (50, 3, True), (5, 8, True), (0, 2, False)])
+def test_zero_query_rows_are_answered_from_the_norms(m, k, exclude_self):
+    """The wrapper's closed form for all-zero query rows (which the kernel
+    skips) equals the plain version: refs of least |r|^2 in index order,
+    with duplicated norms, masked refs and too few refs."""
+    from fusion4landslide_tpu_torch.ops.knn_cuda import _zero_rows
+
+    rng = np.random.default_rng(m + k)
+    r = torch.from_numpy(_feats(rng, m, 16, unit=False))
+    r2 = sq_norms(r)
+    if m > 6:
+        r2[4] = torch.inf
+        r2[6] = r2[2]
+    q = torch.zeros((12, 16))
+    q[5, 3] = -0.0
+    zd, zi = _zero_rows(12, k, r2, exclude_self=exclude_self)
+    pd_, pi = knn_plain(q, r, k, sq_norms(q), r2, exclude_self=exclude_self)
+    assert torch.equal(zd, pd_) and torch.equal(zi, pi)
+
+
 @pytest.mark.cuda
 def test_knn_kernel_matches_plain_on_card():
     """Kernel 3 against its plain version on the card (bit-equal scores,
-    so no index may differ)."""
+    so no index may differ), on random features and on near ties."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda")
@@ -215,3 +449,11 @@ def test_knn_kernel_matches_plain_on_card():
         r2 = torch.where(mask, sq_norms(r), torch.inf)
         pd_, pi = knn_plain(q, r, k, sq_norms(q), r2, exclude_self=excl)
         assert torch.equal(kd, pd_) and torch.equal(ki, pi), (d, k)
+    # Duplicates, one-ulp neighbours and a wide norm spread (self-kNN):
+    # equal scores must come out in index order.
+    x = torch.from_numpy(_near_tie_feats(rng, 4096)).to(dev)
+    for k in (1, 2, 8, 16):
+        kd, ki = knn_feature(x, x, k, exclude_self=True)
+        pd_, pi = knn_plain(x, x, k, sq_norms(x), sq_norms(x), exclude_self=True)
+        assert torch.equal(kd, pd_) and torch.equal(ki, pi), ("near-tie", k)
+
