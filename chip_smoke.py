@@ -10,9 +10,13 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel in ``fusion4landslide_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel, into ``fusion4landslide_tpu_torch/_build``);
-2. kernel 2 (grid kNN) against its plain PyTorch version on the card, on
-   a production-density grid: k = 1 with and without ``exclude_self``,
-   and k = 3;
+2. kernel 2 (grid kNN) against its plain PyTorch version on the card,
+   bit for bit: on a production-density grid (k = 1, 3 and 32, with and
+   without ``exclude_self``), on a near-tie cloud (duplicated refs and
+   one-ulp neighbours) and on the pixel-space launch of the production RGB
+   tile (its projected source voxels against its pixel matches, 5-pixel
+   cells, z = 0); timed at the production 3D shape (524 288 queries,
+   k = 1, ``exclude_self``) and at the pixel-space shape;
 3. kernel 1 (radius sampler) against its plain version: P = 256
    ``'random'`` and P = 128 ``'distance'``, each timed at its main-path
    launch shape: 128 blocks at P = 256 ``'random'`` (DIPs) and every
@@ -30,7 +34,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    and with the ungated global match (scored as ``tools/parity_check.py``
    scores two paths), the F2S3 step, and the host F2S3 tile
    (``run_f2s3_tile``, on a tile above ``median_nn_distance``'s 4096-point
-   grid threshold);
+   grid threshold), and the RGB+3D fusion step (``lifting_type``
+   ``nn_search`` and ``interpolation``) on a small tile seen by a 512^2
+   camera;
 6. one production-shaped tile (a 250 000-point core at 100 pts/m^2 with
    symmetric 10 m margins, ~490 k points per cloud, bucket 524288) through
    ``run_fusion3d_tiles`` with the ``fusion_3d_brienz.yaml`` statics and
@@ -38,18 +44,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    step, finite outputs, and recovery of the planted displacement between
    the sound and the broken readings of random-init descriptors (see
    ``RECOVERY``);
-7. the same tile through ``run_f2s3_tiles`` with the ``f2s3_brienz.yaml``
+7. the RGB+3D fusion step on ``bench.py``'s RGB tile (a 250 000-point
+   core, source margin 5 m, target margin 10 m, a 4096^2 nadir camera
+   and pixel matches for half the source points) through
+   ``run_fusion3d_tiles`` with an ``image_kit_fn`` and the
+   ``fusion_brienz.yaml`` statics: asserts kernels 1 and 2 launched during
+   the step, the result tables, and ``bench.py``'s own recovery targets
+   (see ``RECOVERY_RGB``); prints stage times, launches, overflow,
+   ``n_c2d`` and peak memory;
+8. the 3D-only tile through ``run_f2s3_tiles`` with the ``f2s3_brienz.yaml``
    statics and seeded random weights: asserts all three kernels launched
    during the step, finite outputs, the result tables, and recovery
    readings between the sound and a broken run (see ``RECOVERY_F2S3``);
    prints stage times, peak memory and the kept fraction; then the same
    tile through the host tile ``run_f2s3_tile`` (launches, time, peak
    memory, tables, finite outputs);
-8. a ``kernels`` JSON line: launches on the F2S3 tile step (and per
+9. a ``kernels`` JSON line: launches on the F2S3 tile step (and per
    path), time, the time before this redesign (``ms_before``),
    plain-version time, the least time the card could take (bound), what
    bounds it, and a library yardstick where one exists;
-9. last line: ``{"ok": true, "device": {...}}``.
+10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
 back to the CPU or to the plain versions.
@@ -96,6 +110,23 @@ RECOVERY = {"static_assigned": 0.42, "static_err_m": 4.0e-3, "moving_err_m": 8.5
 #: the shuffled reading: a regression alarm for these weights, not a
 #: quality bound.
 RECOVERY_F2S3 = {"kept": 0.0015, "static_err_m": 3.0, "moving_err_m": 1.0e-2}
+#: ``bench.py``'s targets for the RGB+3D step (its lines 368-400): the 2D
+#: vote channel matches every patch, so more than 90% of the core is
+#: assigned, and the median error on either half stays under
+#: ``2 mm + 0.7 m_per_px`` (the pixel-space chaining tolerance).
+RECOVERY_RGB = {"core_assigned": 0.9, "err_floor_m": 2e-3, "err_per_m_per_px": 0.7}
+#: fusion_brienz.yaml's settings that the fusion runner reads (the RGB
+#: channel on bench.py's 4096^2 camera).
+RGB_CFG = {
+    "use_2d_matches": True,
+    "image_size": [4096, 4096],
+    "pixel_thres": 5,
+    "lifting_type": "nn_search",
+    "matches_from_2d_type": "nn_src_only",
+    "coarse_matching_fusion": True,
+    "fine_matching_fusion": True,
+    "weighting_svd": False,
+}
 #: float32 operations per candidate evaluation in each kernel.
 OPS_GRID_KNN = 7  # 3 mul + 3 add for the score, 1 compare
 OPS_RADIUS_SAMPLE = 9  # the 7 of d^2 (3-term dot, + |r|^2, + |qc|^2), 2 tests
@@ -105,9 +136,9 @@ OPS_RADIUS_STAGE = 12
 #: Kernel 3's epilogue operations per (query, ref) pair on the CUDA cores:
 #: two FMAs (s^ - delta) and a min.
 OPS_KNN_EPILOGUE = 5
-#: Each kernel's time per launch before this round of redesign, on an
-#: H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py of the parent tree).
-MS_BEFORE = {"grid_knn": 4.073, "radius_sample": 5.620, "knn": 1623.3}
+#: Each kernel's time per launch before its redesign, on an H100 80GB
+#: HBM3 at 700 W (PERF.md: this script on the tree before the redesign).
+MS_BEFORE = {"grid_knn": 3.974, "radius_sample": 5.620, "knn": 1623.3}
 #: Kernel 3's plain version runs on this many query rows.
 KNN_PLAIN_ROWS = 2048
 #: f2s3_brienz.yaml's settings that the F2S3 runner reads.
@@ -178,12 +209,10 @@ def read_launches() -> dict:
     return dict(LAUNCHES)
 
 
-def padded_small_tile(src_margin: float, tgt_margin: float):
-    """A ~3k-point split tile, centred and padded to its buckets (numpy)."""
+def padded(src: np.ndarray, tgt: np.ndarray):
+    """A tile centred on its source mean and padded to its buckets (numpy)."""
     from fusion4landslide_tpu_torch.ops.segments import bucket_size
-    from fusion4landslide_tpu_torch.synth import synth_split_tile
 
-    src, tgt, _, _ = synth_split_tile(1000, src_margin, tgt_margin, halo=2.0)
     n, m = src.shape[0], tgt.shape[0]
     sb = np.zeros((bucket_size(n), 3), np.float32)
     sb[:n] = src - src.mean(0)
@@ -192,16 +221,47 @@ def padded_small_tile(src_margin: float, tgt_margin: float):
     return sb, np.arange(len(sb)) < n, tb, np.arange(len(tb)) < m, n, m
 
 
-def fusion_small_parity(dev, global_gated: bool) -> dict:
+def padded_small_tile(src_margin: float, tgt_margin: float):
+    """A ~3k-point split tile, centred and padded to its buckets (numpy)."""
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
+
+    src, tgt, _, _ = synth_split_tile(1000, src_margin, tgt_margin, halo=2.0)
+    return padded(src, tgt)
+
+
+def image_inputs(src: np.ndarray, pix: np.ndarray, K: np.ndarray, E: np.ndarray) -> dict:
+    """The RGB step's image inputs (numpy) for one image pair: pixel
+    matches padded to their bucket, the camera, the tile's centre."""
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+
+    pixb = np.zeros((1, bucket_size(len(pix)), 4), np.float32)
+    pixb[0, : len(pix)] = pix
+    return dict(
+        pix_matches=pixb, pix_count=np.array([len(pix)]), intrinsic=K,
+        src_extrinsics=E[None], tgt_extrinsics=E[None],
+        center=src.mean(0).astype(np.float32), pixel_thres=5.0,
+    )
+
+
+def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None) -> dict:
     """The fusion step on a small tile, card vs the port's CPU path; the
-    card run's kernel launches are read just after it."""
+    card run's kernel launches are read just after it. With ``lifting``
+    the step runs the RGB channel on ``synth_small_rgb_tile``."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
     from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
+    from fusion4landslide_tpu_torch.synth import SMALL_IMG_SIZE, synth_small_rgb_tile
 
-    sb, sm, tb, tm, ns, _ = padded_small_tile(1.0, 1.5)
     small = dict(levels=(1, 2), patch_points=128, chunk=512, k_neighbors=8,
                  sv_cap=256, member_cap=128, agg_max_points=64, small_patch=3,
                  icp_max_iter=8, fine_max_matches=64, global_gated=global_gated)
+    images, core = {}, None
+    if lifting is None:
+        sb, sm, tb, tm, ns, _ = padded_small_tile(1.0, 1.5)
+    else:
+        src, tgt, core, _, pix, K, E, _ = synth_small_rgb_tile()
+        sb, sm, tb, tm, ns, _ = padded(src, tgt)
+        images = image_inputs(src, pix, K, E)
+        small.update(image_size=SMALL_IMG_SIZE, lifting=lifting)
     outs = []
     for d in (dev, torch.device("cpu")):
         dm, am = seeded_models(0, d)
@@ -209,7 +269,10 @@ def fusion_small_parity(dev, global_gated: bool) -> dict:
         outs.append(fusion3d_tile_step(
             dm, am, torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
             torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d),
-            5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d, **small,
+            5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
+            **{k: torch.as_tensor(v, device=d) if isinstance(v, np.ndarray) else v
+               for k, v in images.items()},
+            **small,
         ))
         if d is dev:
             torch.cuda.synchronize()
@@ -225,12 +288,17 @@ def fusion_small_parity(dev, global_gated: bool) -> dict:
         "overlap_frac": float(common.sum()) / max(int(vg.sum()), int(vc.sum()), 1),
         "median_delta_disp_m": float(np.median(gap)) if gap.size else None,
         "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+        "n_c2d": [int(g.n_c2d), int(c.n_c2d)],
         "launches": launches,
     }
-    log(f"# phase small-tile fusion parity (global_gated={global_gated}, card vs CPU "
-        f"path, {ns} pts): {json.dumps(parity)}")
+    log(f"# phase small-tile fusion parity (global_gated={global_gated}, lifting={lifting}, "
+        f"card vs CPU path, {ns} pts): {json.dumps(parity)}")
     nv = parity["n_vox"]
-    check(nv[0] == nv[1] and nv[2] == nv[3], parity)
+    check(nv[0] == nv[1] and nv[2] == nv[3] and g.overflow == 0, parity)
+    check(parity["n_c2d"][0] == parity["n_c2d"][1], parity)
+    if lifting is not None:
+        # The 2D vote channel assigns nearly all of the core.
+        check(parity["n_c2d"][0] > 0 and float(vg[core].mean()) > 0.9, parity)
     # Ungated, the random-init descriptors' global 1-NN mostly falls outside
     # the magnitude gate: ~2% of the points are assigned (10%+ gated).
     min_assigned = 0.1 if global_gated else 0.01
@@ -373,6 +441,130 @@ def f2s3_host_small_parity(dev) -> dict:
     return launches
 
 
+def fusion_rgb_tile(dev, cfg: dict, dips, agg, tile: tuple, label: str = "RGB tile step"):
+    """One RGB+3D tile through ``run_fusion3d_tiles`` with an
+    ``image_kit_fn``: prints its time, peak memory, launches, overflow,
+    ``n_c2d`` and stage times, checks its tables, finite outputs and
+    ``bench.py``'s recovery targets (``RECOVERY_RGB``); returns the
+    launches read just after the step."""
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.parallel.pipeline import run_fusion3d_tiles
+    from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT
+
+    src, tgt, core, moving, pix, K, E, m_per_px = tile
+    n = src.shape[0]
+
+    def kit(tile_id, s, t):
+        return {"pix": [pix], "intrinsic": K, "src_extrinsics": [E], "tgt_extrinsics": [E]}
+
+    timings: dict = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        run_cfg = dict(cfg, output_dir=tmp, output_folder="smoke")
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_fusion3d_tiles(run_cfg, dips, agg, [(0, src, tgt)], device=dev,
+                                 timings=timings, image_kit_fn=kit,
+                                 pix_cap=bucket_size(pix.shape[0]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        written = sorted(os.listdir(os.path.join(tmp, "smoke", "results")))
+    out = res[0]
+    log(f"# {label}: {step_s:.2f} s, peak {peak:.2f} GiB, overflow {out['overflow']}, "
+        f"n_dropped {out['n_dropped']}, n_c2d {out['n_c2d']}, launches {launches}")
+    log(f"# {label} stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log(f"# {label} tables: {written}")
+    check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
+    check(out["n_c2d"] > 0 and "c2f_dvfs_src2tgt_tile_0.txt" in written, (out, written))
+    ok = out["valid"]
+    disp = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
+    check(np.isfinite(disp).all(), "non-finite RGB displacements")
+    disp_all = np.zeros((n, 3))
+    disp_all[ok] = disp
+    static = core & ~moving
+    err_mov = np.linalg.norm(disp_all[core & moving & ok] - PLANTED_SHIFT, axis=1)
+    err_sta = np.linalg.norm(disp_all[static & ok], axis=1)
+    tol = RECOVERY_RGB["err_floor_m"] + RECOVERY_RGB["err_per_m_per_px"] * m_per_px
+    rec = {
+        "core_assigned": float(ok[core].mean()),
+        "static_core_assigned": float(ok[static].mean()),
+        "moving_err_m": float(np.median(err_mov)) if err_mov.size else None,
+        "static_err_m": float(np.median(err_sta)) if err_sta.size else None,
+        "tol_m": tol,
+        "frac_moving_over_tol": float((err_mov > tol).mean()) if err_mov.size else None,
+    }
+    log(f"# {label} recovery: {json.dumps(rec)} (targets {json.dumps(RECOVERY_RGB)})")
+    check(rec["core_assigned"] > RECOVERY_RGB["core_assigned"], rec)
+    check(err_mov.size and rec["moving_err_m"] < tol, rec)
+    check(err_sta.size and rec["static_err_m"] < tol, rec)
+    return launches
+
+
+def pixel_window(dev, src, tgt, pix, K, E, image_size):
+    """The RGB step's first pixel-space kernel-2 window on this tile, built
+    as the step builds it: the source voxel centroids (median-resolution
+    voxels on the clouds' shared min corner) projected through the
+    camera, as queries with a zero z column, against the pixel matches'
+    source endpoints in 5-pixel cells."""
+    from fusion4landslide_tpu_torch.image.geometry import project_points
+    from fusion4landslide_tpu_torch.ops import hashgrid_cuda as hc
+    from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, median_nn_distance_traced
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
+
+    n, m = src.shape[0], tgt.shape[0]
+    N, M = bucket_size(n), bucket_size(m)
+    centre = src.mean(axis=0)
+    sp = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    sp[:n] = torch.from_numpy(src - centre).to(dev)
+    tp = torch.zeros((M, 3), dtype=torch.float32, device=dev)
+    tp[:m] = torch.from_numpy(tgt - centre).to(dev)
+    sm, tm = torch.arange(N, device=dev) < n, torch.arange(M, device=dev) < m
+    med = torch.maximum(median_nn_distance_traced(sp, sm)[0], median_nn_distance_traced(tp, tm)[0])
+    origin = torch.minimum(sp[:n].min(dim=0).values, tp[:m].min(dim=0).values)
+    cent, _, _, nv = voxel_downsample(sp, med, sm, origin=origin)
+    uv, _, _ = project_points(
+        cent + torch.from_numpy(centre.astype(np.float32)).to(dev), torch.from_numpy(E).to(dev),
+        torch.from_numpy(K).to(dev), image_size, mask=torch.arange(N, device=dev) < nv,
+    )
+    Pc = bucket_size(pix.shape[0])
+    ref = torch.zeros((Pc, 3), dtype=torch.float32, device=dev)
+    ref[: pix.shape[0], :2] = torch.from_numpy(pix[:, :2]).to(dev)
+    grid = build_hash_grid(ref, 5.0, torch.arange(Pc, device=dev) < pix.shape[0])
+    q3 = torch.cat([uv, torch.zeros_like(uv[:, :1])], dim=1)
+    return hc.window_prologue(q3, grid, 512, 32768), int(nv)
+
+
+def grid_knn_bit_check(win, tag: str, cases, chunk: int) -> None:
+    """Kernel 2 against ``grid_knn_plain`` bit for bit on the rows of
+    every 8th block (every block when there are few), per (k,
+    exclude_self) case."""
+    from fusion4landslide_tpu_torch.ops import hashgrid_cuda as hc
+
+    dev = win.qpos.device
+    blocks = list(range(0, win.nb, 8 if win.nb > 64 else 1))
+    rows = torch.cat([torch.arange(b * win.block, (b + 1) * win.block, device=dev) for b in blocks])
+    for k, excl in cases:
+        d_k, i_k = hc._grid_knn_cuda(win, k, chunk=chunk, exclude_self=excl)
+        d_p, i_p = hc.grid_knn_plain(win, k, chunk=chunk, exclude_self=excl, blocks=blocks)
+        d_k, i_k = d_k[rows], i_k[rows]
+        both = torch.isfinite(d_k) & torch.isfinite(d_p)
+        res = {
+            "bit_equal": bool(torch.equal(d_k, d_p) and torch.equal(i_k, i_p)),
+            "index_mismatch": int((i_k != i_p).sum()),
+            "max_abs_err": float((d_k - d_p).abs()[both].max()) if bool(both.any()) else 0.0,
+            "finite_frac": float(torch.isfinite(d_k).float().mean()),
+        }
+        log(f"# grid kNN {tag} k={k} exclude_self={excl} rows={rows.numel()}: {json.dumps(res)}")
+        check(res["bit_equal"] and res["index_mismatch"] == 0 and res["max_abs_err"] == 0.0, res)
+
+
 def near_tie_feats(rows: int, gen) -> torch.Tensor:
     """(rows, 64) features built to flip a TF32 selection: norms spread
     over 1e-3..1e3, every 8th row an exact copy of the row 5 before it,
@@ -486,7 +678,7 @@ def main() -> int:
     from fusion4landslide_tpu_torch.ops.segments import bucket_size
     from fusion4landslide_tpu_torch.parallel.pipeline import run_f2s3_tiles, run_fusion3d_tiles
     from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
-    from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_split_tile
+    from fusion4landslide_tpu_torch.synth import IMG_SIZE, PLANTED_SHIFT, synth_rgb_tile, synth_split_tile
 
     dev = resolve_device("cuda")
     smi = subprocess.run(
@@ -526,6 +718,12 @@ def main() -> int:
     pts[:n] = torch.from_numpy(src - centre).to(dev)
     mask = torch.arange(N, device=dev) < n
     log(f"# tile: src {n} pts, tgt {tgt.shape[0]} pts, bucket {N}")
+    # bench.py's RGB headline tile (phase 7; its pixel-space window in phase 2).
+    r_src, r_tgt, r_core, r_moving, pix, K_img, E_img, m_per_px = synth_rgb_tile(
+        n_core, margin / 2, margin, halo=halo
+    )
+    log(f"# RGB tile: src {r_src.shape[0]} pts, tgt {r_tgt.shape[0]} pts, "
+        f"{pix.shape[0]} pixel matches, {m_per_px:.5f} m per pixel")
 
     kernels: dict[str, dict] = {}
 
@@ -535,35 +733,48 @@ def main() -> int:
     grid = build_hash_grid(pts, r0, mask)
     win = hc.window_prologue(pts, grid, 512, 32768)
     log(f"# grid kNN: radius {float(r0):.4f} m, {win.nb} blocks, overflow {int(win.overflow)}")
-    sub = list(range(0, win.nb, 16))
-    worst = 0.0
-    for k, excl, blocks in ((1, True, None), (1, False, sub), (3, False, sub)):
-        d_k, i_k = hc._grid_knn_cuda(win, k, chunk=chunk, exclude_self=excl)
-        d_p, i_p = hc.grid_knn_plain(win, k + 1, chunk=chunk, exclude_self=excl, blocks=blocks)
-        rows = (
-            torch.arange(win.n_pad, device=dev) if blocks is None
-            else torch.cat([torch.arange(b * 512, (b + 1) * 512, device=dev) for b in blocks])
-        )
-        agr = knn_agreement(d_p[:, :k], i_p[:, :k], d_k[rows], i_k[rows], d_next=d_p[:, k])
-        log(f"# grid kNN k={k} exclude_self={excl} rows={rows.numel()}: {json.dumps(agr)}")
-        check(agr["finite_equal"] and agr["dist_ok"] and agr["index_mismatch"] == 0, agr)
-        worst = max(worst, agr["max_abs_err"])
-    ms = cuda_ms(lambda: hc._grid_knn_cuda(win, 1, chunk=chunk, exclude_self=True))
+    check(int(win.overflow) == 0, "production grid window overflow")
+    all_cases = [(k, excl) for k in (1, 3, 32) for excl in (True, False)]
+    grid_knn_bit_check(win, "production", all_cases, chunk)
+    # Near ties: a terrain patch with a third of its points duplicated
+    # and a fifth repeated one ulp away.
+    gen = np.random.default_rng(1)
+    base = gen.uniform(-5.0, 5.0, size=(20000, 3)).astype(np.float32)
+    base[:, 2] *= 0.1
+    dup = np.concatenate([base, base[::3], np.nextafter(base[::5], np.float32(np.inf)), base[::7]])
+    dup_t = torch.from_numpy(dup.astype(np.float32)).to(dev)
+    win_tie = hc.window_prologue(dup_t, build_hash_grid(dup_t, 0.3), 512, 32768)
+    grid_knn_bit_check(win_tie, "near_tie", all_cases, chunk)
+    # The RGB tile's pixel-space launch (kernel 2 on 2D points).
+    win_pix, n_vox = pixel_window(dev, r_src, r_tgt, pix, K_img, E_img, IMG_SIZE)
+    log(f"# grid kNN pixel space: {n_vox} source voxels as queries, {pix.shape[0]} pixel "
+        f"matches as refs, {win_pix.nb} blocks, overflow {int(win_pix.overflow)}")
+    grid_knn_bit_check(win_pix, "pixel", all_cases, chunk)
+    ms = cuda_ms(lambda: hc._grid_knn_cuda(win, 1, chunk=chunk, exclude_self=True), reps=10)
     plain_ms = cuda_ms(lambda: hc.grid_knn_plain(win, 1, chunk=chunk, exclude_self=True), reps=1)
-    positions, cands = window_work(win, chunk)
-    b_ms, b_by = bound(
-        positions * 20 + win.n_pad * (12 + 4) + win.n_pad * 8,
-        cands * OPS_GRID_KNN,
-    )
+    pix_ms = cuda_ms(lambda: hc._grid_knn_cuda(win_pix, 1, chunk=chunk, exclude_self=False), reps=10)
+
+    def grid_knn_bound(w) -> tuple[float, str, int]:
+        # Each block reads its window once (x, y, z, |r|^2, index: 20 B per
+        # position), each query its position and row, each output 8 B.
+        positions, cands = window_work(w, chunk)
+        b = bound(positions * 20 + w.n_pad * (12 + 4) + w.n_pad * 8, cands * OPS_GRID_KNN)
+        return b[0], b[1], cands
+
+    b_ms, b_by, cands = grid_knn_bound(win)
+    pix_b_ms, pix_b_by, pix_cands = grid_knn_bound(win_pix)
     kernels["grid_knn"] = dict(
         name="grid_knn", route="cuda",
         source="fusion4landslide_tpu_torch/csrc/grid_knn.cu",
         replaces="fusion4landslide_tpu/ops/hashgrid_pallas.py:43",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, pixel_ms=pix_ms, pixel_bound_ms=pix_b_ms,
     )
-    log(f"# phase grid kNN: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by}), {cands} candidate evaluations")
+    log(f"# phase grid kNN: kernel {ms:.3f} ms (before {MS_BEFORE['grid_knn']} ms), plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), {cands} candidate evaluations; "
+        f"pixel-space launch {pix_ms:.3f} ms, bound {pix_b_ms:.3f} ms ({pix_b_by}), "
+        f"{pix_cands} candidate evaluations")
+    del win_tie, win_pix, dup_t
 
     # ---- 3. kernel 1: radius sampler -------------------------------------
     # The DIPs patch radius of this cloud: sqrt(3) * 10 * median resolution.
@@ -631,6 +842,9 @@ def main() -> int:
         "fusion3d_ungated_small": fusion_small_parity(dev, global_gated=False),
         "f2s3_small": f2s3_small_parity(dev),
         "f2s3_host_small": f2s3_host_small_parity(dev),
+        "fusion_rgb_small": fusion_small_parity(dev, global_gated=True, lifting="nn_search"),
+        "fusion_rgb_interp_small": fusion_small_parity(dev, global_gated=True,
+                                                       lifting="interpolation"),
     }
     check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
 
@@ -697,7 +911,14 @@ def main() -> int:
     check(float(np.median(err_sta)) < RECOVERY["static_err_m"], "static displacement error")
     check(err_mov.size and float(np.median(err_mov)) < RECOVERY["moving_err_m"], "moving displacement error")
 
-    # ---- 7. the production tile through the F2S3 runner -----------------
+    # ---- 7. bench.py's RGB tile through the fusion runner ----------------
+    by_path["fusion_rgb"] = fusion_rgb_tile(
+        dev, dict(cfg, **RGB_CFG), dips, agg,
+        (r_src, r_tgt, r_core, r_moving, pix, K_img, E_img, m_per_px),
+    )
+    torch.cuda.empty_cache()
+
+    # ---- 8. the production tile through the F2S3 runner -----------------
     filt = seeded_filter(0, dev)
     f_timings: dict = {}
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
@@ -780,7 +1001,7 @@ def main() -> int:
     check(keep.any() and np.isfinite(out["dvfs"]).all() and np.isfinite(out["magnitudes"]).all(),
           "host F2S3 outputs empty or not finite")
 
-    # ---- 8. kernels line + 9. result line --------------------------------
+    # ---- 9. kernels line + 10. result line -------------------------------
     for name, row in kernels.items():
         row["ms_before"] = MS_BEFORE[name]
         row["launches"] = by_path["f2s3"][name]

@@ -206,14 +206,18 @@ def grid_knn_plain(win: Window, k: int, *, chunk: int = 2048,
 def _grid_knn_cuda(win: Window, k: int, *, chunk: int, exclude_self: bool):
     if not 1 <= k <= 32:
         raise ValueError(f"grid kNN kernel takes 1 <= k <= 32, got {k}")
-    if win.block > 1024:
-        raise ValueError("grid kNN kernel takes block <= 1024")
+    if win.block > 512:
+        raise ValueError("grid kNN kernel takes block <= 512")
+    if chunk % 4 or win.window % 4:
+        raise ValueError("grid kNN kernel stages 16-byte runs: chunk and window % 4 == 0")
     _check_cuda(
         qpos=(win.qpos, torch.float32), qrow=(win.qrow, torch.int32),
         wmeta=(win.wmeta, torch.int32), refpack=(win.refpack, torch.float32),
         idxarr=(win.idxarr, torch.int32),
     )
     _check_window(win)
+    if win.refpack.data_ptr() % 16 or win.idxarr.data_ptr() % 16:
+        raise ValueError("refpack and idxarr must be 16-byte aligned")
     out_d = torch.empty((win.n_pad, k), dtype=torch.float32, device=win.qpos.device)
     out_i = torch.empty((win.n_pad, k), dtype=torch.int32, device=win.qpos.device)
     lib = cuda_build.load("grid_knn")

@@ -1,4 +1,5 @@
-"""Single-GPU tile runners for the 3D-only fusion step and the F2S3 step.
+"""Single-GPU tile runners for the fusion step (3D-only or RGB+3D) and the
+F2S3 step.
 
 Port of ``fusion4landslide_tpu.parallel.pipeline.run_fusion3d_tiles_sharded``
 and ``run_f2s3_tiles_sharded`` for one device: the JAX mesh runs tiles
@@ -54,17 +55,40 @@ def _buckets(tiles: list) -> tuple[int, int]:
             bucket_size(max(t[2].shape[0] for t in tiles)))
 
 
-def fusion3d_statics(cfg: dict, N: int, M: int) -> dict:
+def _image_statics(cfg: dict) -> dict:
+    """The RGB channel's static options (``parallel/pipeline.py:422-448``
+    of the JAX package)."""
+    mode_2d = str(cfg.get("matches_from_2d_type", "nn_src_only"))
+    if mode_2d == "nn_src_with_tgt_for_visualize":
+        mode_2d = "nn_src_only"
+
+    def switch(prefix: str) -> str:
+        if bool(cfg.get(f"{prefix}_only_2d", False)):
+            return "only_2d"
+        return "fusion" if bool(cfg.get(f"{prefix}_fusion", True)) else "off"
+
+    return dict(
+        image_size=tuple(int(v) for v in cfg["image_size"]),
+        v_flip=str(cfg.get("dataset", "")).lower() != "rockfall_simulator",
+        lifting=str(cfg.get("lifting_type", "nn_search")),
+        matches_2d_mode=mode_2d,
+        coarse_2d_mode=switch("coarse_matching"),
+        fine_2d_mode=switch("fine_matching"),
+        extra_pair_cap=int(cfg.get("extra_pair_cap", 0)),
+        weighting_svd=bool(cfg.get("weighting_svd", False)),
+    )
+
+
+def fusion3d_statics(cfg: dict, N: int, M: int, *, with_image: bool = False) -> dict:
     """Static step options from a flat config dict (the JAX runner's
-    derivation, ``parallel/pipeline.py:388-421``)."""
+    derivation, ``parallel/pipeline.py:388-448``); ``with_image`` adds the
+    RGB channel's."""
     if str(cfg.get("partition_type", "supervoxel")) == "superpoint":
         raise NotImplementedError("partition_type 'superpoint' is not ported yet")
-    if bool(cfg.get("use_2d_matches", False)):
-        raise NotImplementedError("the RGB 2D-match channel is not ported yet")
     sv_cap = int(cfg.get("sv_cap", 0)) or max(bucket_size(max(N // 16, 1)), 64)
     sv_cap_t = int(cfg.get("sv_cap_tgt", 0)) or max(bucket_size(max(M // 16, 1)), 64)
     member_cap = int(cfg.get("member_cap", 0)) or 512
-    return dict(
+    statics = dict(
         levels=tuple(int(v) for v in (cfg.get("level_of_superpoint") or [1])),
         patch_points=int(cfg.get("feat_patch_points", 256)),
         feat_dtype=cfg.get("feat_dtype"),
@@ -82,24 +106,70 @@ def fusion3d_statics(cfg: dict, N: int, M: int) -> dict:
         with_tgt2src=bool(cfg.get("output_tgt2src", False)),
         fine_max_matches=int(cfg.get("fine_max_matches", 256)) or (1 << 30),
     )
+    if with_image:
+        statics.update(_image_statics(cfg))
+    return statics
+
+
+def _image_inputs(kit: dict, n_image_pairs: int, pix_cap: int, center, cfg: dict,
+                  tile_id, dev, logger=None) -> dict:
+    """One tile's RGB step inputs from ``image_kit_fn``'s dict: pixel
+    matches padded into (IP, pix_cap, 4) with a (IP,) count, identity
+    extrinsics for absent pairs, the tile's world offset."""
+    IP, Pc = n_image_pairs, pix_cap
+    pix = np.zeros((IP, Pc, 4), np.float32)
+    count = np.zeros((IP,), np.int64)
+    sext = np.tile(np.eye(4, dtype=np.float32), (IP, 1, 1))
+    text = np.tile(np.eye(4, dtype=np.float32), (IP, 1, 1))
+    for j, p in enumerate(kit["pix"][:IP]):
+        p = np.asarray(p, np.float32).reshape(-1, 4)
+        c = min(p.shape[0], Pc)
+        if p.shape[0] > Pc and logger:
+            logger.warning("tile %s image pair %d: %d pixel matches exceed pix_cap=%d; "
+                           "truncating", tile_id, j, p.shape[0], Pc)
+        pix[j, :c] = p[:c]
+        count[j] = c
+        sext[j] = np.asarray(kit["src_extrinsics"][j], np.float32)
+        text[j] = np.asarray(kit["tgt_extrinsics"][j], np.float32)
+    return dict(
+        pix_matches=torch.from_numpy(pix).to(dev),
+        pix_count=torch.from_numpy(count).to(dev),
+        intrinsic=torch.as_tensor(np.asarray(kit["intrinsic"], np.float32), device=dev),
+        src_extrinsics=torch.from_numpy(sext).to(dev),
+        tgt_extrinsics=torch.from_numpy(text).to(dev),
+        center=torch.as_tensor(np.asarray(center, np.float32), device=dev),
+        pixel_thres=float(cfg.get("pixel_thres", 5.0)),
+    )
 
 
 def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
-                       logger=None, timings: dict | None = None) -> dict:
+                       logger=None, timings: dict | None = None,
+                       image_kit_fn=None, pix_cap: int | None = None,
+                       n_image_pairs: int = 1) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
     on one device and write the ``c2f_*`` result tables under
     ``<output_dir>/<output_folder>/results``.
 
+    ``image_kit_fn`` enables the RGB+3D method (use_2d_matches=True): it
+    is called per tile as ``image_kit_fn(tile_id, src, tgt)`` and returns
+    ``pix`` (list of (P_j, 4) pixel-match arrays, one per image pair),
+    ``intrinsic`` (3, 3) and ``src_extrinsics`` / ``tgt_extrinsics``
+    (lists of (4, 4) world->camera, aligned with ``pix``); ``pix_cap``
+    (rows per pair, required) and ``n_image_pairs`` fix the padded shape.
+
     Returns {tile_id: {"dvfs", "valid", "assigned_fraction", "n_dropped",
-    "overflow"}}. ``timings`` (optional dict) collects per-stage seconds
-    of the step, synchronised at each stage boundary.
+    "overflow", "n_c2d"}}. ``timings`` (optional dict) collects per-stage
+    seconds of the step, synchronised at each stage boundary.
     """
     dev = resolve_device(device)
     tiles = list(tiles)
     if not tiles:
         return {}
+    with_image = image_kit_fn is not None
+    if with_image and pix_cap is None:
+        raise ValueError("image_kit_fn requires pix_cap")
     N, M = _buckets(tiles)
-    statics = fusion3d_statics(cfg, N, M)
+    statics = fusion3d_statics(cfg, N, M, with_image=with_image)
     remove_low = bool(cfg.get("remove_low_quality_patch_matches", True))
     scalars = dict(
         max_magnitude=float(cfg.get("max_magnitude", 10.0)),
@@ -120,8 +190,13 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     for tile_id, src, tgt in tiles:
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
+        images = {}
+        if with_image:
+            images = _image_inputs(image_kit_fn(tile_id, src, tgt), n_image_pairs, pix_cap,
+                                   center, cfg, tile_id, dev, logger)
         out = fusion3d_tile_step(
             dips, agg, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,
+            **images,
         )
         valid = out.valid[:n].cpu().numpy()
         moved = out.moved[:n].cpu().numpy()
@@ -170,6 +245,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             "assigned_fraction": float(valid.mean()) if n else 0.0,
             "n_dropped": n_dropped,
             "overflow": int(out.overflow),
+            "n_c2d": int(out.n_c2d),
         }
     return results
 

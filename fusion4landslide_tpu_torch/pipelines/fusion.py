@@ -3,7 +3,8 @@
 Port of ``fusion4landslide_tpu.pipelines.fusion``: ``global_matches_3d``
 (the ungated search-then-gate feature 1-NN, reference base:2756-2889) and
 ``fine_match_pairs`` (quality gate + SVD + ICP, reference base:3254-3436)
-with one correspondence channel (3D matches) and point2point ICP.
+with one correspondence channel (3D matches) or two (3D matches and 3D
+matches lifted from 2D pixel matches, base:3258-3296) and point2point ICP.
 """
 
 from __future__ import annotations
@@ -47,27 +48,47 @@ class FinePairResult(NamedTuple):
 
 
 def _solve_pairs(members, mmask, tgt_label, corres_tgt_idx, corres_valid,
-                 tgt_vox_label, src_vox, tgt_vox, *, num_min_quality,
-                 thres_dist_diff, thres_inlier_ratio, num_min_fine,
-                 icp_threshold, icp_max_iter, icp_type, fine_max_matches,
-                 iso_cap):
-    Pc, L = members.shape
+                 tgt_vox_label, src_vox, tgt_vox, *, corres2_tgt_idx,
+                 corres2_valid, weighting, num_min_quality, thres_dist_diff,
+                 thres_inlier_ratio, num_min_fine, icp_threshold, icp_max_iter,
+                 icp_type, fine_max_matches, iso_cap):
+    Pc, P = members.shape
     dev, f32 = src_vox.device, src_vox.dtype
     ml = members.long()
-    w = corres_tgt_idx[ml]
-    mv = mmask & corres_valid[ml] & (tgt_vox_label[w.long()] == tgt_label[:, None])
+
+    def channel(idx, ok):
+        w = idx[ml].long()
+        return w, mmask & ok[ml] & (tgt_vox_label[w] == tgt_label[:, None])
+
+    w, mv = channel(corres_tgt_idx, corres_valid)
+    all_src = ml
+    if corres2_tgt_idx is not None:
+        # Each member adds up to two matches: the member list, then itself
+        # again with the second channel's targets (base:3273-3275).
+        w2, mv2 = channel(corres2_tgt_idx, corres2_valid)
+        n3, n2 = mv.sum(-1), mv2.sum(-1)
+        all_src = torch.cat([ml, ml], dim=1)
+        w = torch.cat([w, w2], dim=1)
+        mv = torch.cat([mv, mv2], dim=1)
+    L = all_src.shape[1]
     n_match = mv.sum(-1)
 
-    # Compact to the matched members first (the reference only feeds
-    # matched correspondences, base:3259-3274): matched members in member
-    # order, then the unmatched ones — the order lax.top_k gives the JAX
-    # key ``mv - j * 1e-9`` (a key full of float32 ties at small j).
+    # Compact to the matched correspondences first (the reference only
+    # feeds matched ones, base:3259-3274): matched in list order, then the
+    # unmatched ones — the order lax.top_k gives the JAX key
+    # ``mv - j * 1e-9`` (a key full of float32 ties at small j, which
+    # top_k breaks to the lowest position: a stable sort, not torch.topk).
     F = min(L, int(fine_max_matches))
     sel = torch.sort((~mv).to(torch.int8), dim=1, stable=True).indices[:, :F]
     mv = torch.gather(mv, 1, sel)
-    src_m = src_vox[torch.gather(ml, 1, sel)]
-    tgt_m = tgt_vox[torch.gather(w.long(), 1, sel)]
+    src_m = src_vox[torch.gather(all_src, 1, sel)]
+    tgt_m = tgt_vox[torch.gather(w, 1, sel)]
     wts = mv.to(f32)
+    if corres2_tgt_idx is not None and weighting:
+        # weighting_svd (base:3283-3293): 3D matches weigh n3 / (n3 + n2),
+        # 2D matches the complement.
+        w3d = (n3.to(f32) / torch.clamp(n3 + n2, min=1).to(f32))[:, None]
+        wts = torch.where(sel < P, w3d, 1.0 - w3d) * wts
 
     # Isometry quality gate (base:3310-3323) on iso_cap matches sampled
     # with an even stride across the matched prefix.
@@ -111,7 +132,8 @@ def _solve_pairs(members, mmask, tgt_label, corres_tgt_idx, corres_valid,
 
 def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
                      corres_tgt_idx, corres_valid, tgt_vox_label, src_vox,
-                     tgt_vox, *, num_min_quality=10, thres_dist_diff=0.5,
+                     tgt_vox, *, corres2_tgt_idx=None, corres2_valid=None,
+                     weighting: bool = False, num_min_quality=10, thres_dist_diff=0.5,
                      thres_inlier_ratio=0.15, num_min_fine=10,
                      icp_threshold=0.1, icp_max_iter: int = 30,
                      icp_type: str = "point2point", pair_chunk: int = 1024,
@@ -119,6 +141,11 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
                      iso_cap: int = 128) -> FinePairResult:
     """Per patch pair (rows of ``src_members``): matched-correspondence
     compaction, isometry quality gate, weighted-Kabsch seed, ICP.
+
+    ``corres2_*`` (per source voxel: target voxel, valid) is a second
+    correspondence channel (the fusion method's 3D matches from 2D pixel
+    matches); ``weighting`` weighs the two in the Kabsch seed as
+    ``weighting_svd`` does (ICP takes the matches unweighted).
 
     Dead pairs (label -1 or empty member mask) solve to exactly
     (I, 0, rmse 0, valid False, 0 matches) and are not computed: only live
@@ -138,7 +165,8 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
         out = _solve_pairs(
             src_members[idx], src_member_mask[idx], pair_tgt_label[idx],
             corres_tgt_idx, corres_valid, tgt_vox_label, src_vox, tgt_vox,
-            num_min_quality=num_min_quality, thres_dist_diff=thres_dist_diff,
+            corres2_tgt_idx=corres2_tgt_idx, corres2_valid=corres2_valid,
+            weighting=weighting, num_min_quality=num_min_quality, thres_dist_diff=thres_dist_diff,
             thres_inlier_ratio=thres_inlier_ratio, num_min_fine=num_min_fine,
             icp_threshold=icp_threshold, icp_max_iter=icp_max_iter,
             icp_type=icp_type, fine_max_matches=fine_max_matches,

@@ -1,15 +1,33 @@
 """Synthetic production-shaped tiles (the port's copy of the generators in
 the repository's ``bench.py``): a terrain-like epoch pair whose half-plane
-``x > full / 2`` moves by ``PLANTED_SHIFT`` and whose other half is static.
+``x > full / 2`` moves by ``PLANTED_SHIFT`` and whose other half is static,
+and a nadir camera with dense pixel matches through it for the RGB
+channel (``synth_image_channel``, ``synth_rgb_tile``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["PLANTED_SHIFT", "synth_overlap_tile", "synth_split_tile"]
+from fusion4landslide_tpu_torch.image.geometry import project_points
+
+__all__ = [
+    "IMG_SIZE",
+    "PLANTED_SHIFT",
+    "SMALL_IMG_SIZE",
+    "synth_image_channel",
+    "synth_overlap_tile",
+    "synth_rgb_tile",
+    "synth_small_rgb_tile",
+    "synth_split_tile",
+]
 
 PLANTED_SHIFT = np.array([0.05, -0.02, 0.01], np.float32)
+#: 4K imagery (``bench.py``'s RGB headline camera).
+IMG_SIZE = (4096, 4096)
+#: The small RGB tile's camera (``synth_small_rgb_tile``).
+SMALL_IMG_SIZE = (512, 512)
 
 
 def synth_overlap_tile(n_core: int, halo: float = 20.0, density: float = 100.0,
@@ -56,3 +74,52 @@ def synth_split_tile(n_core: int, src_margin: float, tgt_margin: float,
     ks = crop(src_margin)
     kt = crop(tgt_margin)
     return src[ks], tgt[kt], core[ks], moving[ks]
+
+
+def synth_image_channel(src: np.ndarray, tgt: np.ndarray, n_matches: int,
+                        image_size: tuple[int, int] = IMG_SIZE, focal: float = 4000.0):
+    """A nadir camera 1.2 spans above the tile and dense pixel matches
+    through it: every ``len(src) // n_matches``-th source point projected
+    from both epochs, kept where both projections fall inside the image
+    (``bench.py::synth_image_channel``, on the CPU). Returns (pix (P, 4)
+    [su, sv, tu, tv] float32, K (3, 3), E (4, 4) world->camera, metres
+    per pixel at the tile's mean depth)."""
+    h, w = image_size
+    lo, hi = src.min(axis=0), src.max(axis=0)
+    mid = (lo + hi) / 2
+    span = float(max(hi[0] - lo[0], hi[1] - lo[1], 1.0))
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]], np.float32)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, 3] = [-mid[0], -mid[1], 1.2 * span - mid[2]]
+    sub = np.arange(0, src.shape[0], max(1, src.shape[0] // n_matches))
+    Et, Kt = torch.from_numpy(E), torch.from_numpy(K)
+    uv_s, _, ok_s = project_points(torch.from_numpy(src[sub]), Et, Kt, image_size)
+    uv_t, _, ok_t = project_points(torch.from_numpy(tgt[sub]), Et, Kt, image_size)
+    keep = (ok_s & ok_t).numpy()
+    pix = np.concatenate([uv_s.numpy()[keep], uv_t.numpy()[keep]], axis=1).astype(np.float32)
+    return pix, K, E, float(E[2, 3] + mid[2]) / focal
+
+
+def synth_rgb_tile(n_core: int, src_margin: float, tgt_margin: float, halo: float = 20.0,
+                   image_size: tuple[int, int] = IMG_SIZE, focal: float = 4000.0,
+                   seed: int = 0):
+    """The RGB headline tile of ``bench.py``: a split tile and pixel
+    matches for ``len(src) // 2`` source points, each paired with its true
+    displaced position. A small tile takes a small image (e.g. 512^2 at
+    focal 500) to keep the pixel scale. Returns (src, tgt, core, moving,
+    pix, K, E, m_per_px)."""
+    src, tgt, core, moving = synth_split_tile(n_core, src_margin, tgt_margin, halo=halo, seed=seed)
+    tgt_of_src = src.copy()
+    tgt_of_src[moving] += PLANTED_SHIFT
+    pix, K, E, m_per_px = synth_image_channel(
+        src, tgt_of_src, src.shape[0] // 2, image_size, focal
+    )
+    return src, tgt, core, moving, pix, K, E, m_per_px
+
+
+def synth_small_rgb_tile():
+    """A ~1.3 k / 2 k-point RGB tile (a 600-point core, source margin
+    0.6 m, target margin 1 m) seen by a 512^2 camera at focal 500
+    (8.8 mm per pixel): the CPU tests' and the small-tile card checks'
+    tile. Returns what ``synth_rgb_tile`` returns."""
+    return synth_rgb_tile(600, 0.6, 1.0, halo=1.0, image_size=SMALL_IMG_SIZE, focal=500.0)

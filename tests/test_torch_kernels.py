@@ -58,13 +58,42 @@ def test_build_hash_grid_matches_jax():
         assert int(jg.m_valid) == int(tg.m_valid)
 
 
-@pytest.mark.parametrize("k,exclude_self", [(1, False), (1, True), (3, False), (3, True)])
-def test_grid_knn_plain_matches_pallas_interpret(k, exclude_self):
-    ref = _terrain(3000, 1)
+def _pixels(n, seed, extent=240.0):
+    """2D points in pixel units with a zero z column (the RGB channel's
+    pixel-space searches)."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(0, extent, size=(n, 2))
+    return np.column_stack([uv, np.zeros(n)]).astype(np.float32)
+
+
+def _grid_knn_case(shape):
+    """(ref, mask, query, radius): a terrain patch in metres, or pixel
+    matches in 5-pixel cells."""
+    if shape == "pixel":
+        ref = _pixels(3000, 8)
+        query = np.concatenate([ref[:1000], _pixels(1200, 9)])
+        radius = 5.0
+    else:
+        ref = _terrain(3000, 1)
+        query = np.concatenate([ref[:1500], _terrain(700, 2)])
+        radius = 0.25
     mask = np.ones(3000, bool)
     mask[-40:] = False
-    query = np.concatenate([ref[:1500], _terrain(700, 2)])
-    radius = 0.25
+    return ref, mask, query, radius
+
+
+@pytest.mark.parametrize("shape,k,exclude_self", [
+    pytest.param("terrain", 1, False, id="1-False"),
+    pytest.param("terrain", 1, True, id="1-True"),
+    pytest.param("terrain", 3, False, id="3-False"),
+    pytest.param("terrain", 3, True, id="3-True"),
+    pytest.param("terrain", 32, True, id="32-True"),
+    pytest.param("pixel", 1, False, id="pixel-1-False"),
+    pytest.param("pixel", 1, True, id="pixel-1-True"),
+    pytest.param("pixel", 32, False, id="pixel-32-False"),
+])
+def test_grid_knn_plain_matches_pallas_interpret(shape, k, exclude_self):
+    ref, mask, query, radius = _grid_knn_case(shape)
     jg, tg = _grids(ref, radius, mask)
     kw = dict(window=WINDOW, chunk=CHUNK, exclude_self=exclude_self)
     jd, ji, jov = jhp.hash_grid_knn_window(
@@ -72,13 +101,18 @@ def test_grid_knn_plain_matches_pallas_interpret(k, exclude_self):
     )
     td, ti, tov = thc.hash_grid_knn_window(torch.from_numpy(query), tg, radius, k + 1, **kw)
     assert int(jov) == 0 and int(tov) == 0
+    # The uncentred score rounds at ~|r|^2 * 2^-23 on either side (each
+    # side's summation order differs): 1e-5 m^2 on the terrain, two ulps
+    # of the largest |r|^2 in pixel units.
+    atol = 1e-5 if shape == "terrain" else 2 * 2.0**-23 * float((ref**2).sum(1).max())
     agr = knn_agreement(
         td[:, :k], ti[:, :k], torch.from_numpy(np.array(jd)),
-        torch.from_numpy(np.array(ji)), d_next=td[:, k],
+        torch.from_numpy(np.array(ji)), d_next=td[:, k], atol=atol,
     )
     assert agr["finite_equal"] and agr["dist_ok"], agr
     assert agr["index_mismatch"] == 0, agr
-    assert np.isfinite(np.asarray(jd)).mean() > 0.5
+    # At k = 32 most rows hold fewer refs than k within the radius.
+    assert np.isfinite(np.asarray(jd)[:, :min(k, 3)]).mean() > 0.5
 
 
 @pytest.mark.parametrize("num_points,priority", [(256, "random"), (128, "distance")])
@@ -171,17 +205,32 @@ def test_grid_traced_loops_match_jax(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """Both CUDA kernels against their plain versions on the card."""
+    """Both grid-window CUDA kernels against their plain versions on the
+    card; kernel 2 bit for bit at k = 1, 3 and 32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     ref = torch.from_numpy(_terrain(20000, 7, extent=14.0)).to(dev)
     grid = thg.build_hash_grid(ref, 0.6)
     win = thc.window_prologue(ref, grid, 512, 32768)
-    d_k, i_k = thc.grid_knn_blocks(win, 3, exclude_self=True)
-    d_p, i_p = thc.grid_knn_plain(win, 4, exclude_self=True)
-    agr = knn_agreement(d_p[:, :3], i_p[:, :3], d_k, i_k, d_next=d_p[:, 3])
-    assert agr["index_mismatch"] == 0 and agr["dist_ok"], agr
+    # Kernel 2 bit for bit: the 3D terrain, pixel matches (z = 0, 5-pixel
+    # cells) and near ties (duplicated refs and one-ulp neighbours).
+    pix = torch.from_numpy(_pixels(20000, 10, extent=1200.0)).to(dev)
+    base = _terrain(6000, 11, extent=8.0)
+    dup = np.concatenate([base, base[::3], np.nextafter(base[::5], np.float32(np.inf))])
+    dup = torch.from_numpy(dup.astype(np.float32)).to(dev)
+    wins = {
+        "terrain": win,
+        "pixel": thc.window_prologue(pix, thg.build_hash_grid(pix, 5.0), 512, 32768),
+        "near_tie": thc.window_prologue(dup, thg.build_hash_grid(dup, 0.3), 512, 32768),
+    }
+    for shape, w in wins.items():
+        assert int(w.overflow) == 0, shape
+        for k in (1, 3, 32):
+            for excl in (False, True):
+                d_k, i_k = thc.grid_knn_blocks(w, k, exclude_self=excl)
+                d_p, i_p = thc.grid_knn_plain(w, k, exclude_self=excl)
+                assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), (shape, k, excl)
     cen = thc.block_centres(win)
     r2 = torch.tensor(0.36, device=dev)
     for P, prio in ((256, "random"), (128, "distance")):

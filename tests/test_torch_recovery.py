@@ -35,6 +35,18 @@ descriptors permuted, so feature matches are random):
     PYTHONPATH=. python tests/test_torch_recovery.py --pipeline f2s3 \
         --device cuda --n-core 250000 --margin 10 --halo 20 --chunk 2048 \
         --runs port port:no_refine port:tgt_shuffle
+
+``--pipeline fusion_rgb`` runs the RGB+3D fusion step (the
+``fusion_brienz.yaml`` statics) on ``bench.py``'s RGB tile: source margin
+half the target margin, a nadir 4096^2 camera and pixel matches for half
+the source points (``synth_rgb_tile``). Runs: ``jax``, ``port`` and
+``port:pix_shuffle`` (the matches' target endpoints permuted across rows,
+so every 2D match is wrong); "assigned" and the errors are then held to
+``bench.py``'s targets, which the JSON line states:
+
+    PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_rgb \
+        --device cuda --n-core 250000 --margin 10 --halo 20 --chunk 2048 \
+        --runs port port:pix_shuffle
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ from fusion4landslide_tpu_torch.models.convert import (
 )
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 from fusion4landslide_tpu_torch.parallel.pipeline import f2s3_statics, fusion3d_statics
-from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_split_tile
+from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_rgb_tile, synth_split_tile
 
 #: ``chip_smoke.py``'s production config (fusion_3d_brienz.yaml statics).
 CFG = {
@@ -65,6 +77,13 @@ CFG = {
     "fine_max_matches": 256, "global_matching_gated": True, "output_tgt2src": False,
 }
 SCALARS = (5.0, 0.1, 0.1, 10, 10, 0.5, 0.15)
+#: The RGB channel's settings of ``configs/landslide/fusion_brienz.yaml``,
+#: on ``bench.py``'s 4096^2 camera.
+RGB_CFG = {
+    "dataset": "brienz_tls", "use_2d_matches": True, "image_size": [4096, 4096],
+    "pixel_thres": 5, "lifting_type": "nn_search", "matches_from_2d_type": "nn_src_only",
+    "coarse_matching_fusion": True, "fine_matching_fusion": True, "weighting_svd": False,
+}
 #: ``chip_smoke.py``'s F2S3 config (f2s3_brienz.yaml statics) and its
 #: step scalars (max_disp_magnitude, voxel_size).
 F2S3_CFG = {
@@ -119,6 +138,28 @@ def split_tile(n_core: int, margin: float, halo: float | None = None):
     tb[:m] = tgt - c
     return dict(n=n, m=m, sb=sb, tb=tb, sm=np.arange(N) < n, tm=np.arange(M) < m,
                 core=core, moving=moving)
+
+
+def rgb_tile(n_core: int, margin: float, halo: float | None = None):
+    """``bench.py``'s RGB tile: source margin ``margin / 2``, target margin
+    ``margin``, pixel matches for half the source points; the step's image
+    inputs under ``images`` and ``bench.py``'s tolerance under ``tol``."""
+    halo = margin if halo is None else halo
+    src, tgt, core, moving, pix, K, E, m_per_px = synth_rgb_tile(n_core, margin / 2, margin, halo=halo)
+    n, m = len(src), len(tgt)
+    N, M = bucket_size(n), bucket_size(m)
+    c = src.mean(0)
+    sb = np.zeros((N, 3), np.float32)
+    sb[:n] = src - c
+    tb = np.zeros((M, 3), np.float32)
+    tb[:m] = tgt - c
+    pixb = np.zeros((1, bucket_size(len(pix)), 4), np.float32)
+    pixb[0, : len(pix)] = pix
+    images = dict(pix_matches=pixb, pix_count=np.array([len(pix)], np.int32), intrinsic=K,
+                  src_extrinsics=E[None], tgt_extrinsics=E[None],
+                  center=c.astype(np.float32), pixel_thres=5.0)
+    return dict(n=n, m=m, sb=sb, tb=tb, sm=np.arange(N) < n, tm=np.arange(M) < m,
+                core=core, moving=moving, images=images, tol=2e-3 + 0.7 * m_per_px)
 
 
 @contextlib.contextmanager
@@ -189,13 +230,22 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
     ``seeded_models(0)``; returns its recovery readings. The port's
     runs go on ``device``; the JAX run is always the emulated CPU one.
     ``chunk`` (DIPs network rows per call) bounds memory; chip_smoke.py
-    uses 2048."""
+    uses 2048. A tile with ``images`` runs the RGB+3D step."""
     N, M, n = tile["sb"].shape[0], tile["tb"].shape[0], tile["n"]
-    statics = fusion3d_statics({**CFG, "feat_chunk": chunk}, N, M)
+    images = dict(tile.get("images", {}))
+    cfg = {**CFG, **(RGB_CFG if images else {}), "feat_chunk": chunk}
+    statics = fusion3d_statics(cfg, N, M, with_image=bool(images))
     td, ta = seeded_models(0, "cpu")
     fault = kind.split(":", 1)[1] if ":" in kind else None
     if fault == "no_icp":
         statics["icp_max_iter"] = 0
+    elif fault == "pix_shuffle":
+        pix = images["pix_matches"].copy()
+        cnt = int(images["pix_count"][0])
+        perm = np.random.default_rng(0).permutation(cnt)
+        pix[0, :cnt, 2:] = pix[0, perm, 2:]
+        images["pix_matches"] = pix
+        fault = None
     t0 = time.perf_counter()
     if kind == "jax":
         import jax
@@ -206,7 +256,7 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
             out = fusion3d_tile_step(
                 flax_from_state_dict(td.state_dict()), flax_from_state_dict(ta.state_dict()),
                 tile["sb"], tile["sm"], tile["tb"], tile["tm"], jax.random.PRNGKey(0),
-                *SCALARS, **statics,
+                *SCALARS, **images, **statics,
             )
             valid, moved = np.asarray(out.valid[:n]), np.asarray(out.moved[:n])
             extra = dict(n_vox=[int(out.n_vox_src), int(out.n_vox_tgt)],
@@ -218,12 +268,16 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
             out = fusion3d_tile_step(
                 td, ta, torch.from_numpy(tile["sb"]), torch.from_numpy(tile["sm"]),
                 torch.from_numpy(tile["tb"]), torch.from_numpy(tile["tm"]), *SCALARS,
-                device=device, **statics,
+                device=device, **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+                                  for k, v in images.items()}, **statics,
             )
         valid, moved = out.valid[:n].cpu().numpy(), out.moved[:n].cpu().numpy()
         extra = dict(n_vox=[int(out.n_vox_src), int(out.n_vox_tgt)],
                      median_res=float(out.median_res), overflow=out.overflow)
+    extra["n_c2d"] = int(out.n_c2d)
     rec = recovery(valid, moved, tile["sb"][:n], tile["core"], tile["moving"])
+    if images:
+        extra["bench_targets"] = {"core_assigned": 0.9, "err_m": tile["tol"]}
     return {"run": kind, **rec, **extra, "valid": valid, "moved": moved,
             "seconds": time.perf_counter() - t0}
 
@@ -435,10 +489,11 @@ def main() -> None:
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--chunk", type=int, default=512)
     ap.add_argument("--runs", nargs="+", default=["jax", "port"])
-    ap.add_argument("--pipeline", choices=("fusion", "f2s3"), default="fusion")
+    ap.add_argument("--pipeline", choices=("fusion", "f2s3", "fusion_rgb"), default="fusion")
     args = ap.parse_args()
     torch.set_grad_enabled(False)
-    tile = split_tile(args.n_core, args.margin, args.halo)
+    make = rgb_tile if args.pipeline == "fusion_rgb" else split_tile
+    tile = make(args.n_core, args.margin, args.halo)
     print(json.dumps({"tile": {"n_core": args.n_core, "margin_m": args.margin,
                                "halo_m": args.halo, "device": args.device,
                                "chunk": args.chunk,
