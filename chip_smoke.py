@@ -56,14 +56,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    statics and seeded random weights: asserts all three kernels launched
    during the step, finite outputs, the result tables, and recovery
    readings between the sound and a broken run (see ``RECOVERY_F2S3``);
-   prints stage times, peak memory and the kept fraction; then the same
-   tile through the host tile ``run_f2s3_tile`` (launches, time, peak
-   memory, tables, finite outputs);
-9. a ``kernels`` JSON line: launches on the F2S3 tile step (and per
-   path), time, the time before this redesign (``ms_before``),
-   plain-version time, the least time the card could take (bound), what
-   bounds it, and a library yardstick where one exists;
-10. last line: ``{"ok": true, "device": {...}}``.
+   prints stage times, peak memory and the kept fraction; then a
+   quarter-size tile through the host tile ``run_f2s3_tile`` (launches,
+   time, peak memory, tables, finite outputs);
+9.-11. the drivers from files on disk, each run as a subprocess
+   (``python3 -m fusion4landslide_tpu_torch.main_…``) on the card, with
+   seeded random weights written as reference-format checkpoints and
+   the shipped configs with only paths and file names changed (plus the
+   RGB camera's ``image_size``): ``main_fusion`` 3D-only
+   (``fusion_3d_brienz.yaml``) on ``DRIVER_EPOCH``, an epoch pair of
+   1.45 M points per epoch that the tiler cuts into two tiles (kernels 1
+   and 2 launched, every tile's ``c2f_*`` tables, recovery per tile
+   between the floors ``RECOVERY_CLI``, then a second run that skips
+   both tiles); ``main_fusion`` RGB+3D (``fusion_brienz.yaml``) on a
+   one-tile epoch seen by ``bench.py``'s 4096^2 nadir camera, with its
+   pixel matches in ``img_matching_results/`` (``bench.py``'s targets,
+   ``RECOVERY_RGB``); ``main_f2s3`` (``f2s3_brienz.yaml``) on the
+   two-tile epoch (all three kernels, the ``f2s3_*`` tables,
+   ``RECOVERY_CLI_F2S3``); each prints seconds per tile with the host
+   tile's stage times, tiling and reading seconds, peak memory and
+   launches (from the driver's ``run summary`` line);
+12. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
+   (and per path), time, the time before the kernel's redesign
+   (``ms_before``), plain-version time, the least time the card could
+   take (bound), what bounds it, and a library yardstick where one
+   exists;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
 back to the CPU or to the plain versions.
@@ -115,6 +133,32 @@ RECOVERY_F2S3 = {"kept": 0.0015, "static_err_m": 3.0, "moving_err_m": 1.0e-2}
 #: assigned, and the median error on either half stays under
 #: ``2 mm + 0.7 m_per_px`` (the pixel-space chaining tolerance).
 RECOVERY_RGB = {"core_assigned": 0.9, "err_floor_m": 2e-3, "err_per_m_per_px": 0.7}
+#: Floors of the 3D-only driver's tiles (``DRIVER_EPOCH`` through
+#: ``main_fusion`` with ``fusion_3d_brienz.yaml`` and ``seeded_models(0)``
+#: checkpoints), per tile on its core. On an H100 80GB HBM3 (700 W) the
+#: sound tiles read 13.9% / 6.9% of the static core assigned, 14.2 mm /
+#: 204 mm median static and 155 mm / 276 mm median moving error; with the
+#: target descriptors permuted (``tests/test_torch_recovery.py --pipeline
+#: fusion_host``, run ``port:tgt_shuffle``) 0.59% / 0.11%, 3.27 m / 4.86 m
+#: and 4.15 m / 3.39 m. The witness's other broken runs (``port:no_icp``,
+#: ``port:tgt_seed``) read within the sound tiles' spread: with random
+#: weights the host tile's pairs are mostly false, in the JAX reference
+#: too. Each floor lies between the sound and the permuted readings.
+RECOVERY_CLI = {"static_assigned": 0.02, "static_err_m": 1.0, "moving_err_m": 1.0}
+#: Floors of the F2S3 driver's tiles (the same epoch through ``main_f2s3``
+#: with ``f2s3_brienz.yaml``, ``seeded_models(0)`` and ``seeded_filter(0)``
+#: checkpoints): the core fraction written (kept by the filter and the
+#: magnitude gate) and the median errors, between the sound and the broken
+#: readings of ``tests/test_torch_recovery.py --pipeline f2s3_host``. The
+#: voxel filter leaves no exact cross-epoch duplicates, so the step's
+#: ``RECOVERY_F2S3`` (exact moving matches) does not carry over. On an
+#: H100 80GB HBM3 (700 W) the sound tiles keep 0.121% / 0.166% of their
+#: core at 1.49 m / 1.79 m median static and 2.75 m / 2.68 m moving error;
+#: with the target descriptors permuted (run ``port:tgt_shuffle``) 0.063% /
+#: 0.064% at 3.35 m / 3.46 m and 3.43 m / 3.46 m; ``refine_results: false``
+#: (run ``port:no_refine``) reads as the sound run. A regression alarm for
+#: these weights, not a quality bound.
+RECOVERY_CLI_F2S3 = {"kept": 0.0009, "static_err_m": 2.5, "moving_err_m": 3.1}
 #: fusion_brienz.yaml's settings that the fusion runner reads (the RGB
 #: channel on bench.py's 4096^2 camera).
 RGB_CFG = {
@@ -657,6 +701,239 @@ def knn_phase(dev, N: int, n_valid: int) -> dict:
     )
 
 
+#: The shipped configs the driver phases run, and what each phase changes
+#: in them: only paths and file names, plus the RGB phase's camera size.
+DRIVER_CONFIGS = {
+    "cli_fusion3d": "fusion_3d_brienz.yaml",
+    "cli_fusion_rgb": "fusion_brienz.yaml",
+    "cli_f2s3": "f2s3_brienz.yaml",
+}
+#: The RGB driver phase's one-tile epoch (m): ~353 k points after the
+#: voxel filter, near ``bench.py``'s RGB tile; zero offset, since the
+#: camera projects world coordinates in float32.
+RGB_EPOCH = (70.0, 70.0)
+
+
+def write_epoch(root: str, width: float, height: float, offset) -> tuple:
+    """An epoch pair (``synth_epoch_pair``) as binary PLY files under
+    ``root/raw_pcd``; returns (src, tgt, moving_y) in world coordinates."""
+    from fusion4landslide_tpu_torch.io.ply import write_ply
+    from fusion4landslide_tpu_torch.synth import synth_epoch_pair
+
+    src, tgt, _ = synth_epoch_pair(width, height, offset=offset)
+    os.makedirs(os.path.join(root, "raw_pcd"), exist_ok=True)
+    write_ply(os.path.join(root, "raw_pcd", "epoch1.ply"), src)
+    write_ply(os.path.join(root, "raw_pcd", "epoch2.ply"), tgt)
+    return src, tgt, offset[1] + height / 2
+
+
+def driver_config(name: str, path: str, changes: dict) -> str:
+    """``configs/landslide/<name>`` with ``changes`` set in the sections
+    that hold each key (every key must exist), written to ``path``."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "landslide", name)) as f:
+        raw = yaml.safe_load(f)
+    for key, val in changes.items():
+        sections = [sec for sec in raw.values() if isinstance(sec, dict) and key in sec]
+        check(sections, f"{name} has no key {key}")
+        for sec in sections:
+            sec[key] = val
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f, sort_keys=False)
+    return path
+
+
+def run_driver(module: str, cfg_path: str) -> tuple[dict, str]:
+    """``python3 -m fusion4landslide_tpu_torch.<module> --config cfg_path``
+    on the card; returns its ``run summary`` (plus ``wall_s``, process
+    start included) and its standard output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"fusion4landslide_tpu_torch.{module}",
+                           "--config", cfg_path], cwd=here, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"chip_smoke check failed: {module} exited {proc.returncode}")
+    line = [x for x in proc.stdout.splitlines() if "run summary: " in x]
+    check(line, f"{module} printed no run summary")
+    summary = json.loads(line[-1].split("run summary: ", 1)[1])
+    summary["wall_s"] = wall
+    return summary, proc.stdout
+
+
+def tile_tables(out_root: str, tid: str, prefix: str) -> list[str]:
+    """The result tables of one tile whose names start with ``prefix``."""
+    import re
+
+    results = os.path.join(out_root, "results")
+    own = re.compile(rf"tile_{tid}(\D|$)")
+    return sorted(os.path.relpath(os.path.join(d, f), results)
+                  for d, _, fs in os.walk(results) for f in fs
+                  if own.search(f) and f.startswith(prefix))
+
+
+def driver_recovery(out_root: str, tid: str, table: str, moving_y: float) -> dict:
+    """Recovery readings of one driver tile from its written dvfs table."""
+    from fusion4landslide_tpu_torch.checks import driver_tile_recovery
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+    from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT
+
+    core = read_ply(os.path.join(out_root, "tiled_data", "non_overlap",
+                                 f"source_tile_{tid}.ply")).points
+    rows = np.loadtxt(os.path.join(out_root, "results", table), ndmin=2).reshape(-1, 6)
+    check(np.isfinite(rows).all() and len(rows) > 0, f"{table}: empty or not finite")
+    return driver_tile_recovery(core, rows[:, :3], rows[:, 3:6] - rows[:, :3], moving_y,
+                                PLANTED_SHIFT.astype(np.float64))
+
+
+def log_driver(label: str, summary: dict) -> None:
+    """The run's per-tile seconds and stage times, peak memory, tiling and
+    reading seconds, launches."""
+    stages = {tid: {k: round(v, 3) for k, v in st.items()}
+              for tid, st in summary["stages_s"].items()}
+    log(f"# {label}: wall {summary['wall_s']:.2f} s (process start included), driver "
+        f"{summary['total_s']:.2f} s, tiling {summary.get('tiling_s', 0.0):.2f} s, reading "
+        f"tiles {summary['read_tiles_s']:.2f} s, loading weights "
+        f"{summary['load_weights_s']:.2f} s, peak {summary['peak_mem_gib']} GiB, "
+        f"launches {summary['launches']}")
+    log(f"# {label} tile seconds: " + json.dumps({k: round(v, 2)
+                                                 for k, v in summary["tile_s"].items()}))
+    log(f"# {label} stages (s): " + json.dumps(stages))
+
+
+def driver_phases(dips, agg, filt) -> dict:
+    """Phases 9-11: the drivers from files on disk, as subprocesses on
+    the card; returns their launches by path."""
+    from fusion4landslide_tpu_torch.models.convert import write_reference_checkpoints
+    from fusion4landslide_tpu_torch.synth import DRIVER_EPOCH, IMG_SIZE, PLANTED_SHIFT, synth_image_channel
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        weights = os.path.join(tmp, "weights")
+        write_reference_checkpoints(weights, dips=dips, agg=agg, filt=filt)
+        data = os.path.join(tmp, "epoch")
+        t0 = time.perf_counter()
+        src, _, moving_y = write_epoch(data, DRIVER_EPOCH["width"], DRIVER_EPOCH["height"],
+                                       DRIVER_EPOCH["offset"])
+        log(f"# driver epoch: {len(src)} points per epoch over {DRIVER_EPOCH['width']:g} x "
+            f"{DRIVER_EPOCH['height']:g} m, written in {time.perf_counter() - t0:.2f} s; "
+            f"checkpoints {sorted(os.listdir(weights))}")
+
+        # ---- 9. main_fusion, 3D-only, use_mesh unset ---------------------
+        changes = {"input_root": data, "output_dir": os.path.join(tmp, "fusion3d"),
+                   "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply"}
+        cfg = driver_config(DRIVER_CONFIGS["cli_fusion3d"], os.path.join(tmp, "fusion3d.yaml"),
+                            changes)
+        log(f"# phase main_fusion 3D-only: {DRIVER_CONFIGS['cli_fusion3d']} with "
+            f"{sorted(changes)} changed")
+        summary, _ = run_driver("main_fusion", cfg)
+        log_driver("main_fusion 3D-only", summary)
+        by_path["cli_fusion3d"] = summary["launches"]
+        check(summary["launches"]["grid_knn"] > 0 and summary["launches"]["radius_sample"] > 0,
+              summary["launches"])
+        out_root = os.path.join(tmp, "fusion3d", "demo_run")
+        tiles = sorted(summary["tile_s"])
+        check(len(tiles) == 2, f"the epoch should make two tiles, made {tiles}")
+        for tid in tiles:
+            tables = tile_tables(out_root, tid, "c2f_")
+            for name in (f"c2f_dvfs_src2tgt_tile_{tid}.txt", f"c2f_dvfms_src2tgt_tile_{tid}.txt",
+                         f"c2f_dvfms_src2tgt_visualize_tile_{tid}.txt",
+                         f"c2f_dvfms_src2tgt_discrete_visualize_tile_{tid}.txt"):
+                check(name in tables, (name, tables))
+            rec = driver_recovery(out_root, tid, f"c2f_dvfs_src2tgt_tile_{tid}.txt", moving_y)
+            log(f"# main_fusion 3D-only tile {tid} tables {tables}; recovery {json.dumps(rec)} "
+                f"(floors {json.dumps(RECOVERY_CLI)})")
+            check(rec["static_assigned"] > RECOVERY_CLI["static_assigned"], rec)
+            check(rec["static_err_m"] < RECOVERY_CLI["static_err_m"], rec)
+            check(rec["moving_err_m"] is not None
+                  and rec["moving_err_m"] < RECOVERY_CLI["moving_err_m"], rec)
+        again, out = run_driver("main_fusion", cfg)
+        log(f"# main_fusion second run: {again['wall_s']:.2f} s, tiles run {sorted(again['tile_s'])}, "
+            f"{out.count('already complete; skipping')} skipped")
+        check(not again["tile_s"] and out.count("already complete; skipping") == 2, again)
+
+        # ---- 10. main_fusion, RGB+3D, one tile ----------------------------
+        rgb_data = os.path.join(tmp, "rgb_epoch")
+        r_src, _, r_moving_y = write_epoch(rgb_data, *RGB_EPOCH, (0.0, 0.0, 0.0))
+        tgt_of_src = r_src.copy()
+        tgt_of_src[r_src[:, 1] > r_moving_y] += PLANTED_SHIFT
+        pix, K, E, m_per_px = synth_image_channel(r_src.astype(np.float32),
+                                                  tgt_of_src.astype(np.float32),
+                                                  len(r_src) // 2, IMG_SIZE)
+        os.makedirs(os.path.join(rgb_data, "image", "transformations"))
+        os.makedirs(os.path.join(rgb_data, "img_matching_results"))
+        np.savetxt(os.path.join(rgb_data, "image", "camera_intrinsic.txt"), K, delimiter=" ")
+        for epoch in (1, 2):
+            np.savetxt(os.path.join(rgb_data, "image", "transformations", f"pose_epoch{epoch}.txt"),
+                       np.linalg.inv(E.astype(np.float64)), delimiter=" ")
+        np.savetxt(os.path.join(rgb_data, "img_matching_results", "pixel_matches.txt"), pix,
+                   fmt="%.6f")
+        changes = {"input_root": rgb_data, "output_dir": os.path.join(tmp, "fusion_rgb"),
+                   "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply",
+                   "image_size": list(IMG_SIZE)}
+        cfg = driver_config(DRIVER_CONFIGS["cli_fusion_rgb"], os.path.join(tmp, "rgb.yaml"),
+                            changes)
+        log(f"# phase main_fusion RGB+3D: {DRIVER_CONFIGS['cli_fusion_rgb']} with "
+            f"{sorted(changes)} changed; {len(pix)} pixel matches, a {IMG_SIZE[0]}^2 camera, "
+            f"{m_per_px:.5f} m per pixel")
+        summary, _ = run_driver("main_fusion", cfg)
+        log_driver("main_fusion RGB+3D", summary)
+        by_path["cli_fusion_rgb"] = summary["launches"]
+        check(summary["launches"]["grid_knn"] > 0 and summary["launches"]["radius_sample"] > 0,
+              summary["launches"])
+        out_root = os.path.join(tmp, "fusion_rgb", "demo_run")
+        check(list(summary["tile_s"]) == ["0"], summary["tile_s"])
+        tables = tile_tables(out_root, "0", "c2f_")
+        check("c2f_dvfms_from_global_2d_src2tgt_wo_pruning_visualize_tile_0.txt" in tables, tables)
+        rec = driver_recovery(out_root, "0", "c2f_dvfs_src2tgt_tile_0.txt", r_moving_y)
+        tol = RECOVERY_RGB["err_floor_m"] + RECOVERY_RGB["err_per_m_per_px"] * m_per_px
+        log(f"# main_fusion RGB+3D tables {tables}; recovery {json.dumps(rec)} (bench.py's "
+            f"targets: core assigned > {RECOVERY_RGB['core_assigned']}, median errors < "
+            f"{tol:.5f} m)")
+        check(rec["core_assigned"] > RECOVERY_RGB["core_assigned"], rec)
+        check(rec["moving_err_m"] is not None and rec["moving_err_m"] < tol, rec)
+        check(rec["static_err_m"] is not None and rec["static_err_m"] < tol, rec)
+
+        # ---- 11. main_f2s3, use_mesh unset -------------------------------
+        changes = {"data_dir": data, "output_dir": os.path.join(tmp, "f2s3"),
+                   "weight_dir": weights, "src_name": "epoch1.ply", "tgt_name": "epoch2.ply"}
+        cfg = driver_config(DRIVER_CONFIGS["cli_f2s3"], os.path.join(tmp, "f2s3.yaml"), changes)
+        log(f"# phase main_f2s3: {DRIVER_CONFIGS['cli_f2s3']} with {sorted(changes)} changed")
+        summary, _ = run_driver("main_f2s3", cfg)
+        log_driver("main_f2s3", summary)
+        by_path["cli_f2s3"] = summary["launches"]
+        check(min(summary["launches"].values()) > 0, summary["launches"])
+        out_root = os.path.join(tmp, "f2s3", "demo_run")
+        check(sorted(summary["tile_s"]) == tiles, summary["tile_s"])
+        for tid in tiles:
+            tables = tile_tables(out_root, tid, "")
+            for name in (f"f2s3_dvfs_of_tile_{tid}.txt", f"f2s3_dvfms_of_tile_{tid}.txt",
+                         f"f2s3_dvfms_of_tile_{tid}_visualize_0_5.txt",
+                         f"f2s3_dvfms_without_pruning_of_tile_{tid}.txt",
+                         os.path.join("filtered_by_magnitude",
+                                      f"f2s3_dvfms_filtered_by_median_mag_of_tile_{tid}.txt"),
+                         os.path.join("combined_with_c2c",
+                                      f"f2s3_dvfms_combined_with_c2c_of_tile_{tid}.txt")):
+                check(name in tables, (name, tables))
+            rec = driver_recovery(out_root, tid, f"f2s3_dvfs_of_tile_{tid}.txt", moving_y)
+            log(f"# main_f2s3 tile {tid} recovery (kept = core_assigned): {json.dumps(rec)} "
+                f"(floors {json.dumps(RECOVERY_CLI_F2S3)})")
+            check(rec["core_assigned"] > RECOVERY_CLI_F2S3["kept"], rec)
+            check(rec["static_err_m"] is not None
+                  and rec["static_err_m"] < RECOVERY_CLI_F2S3["static_err_m"], rec)
+            check(rec["moving_err_m"] is not None
+                  and rec["moving_err_m"] < RECOVERY_CLI_F2S3["moving_err_m"], rec)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -970,8 +1247,11 @@ def main() -> int:
     check(err_mov.size and float(np.median(err_mov)) < RECOVERY_F2S3["moving_err_m"],
           "F2S3 moving displacement error")
 
-    # The same tile through the host tile (main_f2s3.py on one device):
-    # unpadded clouds, uncapped supervoxel buckets.
+    # A quarter-size tile through the host tile (main_f2s3 on one device:
+    # unpadded clouds, uncapped supervoxel buckets); phase 11 runs it at
+    # full size from the driver.
+    src, tgt, _, _ = synth_split_tile(n_core // 4, margin, margin, halo=halo, density=density)
+    n = src.shape[0]
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
         f_cfg = dict(F2S3_CFG, output_dir=tmp, output_folder="smoke")
         reset_launches()
@@ -992,7 +1272,7 @@ def main() -> int:
     keep = out["keep"]
     # keep is the pruning's; the max-magnitude gate then drops rows of the
     # written table (the device step's keep includes the gate).
-    log(f"# F2S3 host tile: {step_s:.2f} s, peak {peak:.2f} GiB, launches {launches}, "
+    log(f"# F2S3 host tile ({n} pts): {step_s:.2f} s, peak {peak:.2f} GiB, launches {launches}, "
         f"kernel 3 rescored {int(kc.RESCORED[0]) / n:.2f} candidates per row, "
         f"{int(out['labels'].max()) + 1} supervoxels, pruning kept {keep.mean():.6f} of "
         f"the tile, {out['dvfs'].shape[0] / n:.6f} written after the magnitude gate")
@@ -1001,10 +1281,13 @@ def main() -> int:
     check(keep.any() and np.isfinite(out["dvfs"]).all() and np.isfinite(out["magnitudes"]).all(),
           "host F2S3 outputs empty or not finite")
 
-    # ---- 9. kernels line + 10. result line -------------------------------
+    # ---- 9.-11. the drivers from files on disk ---------------------------
+    by_path.update(driver_phases(dips, agg, filt))
+
+    # ---- 12. kernels line + 13. result line ------------------------------
     for name, row in kernels.items():
         row["ms_before"] = MS_BEFORE[name]
-        row["launches"] = by_path["f2s3"][name]
+        row["launches"] = by_path["cli_f2s3"][name]
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,16 +6,23 @@ decision between two implementations (a different summation order of a
 block mean or a dot product): near-ties between neighbouring kNN
 distances, and sampler candidates whose squared distance lies within
 ``rel`` * r^2 of the radius or of the self-exclusion threshold (plus
-near-ties of d^2 in ``'distance'`` mode).
+near-ties of d^2 in ``'distance'`` mode). ``driver_tile_recovery`` reads
+the recovery of a planted shift from a driver's written tables.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.ops.hashgrid_cuda import Window, _scan_len
 
-__all__ = ["knn_agreement", "sample_agreement", "sampler_borderline_rows"]
+__all__ = [
+    "driver_tile_recovery",
+    "knn_agreement",
+    "sample_agreement",
+    "sampler_borderline_rows",
+]
 
 _LANES = 128
 
@@ -87,4 +94,27 @@ def sample_agreement(i_ref, v_ref, i_new, v_new, borderline) -> dict:
         "rows": rows,
         "exact_frac": float(same.double().mean()) if rows else 1.0,
         "unexplained_rows": int((~same & ~borderline).sum()),
+    }
+
+
+def driver_tile_recovery(core_pts: np.ndarray, rows_src: np.ndarray, rows_disp: np.ndarray,
+                         moving_y: float, shift: np.ndarray) -> dict:
+    """Recovery of a planted shift from one tile's written DVF rows
+    (source points ``rows_src``, displacements ``rows_disp``), on the
+    tile's core (``core_pts``, its non-overlap points): the fraction of
+    the core with a row, of the static core (``y <= moving_y``), and the
+    median errors on the static (against 0) and the moving (against
+    ``shift``) core rows."""
+    lo, hi = core_pts.min(axis=0), core_pts.max(axis=0)
+    in_core = np.all((rows_src >= lo) & (rows_src <= hi), axis=1)
+    moving = rows_src[:, 1] > moving_y
+    err_sta = np.linalg.norm(rows_disp[in_core & ~moving], axis=1)
+    err_mov = np.linalg.norm(rows_disp[in_core & moving] - shift, axis=1)
+    n_static = int((core_pts[:, 1] <= moving_y).sum())
+    return {
+        "core_points": int(len(core_pts)),
+        "core_assigned": float(in_core.sum()) / max(len(core_pts), 1),
+        "static_assigned": float((in_core & ~moving).sum()) / max(n_static, 1),
+        "static_err_m": float(np.median(err_sta)) if err_sta.size else None,
+        "moving_err_m": float(np.median(err_mov)) if err_mov.size else None,
     }

@@ -4,18 +4,30 @@ Port of ``fusion4landslide_tpu.image.geometry`` (reference
 src/coarse_to_fine_matching_base.py): ``project_points`` (base:1353-1426,
 v flipped as ``h - v``), ``rasterize_depth`` (the z-buffer of
 base:1436-1443 as a scatter-min), ``lift_pixels_to_world``
-(base:664-728) and ``bilinear_depth`` (base:320-384). Plain tensor code
-on the inputs' device; the 3x3 products are written out term by term, so
-no TF32 matmul path can touch them. The host-path helpers
-``lift_matches_to_3d`` and ``chain_2d_matches_to_3d`` are not ported (the
-device step chains through ``pipelines.fusion_device``).
+(base:664-728) and ``bilinear_depth`` (base:320-384), and the host
+fusion tile's ``lift_matches_to_3d`` (depth lookup at both endpoints of
+each pixel match) and ``chain_2d_matches_to_3d`` (base:387-470: pixel
+matches chained to projected points by exact brute-force 2-d 1-NN, as the
+JAX host path searches; the device step chains through kernel 2 in
+``pipelines.fusion_device``). Plain tensor code on the inputs' device;
+the 3x3 products are written out term by term, so no TF32 matmul path can
+touch them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["bilinear_depth", "lift_pixels_to_world", "project_points", "rasterize_depth"]
+from fusion4landslide_tpu_torch.ops.knn import nn1
+
+__all__ = [
+    "bilinear_depth",
+    "chain_2d_matches_to_3d",
+    "lift_matches_to_3d",
+    "lift_pixels_to_world",
+    "project_points",
+    "rasterize_depth",
+]
 
 
 def _apply(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -111,3 +123,60 @@ def bilinear_depth(depth_map, uv, *, bilinear: bool = False):
     dv = v - v0
     d = d00 * (1 - du) * (1 - dv) + d10 * du * (1 - dv) + d01 * (1 - du) * dv + d11 * du * dv
     return d, valid
+
+
+def lift_matches_to_3d(corres_2d, depth_map_src, depth_map_tgt, src_extrinsic, tgt_extrinsic,
+                       intrinsic, image_size: tuple[int, int], *, v_flip: bool = True):
+    """Lift (M, 4) pixel matches [src_u, src_v, tgt_u, tgt_v] to 3D world
+    pairs through each side's depth map (``lift_2d_to_3d_with_interpolation``,
+    base:664-728). Returns ((M, 6) [src_xyz tgt_xyz], (M,) valid)."""
+    d_src, ok_s = bilinear_depth(depth_map_src, corres_2d[:, :2])
+    d_tgt, ok_t = bilinear_depth(depth_map_tgt, corres_2d[:, 2:4])
+    src_3d = lift_pixels_to_world(corres_2d[:, :2], d_src, src_extrinsic, intrinsic,
+                                  image_size, v_flip=v_flip)
+    tgt_3d = lift_pixels_to_world(corres_2d[:, 2:4], d_tgt, tgt_extrinsic, intrinsic,
+                                  image_size, v_flip=v_flip)
+    return torch.cat([src_3d, tgt_3d], dim=1), ok_s & ok_t
+
+
+def chain_2d_matches_to_3d(corres_2d, src_proj_uv, tgt_proj_uv, pixel_thres, corres_mask=None,
+                           src_valid=None, tgt_valid=None, *, mode: str = "nn_src_only"):
+    """3D point correspondences from (M, 4) pixel matches (base:387-470).
+
+    Forward chain, per projected source point: the nearest match's source
+    endpoint within ``pixel_thres`` -> that match's target endpoint -> the
+    nearest projected target point within ``pixel_thres``. ``mode``
+    (``matches_from_2d_type``, base:1599-1620): 'nn_src_only' keeps the
+    forward chain; 'nn_mutual' keeps source point n iff the reverse chain
+    (per target point, the same two hops backwards) is valid at its
+    forward target i and maps i back to n; 'nn_union' keeps it iff
+    (forward valid or reverse valid at i) and the reverse chain maps i
+    back to n. Returns ((Ns,) target index int32, (Ns,) valid)."""
+    if mode not in ("nn_src_only", "nn_mutual", "nn_union"):
+        raise ValueError(
+            f"unknown matches_from_2d_type mode {mode!r} (nn_src_only | nn_mutual | nn_union)"
+        )
+    thr2 = torch.as_tensor(pixel_thres, dtype=torch.float32, device=corres_2d.device) ** 2
+
+    def hop(query, ref, ref_mask):
+        d, idx = nn1(query, ref, ref_mask)
+        return idx.long(), torch.isfinite(d) & (d < thr2)
+
+    m_idx, hop1 = hop(src_proj_uv, corres_2d[:, :2], corres_mask)
+    t_idx, hop2 = hop(corres_2d[m_idx, 2:4], tgt_proj_uv, tgt_valid)
+    mask_src = hop1 & hop2
+    if src_valid is not None:
+        mask_src = mask_src & src_valid.to(torch.bool)
+    if mode == "nn_src_only":
+        return t_idx.to(torch.int32), mask_src
+    m_idx_r, hop1r = hop(tgt_proj_uv, corres_2d[:, 2:4], corres_mask)
+    s_idx, hop2r = hop(corres_2d[m_idx_r, :2], src_proj_uv, src_valid)
+    mask_tgt = hop1r & hop2r
+    if tgt_valid is not None:
+        mask_tgt = mask_tgt & tgt_valid.to(torch.bool)
+    back = s_idx[t_idx] == torch.arange(src_proj_uv.shape[0], device=s_idx.device)
+    if mode == "nn_mutual":
+        valid = mask_src & mask_tgt[t_idx] & back
+    else:
+        valid = (mask_src | mask_tgt[t_idx]) & back
+    return t_idx.to(torch.int32), valid

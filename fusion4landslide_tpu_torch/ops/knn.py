@@ -17,13 +17,15 @@ import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
+from fusion4landslide_tpu_torch.ops.hashgrid_cuda import _fma
 from fusion4landslide_tpu_torch.ops.knn_cuda import MAX_K, knn_feature
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
 __all__ = ["pairwise_sqdist", "knn", "nn1", "median_nn_distance"]
 
 _DIFF_DIM_MAX = 8
-_QUERY_BLOCK = 4096  # query rows per distance slab
+_QUERY_BLOCK = 4096  # query rows per distance slab, at most
+_SLAB_ELEMS = 1 << 26  # distances per slab, at most (256 MB in float32)
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,8 +62,9 @@ def knn(query, ref, k: int, ref_mask=None, *, exclude_self: bool = False):
     )
     kk = min(k, m)
     outs_d, outs_i = [], []
-    for s in range(0, max(n, 1), _QUERY_BLOCK):
-        q = query[..., s:s + _QUERY_BLOCK, :]
+    block = max(1, min(_QUERY_BLOCK, _SLAB_ELEMS // max(m, 1)))
+    for s in range(0, max(n, 1), block):
+        q = query[..., s:s + block, :]
         dist = pairwise_sqdist(q, ref)
         bad = ~mask[..., None, :]
         if exclude_self:
@@ -132,8 +135,14 @@ def median_nn_distance(points, mask=None):
             if 2 * int(found.sum()) > cnt:
                 return med
             radius *= 2.0
-    sqd, _ = knn(points, points, 1, mask, exclude_self=True)
-    d = torch.sqrt(sqd[:, 0])
+    sqd, idx = knn(points, points, 1, mask, exclude_self=True)
+    # The selected distances in the rounding of the JAX package's CPU
+    # build (XLA contracts the difference form to fma(dz, dz, fma(dx, dx,
+    # dy * dy))): the median feeds the voxel grid, where one ulp can move
+    # a point across a cell boundary.
+    c = points - points[idx[:, 0].long()]
+    sq = _fma(c[:, 2], c[:, 2], _fma(c[:, 0], c[:, 0], c[:, 1] * c[:, 1]))
+    d = torch.sqrt(torch.where(torch.isfinite(sqd[:, 0]), sq, sqd[:, 0]))
     if mask is None:
         return _median_of_first(torch.sort(d).values, n)
     valid = mask.to(torch.bool) & torch.isfinite(d)

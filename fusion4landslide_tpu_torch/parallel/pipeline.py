@@ -49,10 +49,17 @@ def _padded_tile(src: np.ndarray, tgt: np.ndarray, N: int, M: int, dev):
     )
 
 
-def _buckets(tiles: list) -> tuple[int, int]:
-    """(N, M): the buckets of the largest source and target tile."""
-    return (bucket_size(max(t[1].shape[0] for t in tiles)),
-            bucket_size(max(t[2].shape[0] for t in tiles)))
+def _tiles_and_buckets(tiles, n_bucket: int | None, m_bucket: int | None):
+    """(tiles, (N, M)): with given buckets the tiles stay a lazy iterable;
+    otherwise they are listed and (N, M) are the buckets of the largest
+    source and target tile ((0, 0) for no tile)."""
+    if n_bucket is not None and m_bucket is not None:
+        return tiles, (n_bucket, m_bucket)
+    tiles = list(tiles)
+    if not tiles:
+        return tiles, (0, 0)
+    return tiles, (bucket_size(max(t[1].shape[0] for t in tiles)),
+                   bucket_size(max(t[2].shape[0] for t in tiles)))
 
 
 def _image_statics(cfg: dict) -> dict:
@@ -145,7 +152,8 @@ def _image_inputs(kit: dict, n_image_pairs: int, pix_cap: int, center, cfg: dict
 def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
                        logger=None, timings: dict | None = None,
                        image_kit_fn=None, pix_cap: int | None = None,
-                       n_image_pairs: int = 1) -> dict:
+                       n_image_pairs: int = 1, n_bucket: int | None = None,
+                       m_bucket: int | None = None) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
     on one device and write the ``c2f_*`` result tables under
     ``<output_dir>/<output_folder>/results``.
@@ -157,18 +165,22 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     (lists of (4, 4) world->camera, aligned with ``pix``); ``pix_cap``
     (rows per pair, required) and ``n_image_pairs`` fix the padded shape.
 
+    ``n_bucket`` / ``m_bucket`` fix the padded source / target sizes (the
+    driver's, from the tile files' headers; every tile must fit), and the
+    statics derived from them; without them they are the buckets of the
+    largest tile.
+
     Returns {tile_id: {"dvfs", "valid", "assigned_fraction", "n_dropped",
     "overflow", "n_c2d"}}. ``timings`` (optional dict) collects per-stage
     seconds of the step, synchronised at each stage boundary.
     """
     dev = resolve_device(device)
-    tiles = list(tiles)
-    if not tiles:
-        return {}
     with_image = image_kit_fn is not None
     if with_image and pix_cap is None:
         raise ValueError("image_kit_fn requires pix_cap")
-    N, M = _buckets(tiles)
+    tiles, (N, M) = _tiles_and_buckets(tiles, n_bucket, m_bucket)
+    if N == 0:
+        return {}
     statics = fusion3d_statics(cfg, N, M, with_image=with_image)
     remove_low = bool(cfg.get("remove_low_quality_patch_matches", True))
     scalars = dict(
@@ -271,21 +283,24 @@ def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
 
 
 def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
-                   logger=None, timings: dict | None = None) -> dict:
+                   logger=None, timings: dict | None = None,
+                   n_bucket: int | None = None, m_bucket: int | None = None) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
     on one device through ``f2s3_tile_step`` and write the ``f2s3_*``
     result tables (the pre-pruning ``f2s3_dvfms_without_pruning_of_tile_*``
     included) under ``<output_dir>/<output_folder>/results``.
+
+    ``n_bucket`` / ``m_bucket`` fix the padded sizes as in
+    ``run_fusion3d_tiles``.
 
     Returns {tile_id: {"dvfs", "magnitudes", "keep", "n_dropped",
     "overflow"}}. ``timings`` (optional dict) collects per-stage seconds
     of the step, synchronised at each stage boundary.
     """
     dev = resolve_device(device)
-    tiles = list(tiles)
-    if not tiles:
+    tiles, (N, M) = _tiles_and_buckets(tiles, n_bucket, m_bucket)
+    if N == 0:
         return {}
-    N, M = _buckets(tiles)
     statics = f2s3_statics(cfg, N, M)
     max_disp = float(cfg.get("max_disp_magnitude", 0) or 0)
     voxel_size = float(cfg.get("voxel_size", 0.0) or 0.0)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os
 import os.path as osp
+import time
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
 
 __all__ = [
+    "StageTimer",
     "compute_dips_features",
     "drop_small_and_compact",
     "filter_supervoxel_buckets",
@@ -57,6 +59,27 @@ __all__ = [
     "run_f2s3_tile",
     "write_f2s3_outputs",
 ]
+
+class StageTimer:
+    """Per-stage wall seconds, synchronised with the device at each mark
+    (only when the caller passes a ``timings`` dict)."""
+
+    def __init__(self, timings: dict | None, device: torch.device):
+        self.timings, self.device = timings, device
+        self.last = self._now() if timings is not None else 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.timings is None:
+            return
+        now = self._now()
+        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
+        self.last = now
+
 
 #: Query blocks per sampler launch (65536 queries at block 512).
 _SAMPLE_BLOCKS = 128
@@ -297,12 +320,13 @@ def is_rockfall(cfg) -> bool:
 def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *,
                   src_halo: np.ndarray | None = None,
                   tgt_halo: np.ndarray | None = None, tile_id=0, logger=None,
-                  device=None) -> dict:
+                  device=None, timings: dict | None = None) -> dict:
     """One F2S3 tile, host-orchestrated (``main_f2s3.py`` on one device):
     centre, median resolution, DIPs, supervoxels with small-patch removal,
     feature 1-NN (kernel 3), the pre-pruning table, learned pruning and
     the result tables. ``cfg`` keys as in ``configs/landslide/f2s3_brienz.yaml``.
-    Runs on ``device`` (default ``cuda``)."""
+    Runs on ``device`` (default ``cuda``); ``timings`` (optional dict)
+    collects per-stage seconds, synchronised at each stage boundary."""
     if not cfg.get("feat_compute", True):
         raise NotImplementedError("the feature cache (feat_compute: false) is not ported")
     if cfg.get("save_interim", False):
@@ -310,6 +334,7 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     if cfg.get("feat_dtype") not in (None, "float32"):
         raise NotImplementedError("only float32 descriptors are ported")
     dev = resolve_device(device)
+    timer = StageTimer(timings, dev)
     dips, filt = dips.to(dev).eval(), filt.to(dev).eval()
     src_halo = src_core if src_halo is None else src_halo
     tgt_halo = tgt_core if tgt_halo is None else tgt_halo
@@ -323,12 +348,14 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
     median_res = max(float(median_nn_distance(s_d)), float(median_nn_distance(t_d)))
     radius = float(np.sqrt(3) * 10.0 * median_res)
+    timer.mark("median_res")
     if logger:
         logger.info("tile %s: median_res=%.4f, patch radius=%.4f", tile_id, median_res, radius)
 
     # 2. DIPs descriptors, patches from the halo clouds (f2s3.py:111-114).
     src_feat, _ = compute_dips_features(dips, s_d, sh, radius)
     tgt_feat, _ = compute_dips_features(dips, t_d, th, radius)
+    timer.mark("dips_features")
 
     # 3. Supervoxels of the source, small patches removed, labels compacted
     # (f2s3.py:183-225).
@@ -341,12 +368,14 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         seg.labels, torch.ones_like(seg.labels, dtype=torch.bool), min_count
     )
     labels = labels.cpu().numpy()
+    timer.mark("supervoxels")
     if logger:
         logger.info("tile %s: %d supervoxels kept", tile_id, int(n_kept))
 
     # 4. Feature-space 1-NN correspondences (f2s3.py:273-285), kernel 3.
     _, nn_idx = nn1(src_feat, tgt_feat)
     correspondences = np.hstack([s, t[nn_idx.cpu().numpy()]])
+    timer.mark("feature_nn1")
 
     # Pre-pruning table (f2s3.py:286-294).
     results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")), "results")
@@ -361,9 +390,11 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         filt, correspondences, labels, rockfall=svl_radius == 0.1,
         refine_results=bool(cfg.get("refine_results", True)), device=dev,
     )
+    timer.mark("filter")
     # 6.-8. Gates, dvf(m)s, median filter, C2C fill.
     written = write_f2s3_outputs(cfg, tile_id, center, s, t, pruned, keep,
                                  logger=logger, device=dev)
+    timer.mark("tables")
     return {
         "dvfs": written["dvfs"],
         "magnitudes": written["magnitudes"],

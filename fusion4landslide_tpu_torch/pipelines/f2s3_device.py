@@ -5,8 +5,9 @@ Port of ``fusion4landslide_tpu.pipelines.f2s3_device``: ``f2s3_tile_step``
 feature-space 1-NN -> learned per-supervoxel pruning -> magnitude gate ->
 C2C spatial 1-NN) on padded, centred tile tensors, following the JAX
 step's accelerator branch; ``dips_features_device``,
-``drop_small_and_compact`` (defined in ``pipelines.f2s3``) and
-``masked_median`` (also used by the fusion step) and ``StageTimer``.
+``masked_median`` (also used by the fusion step), and
+``drop_small_and_compact`` and ``StageTimer`` (both defined in
+``pipelines.f2s3``).
 
 Fixed-shape conventions as in the JAX step: supervoxel buckets use static
 caps ``(sv_cap, member_cap)``; supervoxels past the cap, or members past
@@ -16,7 +17,6 @@ counted in ``n_dropped``.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -33,6 +33,7 @@ from fusion4landslide_tpu_torch.ops.supervoxel import (
     supervoxel_segmentation,
 )
 from fusion4landslide_tpu_torch.pipelines.f2s3 import (
+    StageTimer,
     compute_dips_features,
     drop_small_and_compact,
     filter_supervoxel_buckets,
@@ -46,27 +47,6 @@ __all__ = [
     "f2s3_tile_step",
     "masked_median",
 ]
-
-
-class StageTimer:
-    """Per-stage wall seconds, synchronised with the device at each mark
-    (only when the caller passes a ``timings`` dict)."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings, self.device = timings, device
-        self.last = self._now() if timings is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.timings is None:
-            return
-        now = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
-        self.last = now
 
 
 def masked_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,66 @@
-"""Global voxel matching and fine per-pair matching.
+"""The fusion method's matching stages and its host-orchestrated tile.
 
-Port of ``fusion4landslide_tpu.pipelines.fusion``: ``global_matches_3d``
-(the ungated search-then-gate feature 1-NN, reference base:2756-2889) and
-``fine_match_pairs`` (quality gate + SVD + ICP, reference base:3254-3436)
-with one correspondence channel (3D matches) or two (3D matches and 3D
-matches lifted from 2D pixel matches, base:3258-3296) and point2point ICP.
+Port of ``fusion4landslide_tpu.pipelines.fusion``:
+
+- ``global_matches_3d`` (the ungated search-then-gate feature 1-NN on
+  kernel 3, reference base:2756-2889), ``coarse_match_superpoints``
+  (superpoint mutual matching under the magnitude gate, base:2966-2999,
+  scanned over target chunks), ``aggregate_superpoints``
+  (ClusterFeatureNet over member buckets, base:2561-2656),
+  ``coarse_match_2d_votes`` (base:3019-3070) and ``fine_match_pairs``
+  (quality gate + SVD + ICP, base:3254-3436, with one correspondence
+  channel or two: 3D matches and 3D matches lifted from 2D pixel matches,
+  base:3258-3296), shared with the device step;
+- ``run_fusion3d_tile`` / ``run_fusion_tile``: the host tile that
+  ``main_fusion`` runs per tile on one device (3D-only, or RGB+3D with
+  precomputed pixel matches): unpadded clouds, numpy bookkeeping between
+  the stages, the same ``c2f_*`` tables as the runner.
+
+Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
+``partition_type: superpoint``, ICP types other than point2point, bf16
+descriptors, the image matcher and the figure writers.
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from fusion4landslide_tpu_torch.device import resolve_device
+from fusion4landslide_tpu_torch.image.geometry import (
+    chain_2d_matches_to_3d,
+    lift_matches_to_3d,
+    project_points,
+    rasterize_depth,
+)
+from fusion4landslide_tpu_torch.io.results import dvf_magnitudes, save_txt, visual_clamp_magnitude
+from fusion4landslide_tpu_torch.ops.gated_match import gated_feature_nn1
+from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
-from fusion4landslide_tpu_torch.ops.knn import nn1
+from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
+from fusion4landslide_tpu_torch.ops.normals import pca_normals
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
+from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
+from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_graph, supervoxel_segmentation
+from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
+from fusion4landslide_tpu_torch.pipelines.driver import load_or_compute_features
+from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer, compute_dips_features
 
-__all__ = ["FinePairResult", "fine_match_pairs", "global_matches_3d"]
+__all__ = [
+    "FinePairResult",
+    "aggregate_superpoints",
+    "coarse_match_2d_votes",
+    "coarse_match_superpoints",
+    "fine_match_pairs",
+    "global_matches_3d",
+    "run_fusion3d_tile",
+    "run_fusion_tile",
+]
 
 
 def global_matches_3d(src_vox_feat, tgt_vox_feat, src_vox, tgt_vox, max_magnitude,
@@ -37,6 +80,69 @@ def global_matches_3d(src_vox_feat, tgt_vox_feat, src_vox, tgt_vox, max_magnitud
     mag = torch.linalg.norm(src_vox - tgt_vox[idx.long()], dim=-1)
     valid = torch.isfinite(sqd) & (mag <= max_magnitude) & sv
     return idx, valid
+
+
+def coarse_match_superpoints(feat_s, coord_s, valid_s, feat_t, coord_t, valid_t,
+                             max_magnitude, *, chunk: int = 2048, mutual: bool = True):
+    """Superpoint matching (base:2966-2999): feature distances with
+    centroid pairs farther than ``max_magnitude`` masked to +inf, argmin
+    per source superpoint, optional mutual check; scanned over target
+    chunks so only an (S, chunk) slab is live. Returns (tgt_idx, valid)."""
+    S, Q = feat_s.shape[0], feat_t.shape[0]
+    dev = feat_s.device
+    chunk = min(chunk, max(Q, 1))
+    s2 = (feat_s**2).sum(-1)
+    vs = valid_s.to(torch.bool)
+    vt = valid_t.to(torch.bool)
+    mm2 = torch.as_tensor(max_magnitude, dtype=feat_s.dtype, device=dev) ** 2
+    best_d = torch.full((S,), torch.inf, dtype=feat_s.dtype, device=dev)
+    best_i = torch.zeros((S,), dtype=torch.int64, device=dev)
+    src_of_tgt = []
+    for base in range(0, Q, chunk):
+        ftc, ctc, vtc = feat_t[base:base + chunk], coord_t[base:base + chunk], vt[base:base + chunk]
+        f2 = s2[:, None] - 2.0 * (feat_s @ ftc.T) + (ftc**2).sum(-1)[None, :]
+        c2 = None
+        for d in range(3):
+            cd = coord_s[:, None, d] - ctc[None, :, d]
+            c2 = cd * cd if c2 is None else c2 + cd * cd
+        bad = (c2 > mm2) | ~vs[:, None] | ~vtc[None, :]
+        dist = torch.where(bad, torch.inf, f2)
+        m, a = dist.min(dim=1)
+        upd = m < best_d
+        best_d = torch.where(upd, m, best_d)
+        best_i = torch.where(upd, a + base, best_i)
+        src_of_tgt.append(dist.argmin(dim=0))
+    src_of_tgt = torch.cat(src_of_tgt)
+    valid = torch.isfinite(best_d)
+    if mutual:
+        valid = valid & (src_of_tgt[best_i] == torch.arange(S, device=dev))
+    return best_i.to(torch.int32), valid
+
+
+def aggregate_superpoints(agg, feat_arr, coords, member_idx, member_mask, *,
+                          agg_max_points: int, s_chunk: int = 128):
+    """ClusterFeatureNet over supervoxel buckets, chunked over S, with a
+    strided member subsample bounding the quadratic attention. Chunks
+    with no live member are skipped (their features are never read)."""
+    S, P = member_idx.shape
+    if P > agg_max_points:
+        stride = -(-P // agg_max_points)
+        mi = member_idx[:, ::stride][:, :agg_max_points]
+        mm = member_mask[:, ::stride][:, :agg_max_points]
+    else:
+        mi, mm = member_idx, member_mask
+    spt_feat = torch.zeros((S, 64), dtype=torch.float32, device=feat_arr.device)
+    live = mm.view(-1, mm.shape[1]).any(-1)
+    for s0 in range(0, S, s_chunk):
+        if not bool(live[s0:s0 + s_chunk].any()):
+            continue
+        mic, mmc = mi[s0:s0 + s_chunk].long(), mm[s0:s0 + s_chunk]
+        feats = feat_arr[mic] * mmc[..., None]
+        spt_feat[s0:s0 + s_chunk] = agg(feats, mmc)
+    # Centroid over the FULL member set (not the strided subsample).
+    w = member_mask.to(coords.dtype)[..., None]
+    cent = (coords[member_idx.long()] * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+    return spt_feat, cent
 
 
 class FinePairResult(NamedTuple):
@@ -174,3 +280,527 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
         )
         R[idx], t[idx], rmse[idx], valid[idx], n_match[idx] = out
     return FinePairResult(R=R, t=t, rmse=rmse, valid=valid, n_matches=n_match)
+
+
+def _compact_labels(labels: np.ndarray, min_count: int) -> tuple[np.ndarray, int]:
+    """Drop labels with <= min_count members and compact the rest to
+    0..K-1 in label order (small-patch removal, base:1309-1321)."""
+    labels = np.asarray(labels)
+    if labels.max() < 0:
+        return np.full_like(labels, -1), 0
+    counts = np.bincount(labels[labels >= 0])
+    keep = counts > min_count
+    remap = np.full(counts.size, -1)
+    remap[keep] = np.arange(keep.sum())
+    return np.where(labels >= 0, remap[np.clip(labels, 0, None)], -1), int(keep.sum())
+
+
+def coarse_match_2d_votes(lab_s: np.ndarray, lab_t: np.ndarray, c2d_idx: np.ndarray,
+                          c2d_valid: np.ndarray, n_s: int, n_t: int,
+                          min_votes: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Majority vote of per-voxel 2D matches into target superpoints
+    (base:3019-3070): each source voxel with a valid 2D match votes for
+    its matched target voxel's superpoint; each source superpoint takes
+    the most-voted one (ties to the lowest label). Returns
+    (tgt_label_of_src_label (n_s,), valid (n_s,))."""
+    ok = c2d_valid & (lab_s >= 0)
+    tlab = lab_t[np.clip(c2d_idx, 0, max(len(lab_t) - 1, 0))]
+    ok = ok & (tlab >= 0)
+    votes = np.zeros((n_s, n_t), np.int32)
+    np.add.at(votes, (lab_s[ok], tlab[ok]), 1)
+    best = votes.argmax(axis=1)
+    return best, votes[np.arange(n_s), best] >= max(min_votes, 1)
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+def _check_ported(cfg, image_data) -> None:
+    """Raise for the options the host tile does not run yet."""
+    if str(cfg.get("partition_type", "supervoxel")) == "superpoint":
+        raise _not_ported("partition_type: superpoint", 2)
+    if cfg.get("feat_dtype") not in (None, "float32"):
+        raise _not_ported(f"feat_dtype: {cfg.get('feat_dtype')}", 3)
+    if str(cfg.get("icp_type", "point2point")) != "point2point":
+        raise _not_ported(f"icp_type: {cfg.get('icp_type')}", 4)
+    if int(cfg.get("feat_patch_points", 256)) % 128:
+        raise _not_ported("feat_patch_points not a multiple of 128 (the CPU DIPs branch)", 10)
+    if bool(cfg.get("visualize_patch", False)):
+        raise _not_ported("visualize_patch (patch figures)", 14)
+    if image_data is None:
+        return
+    if bool(cfg.get("save_img_matching_visualization", False)):
+        raise _not_ported("save_img_matching_visualization (matching figures)", 14)
+    single_pair = len(image_data["src_extrinsics"]) == 1 and len(image_data["tgt_extrinsics"]) == 1
+    if image_data.get("corres_2d") is None or not single_pair:
+        raise _not_ported("the image matcher (no precomputed matches for the image pair)", 9)
+    if not cfg.get("image_size") and image_data.get("src_image") is None:
+        raise ValueError("image_size is not in the config and no source image was given")
+
+
+def run_fusion3d_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
+                      src_halo: np.ndarray | None = None, tgt_halo: np.ndarray | None = None,
+                      tile_id=0, logger=None, device=None, timings: dict | None = None) -> dict:
+    """One tile of the fusion_3d method (use_2d_matches=False), host
+    orchestrated: what ``main_fusion.py`` runs per tile on one device.
+    ``cfg`` keys follow ``configs/landslide/fusion_3d_brienz.yaml``; runs
+    on ``device`` (default ``cuda``). ``timings`` (optional dict) collects
+    per-stage seconds, synchronised at each stage boundary."""
+    return _fusion_tile_core(cfg, dips, agg, src_core, tgt_core, image_data=None,
+                             src_halo=src_halo, tgt_halo=tgt_halo, tile_id=tile_id,
+                             logger=logger, device=device, timings=timings)
+
+
+def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
+                    src_image: np.ndarray | None, tgt_image: np.ndarray | None,
+                    intrinsic: np.ndarray, src_extrinsic: np.ndarray,
+                    tgt_extrinsic: np.ndarray, *, corres_2d: np.ndarray | None = None,
+                    src_extrinsics: list | None = None, tgt_extrinsics: list | None = None,
+                    src_halo: np.ndarray | None = None, tgt_halo: np.ndarray | None = None,
+                    tile_id=0, logger=None, device=None, timings: dict | None = None) -> dict:
+    """One tile of the RGB+3D fusion method (use_2d_matches=True), host
+    orchestrated: learned 3D matches fused with 3D matches chained from
+    the (M, 4) pixel matches ``corres_2d`` (the reference's
+    ``img_matching_result_dir``), at the coarse vote (base:3015-3070) and
+    the fine solve (base:3258-3296). Images are read only for their size,
+    when the config has no ``image_size``; the image matcher (no
+    ``corres_2d``, or several image pairs) is not ported yet."""
+    image_data = {
+        "src_image": src_image,
+        "intrinsic": np.asarray(intrinsic, np.float32),
+        "corres_2d": corres_2d,
+        "src_extrinsics": [np.asarray(e, np.float32)
+                           for e in (src_extrinsics or [src_extrinsic])],
+        "tgt_extrinsics": [np.asarray(e, np.float32)
+                           for e in (tgt_extrinsics or [tgt_extrinsic])],
+    }
+    return _fusion_tile_core(cfg, dips, agg, src_core, tgt_core, image_data=image_data,
+                             src_halo=src_halo, tgt_halo=tgt_halo, tile_id=tile_id,
+                             logger=logger, device=device, timings=timings)
+
+
+def _interim_table(src_vox, tgt_vox, idx, valid, center, dataset) -> np.ndarray:
+    """Pre-pruning magnitudes of voxel matches, clamped for display."""
+    rows = np.hstack([
+        src_vox[valid] + center,
+        np.linalg.norm(tgt_vox[idx[valid]] - src_vox[valid], axis=1)[:, None],
+    ])
+    return visual_clamp_magnitude(rows, dataset)
+
+
+@torch.inference_mode()
+def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
+                      image_data: dict | None, src_halo: np.ndarray | None,
+                      tgt_halo: np.ndarray | None, tile_id, logger, device,
+                      timings: dict | None) -> dict:
+    """The coarse-to-fine tile solve of ``fusion4landslide_tpu.pipelines.
+    fusion._fusion_tile_core``; the 2D-match channel runs when
+    ``image_data`` is given. Stages: median resolution, voxel subsampling
+    on one shared origin, DIPs descriptors on the voxel clouds (the
+    ``features_tile_*.npz`` cache), global 3D matches, the 2D channel,
+    then per level: partition, members, aggregation, coarse matching
+    (with 2D votes), fine SVD + ICP, priority merge; dense output and the
+    sparse re-association. The JAX key split at its start feeds only the
+    CPU DIPs branch, which the port does not run (``patch_points`` must be
+    a multiple of 128), so no draw is taken here."""
+    _check_ported(cfg, image_data)
+    dev = resolve_device(device)
+    dips, agg = dips.to(dev).eval(), agg.to(dev).eval()
+    timer = StageTimer({} if timings is None else timings, dev)
+    src_halo = src_core if src_halo is None else src_halo
+    tgt_halo = tgt_core if tgt_halo is None else tgt_halo
+
+    def on_dev(a, dtype=None):
+        if torch.is_tensor(a):
+            return a.to(device=dev, dtype=dtype)
+        return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
+
+    def log(msg, *args):
+        if logger:
+            logger.info(msg, *args)
+
+    center = src_core.mean(axis=0)
+    s = (src_core - center).astype(np.float32)
+    t = (tgt_core - center).astype(np.float32)
+    s_d, t_d = on_dev(s), on_dev(t)
+
+    max_mag = float(cfg.get("max_magnitude", 10.0))
+    icp_thr = float(cfg.get("icp_threshold", 0.1))
+    # icp_refine: False returns the SVD transform (base:3346).
+    icp_iter = 30 if bool(cfg.get("icp_refine", True)) else 0
+    levels = list(cfg.get("level_of_superpoint", [1, 2, 3]) or [1])
+    num_min_fine = int(cfg.get("num_min_fine_match", 10))
+    # 0 uncaps the per-pair match subsample of the fine solve.
+    fine_cap = int(cfg.get("fine_max_matches", 256)) or (1 << 30)
+    num_min_quality = int(cfg.get("num_min_matches_for_quality_check", 10))
+    thres_dd = float(cfg.get("thres_dist_diff", 0.5))
+    thres_ir = float(cfg.get("thres_inlier_ratio", 0.15))
+    if not bool(cfg.get("remove_low_quality_patch_matches", True)):
+        thres_ir, thres_dd = 0.0, float("inf")  # the quality gate off (base:3299)
+    mutual_3d = str(cfg.get("coarse_refinement_3d_type", "nn_mutual")) != "only_max_mag"
+    small_patch = int(cfg.get("num_min_matches_for_small_patch", 10))
+    assign_type = str(cfg.get("assign_type", "assign_then_nn"))
+    out_tgt2src = bool(cfg.get("output_tgt2src", False))
+    dataset = cfg.get("dataset")
+    overflow = 0
+
+    # 1. median resolution and voxel subsampling on the clouds' shared min
+    # corner (base:1012-1030).
+    median_res = max(float(median_nn_distance(s_d)), float(median_nn_distance(t_d)))
+    timer.mark("median_resolution")
+    grid0 = on_dev(np.minimum(s.min(axis=0), t.min(axis=0)).astype(np.float32))
+    s_cent, s_p2v, _, s_nv = voxel_downsample(s_d, median_res, origin=grid0)
+    t_cent, t_p2v, _, t_nv = voxel_downsample(t_d, median_res, origin=grid0)
+    s_nv, t_nv = int(s_nv), int(t_nv)
+    src_vox_d, tgt_vox_d = s_cent[:s_nv].contiguous(), t_cent[:t_nv].contiguous()
+    src_vox, tgt_vox = src_vox_d.cpu().numpy(), tgt_vox_d.cpu().numpy()
+    s_p2v, t_p2v = s_p2v.cpu().numpy(), t_p2v.cpu().numpy()
+    timer.mark("voxel_subsampling")
+    log("tile %s: median_res=%.4f, voxels src=%d tgt=%d", tile_id, median_res, s_nv, t_nv)
+
+    # 2. DIPs descriptors of the voxel clouds with patches from the halo
+    # clouds (base:1965-2049), cached as features_tile_N.npz.
+    radius = float(np.sqrt(3) * 10.0 * median_res)
+    feat_kw = dict(patch_points=int(cfg.get("feat_patch_points", 256)),
+                   chunk=int(cfg.get("feat_chunk", 2048)))
+    sh_d = on_dev((src_halo - center).astype(np.float32))
+    th_d = on_dev((tgt_halo - center).astype(np.float32))
+    dips_overflow = []
+
+    def compute_feats():
+        fs, ov_s = compute_dips_features(dips, src_vox_d, sh_d, radius, **feat_kw)
+        ft, ov_t = compute_dips_features(dips, tgt_vox_d, th_d, radius, **feat_kw)
+        dips_overflow.append(int(ov_s) + int(ov_t))
+        return {"src_feat": fs, "tgt_feat": ft}
+
+    feats = load_or_compute_features(cfg, tile_id, "features", compute_feats, logger)
+    if feats["src_feat"].shape[0] != s_nv or feats["tgt_feat"].shape[0] != t_nv:
+        if logger:
+            logger.warning("cached features shape mismatch (%d/%d vs %d/%d voxels): recomputing",
+                           feats["src_feat"].shape[0], feats["tgt_feat"].shape[0], s_nv, t_nv)
+        feats = compute_feats()
+    src_feat_d = on_dev(feats["src_feat"], torch.float32)
+    tgt_feat_d = on_dev(feats["tgt_feat"], torch.float32)
+    overflow += sum(dips_overflow)
+    timer.mark("dips_features")
+
+    # 3. Global 3D voxel matches: the banded magnitude-gated search by
+    # default, the reference's search-then-gate (kernel 3) with
+    # global_matching_gated: false (base:2756-2889).
+    if bool(cfg.get("global_matching_gated", True)):
+        nb_, mb_ = bucket_size(s_nv), bucket_size(t_nv)
+
+        def pad(x, rows):
+            return torch.cat([x, x.new_zeros((rows - x.shape[0], x.shape[1]))])
+
+        _, g_idx, g_valid = gated_feature_nn1(
+            pad(src_feat_d, nb_), pad(tgt_feat_d, mb_), pad(src_vox_d, nb_),
+            pad(tgt_vox_d, mb_), np.float32(max_mag),
+            torch.arange(nb_, device=dev) < s_nv, torch.arange(mb_, device=dev) < t_nv,
+        )
+        g_idx, g_valid = g_idx[:s_nv], g_valid[:s_nv]
+    else:
+        g_idx, g_valid = global_matches_3d(src_feat_d, tgt_feat_d, src_vox_d, tgt_vox_d,
+                                           max_mag)
+    g_idx, g_valid = g_idx.cpu().numpy(), g_valid.cpu().numpy()
+    timer.mark("global_3d_matches")
+
+    out_root = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")))
+    results_dir = osp.join(out_root, "results")
+    os.makedirs(results_dir, exist_ok=True)
+
+    # 3b. 3D voxel matches from the 2D pixel matches (base:1480-1675):
+    # project both voxel clouds, chain (nn_search) or lift through depth
+    # maps (interpolation), magnitude-gate; image pairs merge by fill-in.
+    c2d_idx = c2d_valid = None
+    if image_data is not None:
+        image_size = tuple(int(x) for x in (cfg.get("image_size")
+                                            or image_data["src_image"].shape[:2]))
+        pixel_thres = float(cfg.get("pixel_thres", 5))
+        v_flip = str(cfg.get("dataset", "")).lower() != "rockfall_simulator"
+        lifting = str(cfg.get("lifting_type", "nn_search"))
+        mode = str(cfg.get("matches_from_2d_type", "nn_src_only"))
+        if mode == "nn_src_with_tgt_for_visualize":
+            mode = "nn_src_only"
+        K = on_dev(image_data["intrinsic"])
+        center32 = center.astype(np.float32)
+        sext, text = (on_dev(image_data[k][0]) for k in ("src_extrinsics", "tgt_extrinsics"))
+        uv_s, dep_s, pval_s = project_points(on_dev(src_vox + center32), sext, K, image_size,
+                                             v_flip=v_flip)
+        uv_t, dep_t, pval_t = project_points(on_dev(tgt_vox + center32), text, K, image_size,
+                                             v_flip=v_flip)
+        corres_2d = np.asarray(image_data["corres_2d"], np.float32).reshape(-1, 4)
+        c2d_idx, c2d_valid = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
+        if len(corres_2d):
+            c2 = on_dev(corres_2d)
+            if lifting == "interpolation":
+                dmap_s, _ = rasterize_depth(uv_s, dep_s, pval_s, image_size)
+                dmap_t, _ = rasterize_depth(uv_t, dep_t, pval_t, image_size)
+                p3d, ok3 = lift_matches_to_3d(c2, dmap_s, dmap_t, sext, text, K, image_size,
+                                              v_flip=v_flip)
+                c32 = on_dev(center32)
+                ds2, i_s = nn1(p3d[:, 0:3] - c32, src_vox_d)
+                dt2, i_t = nn1(p3d[:, 3:6] - c32, tgt_vox_d)
+                thr3 = 2.0 * max(median_res, 1e-6)
+                ok = (ok3.cpu().numpy() & (np.sqrt(ds2.cpu().numpy()) < thr3)
+                      & (np.sqrt(dt2.cpu().numpy()) < thr3))
+                # Duplicate source voxels: the last match wins (numpy
+                # fancy assignment, as in the JAX host path).
+                src_i = i_s.cpu().numpy()[ok]
+                c2d_idx[src_i] = i_t.cpu().numpy()[ok]
+                c2d_valid[src_i] = True
+            else:
+                t2d, v2d = chain_2d_matches_to_3d(c2, uv_s, uv_t, pixel_thres, src_valid=pval_s,
+                                                  tgt_valid=pval_t, mode=mode)
+                c2d_idx, c2d_valid = t2d.cpu().numpy().astype(np.int64), v2d.cpu().numpy()
+            # Max-magnitude gate (base:1640-1646).
+            mag2d = np.linalg.norm(tgt_vox[np.clip(c2d_idx, 0, max(t_nv - 1, 0))] - src_vox,
+                                   axis=1)
+            c2d_valid = c2d_valid & (mag2d <= max_mag)
+        log("tile %s: %d 2D pixel matches over 1 image pair(s) -> %d lifted 3D voxel matches",
+            tile_id, len(corres_2d), int(c2d_valid.sum()))
+        if c2d_valid.any():
+            save_txt(osp.join(results_dir, "c2f_dvfms_from_global_2d_src2tgt_wo_pruning_"
+                              f"visualize_tile_{tile_id}.txt"),
+                     _interim_table(src_vox, tgt_vox, c2d_idx, c2d_valid, center, dataset))
+        timer.mark("rgb_2d")
+    save_txt(osp.join(results_dir, "c2f_dvfms_from_global_3d_src2tgt_wo_pruning_visualize_"
+                      f"tile_{tile_id}.txt"),
+             _interim_table(src_vox, tgt_vox, g_idx, g_valid, center, dataset))
+
+    base_svl_radius = max(radius, float(cfg.get("voxel_size_init", 0.0) or 0.0))
+    n_src_pts, n_tgt_pts = s.shape[0], t.shape[0]
+    # Per-point transforms merged across levels by priority (list order).
+    merged_R = np.tile(np.eye(3, dtype=np.float32), (n_src_pts, 1, 1))
+    merged_t = np.zeros((n_src_pts, 3), np.float32)
+    merged_valid = np.zeros(n_src_pts, bool)
+    merged_rmse = np.zeros(n_src_pts, np.float32)
+    # tgt->src: each pair's inverse transform on its target patch's points
+    # (base:3386-3393).
+    t2s_R = np.tile(np.eye(3, dtype=np.float32), (n_tgt_pts, 1, 1))
+    t2s_t = np.zeros((n_tgt_pts, 3), np.float32)
+    t2s_valid = np.zeros(n_tgt_pts, bool)
+    per_level_stats = []
+    lab_t_dev = None
+    # return_interim: True returns each level's labels and the global
+    # matches beside the result, as the JAX tile does.
+    keep_interim = bool(cfg.get("return_interim", False))
+    interim_levels: list = []
+
+    # The supervoxel kNN graph and normals are built once per voxel cloud
+    # (at the first level's radius) and reused at every level.
+    graphs: dict = {}
+
+    def segment(which, vox_d, svl_radius):
+        nonlocal overflow
+        if which not in graphs:
+            ni, nm, ov = supervoxel_graph(vox_d, svl_radius)
+            overflow += int(ov)
+            graphs[which] = (ni, nm, pca_normals(vox_d, neigh_idx=ni, neigh_mask=nm))
+        ni, nm, nrm = graphs[which]
+        return supervoxel_segmentation(vox_d, svl_radius, neigh_idx=ni, neigh_mask=nm,
+                                       normals=nrm).labels.cpu().numpy()
+
+    for li, level in enumerate(levels):
+        svl_radius = base_svl_radius * (2.0 ** (int(level) - 1))
+        lab_s, n_s = _compact_labels(segment("src", src_vox_d, svl_radius), small_patch)
+        lab_t, n_t = _compact_labels(segment("tgt", tgt_vox_d, svl_radius), small_patch)
+        if bool(cfg.get("use_debugging", False)):
+            # Only the first num_spt superpoints of each epoch
+            # (coarse_to_fine_matching.py:292-308).
+            num_spt = int(cfg.get("num_spt", 2))
+            lab_s = np.where(lab_s < num_spt, lab_s, -1)
+            lab_t = np.where(lab_t < num_spt, lab_t, -1)
+            n_s, n_t = min(n_s, num_spt), min(n_t, num_spt)
+        timer.mark(f"partition_l{level}")
+        if keep_interim:
+            interim_levels.append({"level": level, "lab_s": lab_s.copy(), "lab_t": lab_t.copy(),
+                                   "n_s": n_s, "n_t": n_t})
+        if n_s == 0 or n_t == 0:
+            per_level_stats.append((level, 0, 0))
+            timer.mark(f"match_l{level}")
+            continue
+
+        S_s, S_t = bucket_size(n_s), bucket_size(n_t)
+        P_s = bucket_size(int(np.bincount(lab_s[lab_s >= 0], minlength=n_s).max()))
+        P_t = bucket_size(int(np.bincount(lab_t[lab_t >= 0], minlength=n_t).max()))
+        lab_s_dev, lab_t_dev = on_dev(lab_s, torch.int32), on_dev(lab_t, torch.int32)
+        mem_s, memmask_s = label_members(lab_s_dev, S_s, P_s)
+        mem_t, memmask_t = label_members(lab_t_dev, S_t, P_t)
+
+        # 5. Superpoint aggregation (base:2561-2656) and coarse matching.
+        P_agg = min(int(cfg.get("agg_max_points", 512)), P_s, P_t)
+        spt_feat_s, spt_coord_s = aggregate_superpoints(agg, src_feat_d, src_vox_d, mem_s,
+                                                        memmask_s, agg_max_points=P_agg)
+        spt_feat_t, spt_coord_t = aggregate_superpoints(agg, tgt_feat_d, tgt_vox_d, mem_t,
+                                                        memmask_t, agg_max_points=P_agg)
+        valid_s = torch.arange(S_s, device=dev) < n_s
+        valid_t = torch.arange(S_t, device=dev) < n_t
+        # Coarse mode (coarse_matching_{fusion,only_3d,only_2d}).
+        has_2d = c2d_idx is not None
+        coarse_only_2d = bool(cfg.get("coarse_matching_only_2d", False)) and has_2d
+        coarse_fusion = (bool(cfg.get("coarse_matching_fusion", has_2d)) and has_2d
+                         and not coarse_only_2d)
+        pair_list = []
+        if not coarse_only_2d:
+            tgt_of_src, pair_valid = coarse_match_superpoints(
+                spt_feat_s, spt_coord_s, valid_s, spt_feat_t, spt_coord_t, valid_t, max_mag,
+                mutual=mutual_3d,
+            )
+            tgt_of_src = tgt_of_src.cpu().numpy().astype(np.int64)
+            src_3d = np.where(pair_valid.cpu().numpy()[:n_s])[0]
+            pair_list.append(np.stack([src_3d, tgt_of_src[src_3d]], axis=1))
+        if coarse_fusion or coarse_only_2d:
+            vote_tgt, vote_ok = coarse_match_2d_votes(lab_s, lab_t, c2d_idx, c2d_valid, n_s, n_t)
+            src_2d = np.where(vote_ok)[0]
+            pair_list.append(np.stack([src_2d, vote_tgt[src_2d]], axis=1))
+        pairs = (np.unique(np.concatenate(pair_list, axis=0), axis=0) if pair_list
+                 else np.zeros((0, 2), np.int64))
+        pair_src, pair_tgt = pairs[:, 0], pairs[:, 1]
+        if pair_src.size == 0:
+            per_level_stats.append((level, n_s, 0))
+            timer.mark(f"match_l{level}")
+            continue
+
+        # 6. Fine matching over the pairs, the pair count padded to its
+        # bucket with dead pairs.
+        fine_only_2d = bool(cfg.get("fine_matching_only_2d", False)) and has_2d
+        fine_fusion = (bool(cfg.get("fine_matching_fusion", has_2d)) and has_2d
+                       and not fine_only_2d)
+        ch1_idx, ch1_valid = (c2d_idx, c2d_valid) if fine_only_2d else (g_idx, g_valid)
+        fine_kw = {}
+        if fine_fusion:
+            fine_kw = dict(corres2_tgt_idx=on_dev(c2d_idx, torch.int32),
+                           corres2_valid=on_dev(c2d_valid),
+                           weighting=bool(cfg.get("weighting_svd", False)))
+        n_pairs = pair_src.size
+        pairs_cap = bucket_size(n_pairs)
+        pair_src_b = np.zeros(pairs_cap, np.int64)
+        pair_src_b[:n_pairs] = pair_src
+        pair_tgt_b = np.full(pairs_cap, -1, np.int64)
+        pair_tgt_b[:n_pairs] = pair_tgt
+        psb = on_dev(pair_src_b)
+        memmask_pad = memmask_s[psb] & (torch.arange(pairs_cap, device=dev) < n_pairs)[:, None]
+        fine = fine_match_pairs(
+            mem_s[psb], memmask_pad, on_dev(pair_tgt_b, torch.int32),
+            on_dev(ch1_idx, torch.int32), on_dev(ch1_valid), lab_t_dev, src_vox_d, tgt_vox_d,
+            num_min_quality=num_min_quality, thres_dist_diff=thres_dd,
+            thres_inlier_ratio=thres_ir, num_min_fine=num_min_fine, icp_threshold=icp_thr,
+            icp_max_iter=icp_iter, fine_max_matches=fine_cap, **fine_kw,
+        )
+        fR = fine.R[:n_pairs].cpu().numpy()
+        ft = fine.t[:n_pairs].cpu().numpy()
+        frmse = fine.rmse[:n_pairs].cpu().numpy()
+        fvalid = fine.valid[:n_pairs].cpu().numpy()
+
+        # Per-pair transforms onto source-label slots.
+        lab_R = np.tile(np.eye(3, dtype=np.float32), (n_s, 1, 1))
+        lab_t_arr = np.zeros((n_s, 3), np.float32)
+        lab_rmse = np.zeros(n_s, np.float32)
+        lab_ok = np.zeros(n_s, bool)
+        lab_R[pair_src], lab_t_arr[pair_src] = fR, ft
+        lab_rmse[pair_src], lab_ok[pair_src] = frmse, fvalid
+
+        # 7. Dense per-point assignment, merged by level priority.
+        pt_label = np.where(s_p2v < s_nv, lab_s[np.clip(s_p2v, 0, max(s_nv - 1, 0))], -1)
+        take = (pt_label >= 0) & lab_ok[np.clip(pt_label, 0, None)] & ~merged_valid
+        lbl = np.clip(pt_label, 0, None)[take]
+        merged_R[take], merged_t[take], merged_rmse[take] = lab_R[lbl], lab_t_arr[lbl], lab_rmse[lbl]
+        merged_valid |= take
+
+        if out_tgt2src:
+            Rinv = fR.transpose(0, 2, 1)
+            tinv = -np.einsum("nij,nj->ni", Rinv, ft)
+            tlab_R = np.tile(np.eye(3, dtype=np.float32), (n_t, 1, 1))
+            tlab_t = np.zeros((n_t, 3), np.float32)
+            tlab_ok = np.zeros(n_t, bool)
+            tlab_R[pair_tgt[fvalid]], tlab_t[pair_tgt[fvalid]] = Rinv[fvalid], tinv[fvalid]
+            tlab_ok[pair_tgt[fvalid]] = True
+            tp_label = np.where(t_p2v < t_nv, lab_t[np.clip(t_p2v, 0, max(t_nv - 1, 0))], -1)
+            ttake = (tp_label >= 0) & tlab_ok[np.clip(tp_label, 0, None)] & ~t2s_valid
+            tl = np.clip(tp_label, 0, None)[ttake]
+            t2s_R[ttake], t2s_t[ttake] = tlab_R[tl], tlab_t[tl]
+            t2s_valid |= ttake
+        per_level_stats.append((level, n_s, int(fvalid.sum())))
+        log("tile %s level %s: %d src spts, %d matched pairs, %d fine-valid",
+            tile_id, level, n_s, n_pairs, int(fvalid.sum()))
+        timer.mark(f"match_l{level}")
+
+    # Dense output R p + t of every assigned source point (base:3371-3380);
+    # the text tables are written on a thread while the sparse
+    # re-association runs, and joined before returning.
+    writer = ThreadPoolExecutor(max_workers=1)
+    write_futs = []
+    moved = np.einsum("nij,nj->ni", merged_R, s) + merged_t
+    dvfs_dense = np.hstack([src_core[merged_valid], moved[merged_valid] + center])
+    dvfms = np.hstack([dvfs_dense[:, :3], dvf_magnitudes(dvfs_dense)[:, None]])
+
+    def write_dense():
+        save_txt(osp.join(results_dir, f"c2f_dvfs_src2tgt_tile_{tile_id}.txt"), dvfs_dense)
+        save_txt(osp.join(results_dir, f"c2f_dvfms_src2tgt_tile_{tile_id}.txt"), dvfms)
+        if dvfms.shape[0] > 2:
+            save_txt(osp.join(results_dir, f"c2f_dvfms_src2tgt_visualize_tile_{tile_id}.txt"),
+                     visual_clamp_magnitude(dvfms, dataset))
+
+    write_futs.append(writer.submit(write_dense))
+    timer.mark("dense_output")
+
+    # Sparse 'assign_then_nn' output: the moved points re-associated with
+    # target points within max(2 rmse, median_res) (base:3414-3436).
+    dvfs_sparse = None
+    if assign_type == "assign_then_nn" and merged_valid.any():
+        adaptive = np.maximum(2.0 * merged_rmse[merged_valid], median_res)
+        radius_nn = float(np.maximum(adaptive.max(), median_res))
+        nq = int(merged_valid.sum())
+        q = np.zeros((bucket_size(nq), 3), np.float32)
+        q[:nq] = moved[merged_valid]
+        r_nn = torch.tensor(radius_nn, dtype=torch.float32, device=dev)
+        grid = build_hash_grid(t_d, r_nn)
+        d2, nn_idx, ov = hash_grid_knn(on_dev(q), grid, r_nn, 1)
+        overflow += int(ov)
+        d = np.sqrt(d2[:nq, 0].cpu().numpy())
+        ok = np.isfinite(d) & (d < adaptive)
+        nn_idx = nn_idx[:nq, 0].cpu().numpy()
+        dvfs_sparse = np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center])
+        sparse_ms = np.hstack([dvfs_sparse[:, :3], dvf_magnitudes(dvfs_sparse)[:, None]])
+        write_futs.append(writer.submit(
+            save_txt,
+            osp.join(results_dir, f"c2f_dvfms_src2tgt_discrete_visualize_tile_{tile_id}.txt"),
+            visual_clamp_magnitude(sparse_ms, dataset),
+        ))
+        timer.mark("sparse_assign")
+
+    if out_tgt2src and t2s_valid.any():
+        src_est = np.einsum("nij,nj->ni", t2s_R[t2s_valid], t[t2s_valid]) + t2s_t[t2s_valid]
+        dvfs_t2s = np.hstack([src_est + center, tgt_core[t2s_valid]])
+        save_txt(osp.join(results_dir, f"c2f_dvfms_tgt2src_tile_{tile_id}.txt"),
+                 np.hstack([dvfs_t2s[:, 3:6], dvf_magnitudes(dvfs_t2s)[:, None]]))
+
+    for fut in write_futs:
+        fut.result()
+    writer.shutdown()
+    timer.mark("write_tables")
+    log("tile %s stage times (s): %s", tile_id,
+        ", ".join(f"{k} {v:.3f}" for k, v in timer.timings.items()))
+    out = {
+        "dvfs": dvfs_dense,
+        "dvfs_sparse": dvfs_sparse,
+        "assigned_fraction": float(merged_valid.mean()),
+        "per_level": per_level_stats,
+        "R": merged_R,
+        "t": merged_t,
+        "valid": merged_valid,
+        "n_2d_matches": int(c2d_valid.sum()) if c2d_valid is not None else 0,
+        "median_res": median_res,
+        "n_vox": (s_nv, t_nv),
+        "overflow": overflow,
+    }
+    if keep_interim:
+        out["interim"] = {
+            "center": center, "median_res": median_res, "src_vox": src_vox, "tgt_vox": tgt_vox,
+            "s_p2v": s_p2v, "t_p2v": t_p2v, "src_feat": src_feat_d.cpu().numpy(),
+            "tgt_feat": tgt_feat_d.cpu().numpy(), "g_idx": g_idx, "g_valid": g_valid,
+            "levels": interim_levels,
+        }
+    return out

@@ -58,77 +58,18 @@ from fusion4landslide_tpu_torch.pipelines.f2s3_device import (
     dips_features_device,
     drop_small_and_compact,
 )
-from fusion4landslide_tpu_torch.pipelines.fusion import fine_match_pairs, global_matches_3d
+from fusion4landslide_tpu_torch.pipelines.fusion import (
+    aggregate_superpoints as _aggregate_chunked,
+    coarse_match_superpoints as coarse_match_superpoints_chunked,
+    fine_match_pairs,
+    global_matches_3d,
+)
 
 __all__ = [
     "Fusion3DTileResult",
     "fusion3d_tile_step",
     "coarse_match_superpoints_chunked",
 ]
-
-
-def coarse_match_superpoints_chunked(feat_s, coord_s, valid_s, feat_t, coord_t,
-                                     valid_t, max_magnitude, *, chunk: int = 2048,
-                                     mutual: bool = True):
-    """Superpoint matching (base:2966-2999): feature distances with
-    centroid pairs farther than ``max_magnitude`` masked to +inf, argmin
-    per source superpoint, optional mutual check; scanned over target
-    chunks so only an (S, chunk) slab is live. Returns (tgt_idx, valid)."""
-    S, Q = feat_s.shape[0], feat_t.shape[0]
-    dev = feat_s.device
-    chunk = min(chunk, max(Q, 1))
-    s2 = (feat_s**2).sum(-1)
-    vs = valid_s.to(torch.bool)
-    vt = valid_t.to(torch.bool)
-    mm2 = torch.as_tensor(max_magnitude, dtype=feat_s.dtype, device=dev) ** 2
-    best_d = torch.full((S,), torch.inf, dtype=feat_s.dtype, device=dev)
-    best_i = torch.zeros((S,), dtype=torch.int64, device=dev)
-    src_of_tgt = []
-    for base in range(0, Q, chunk):
-        ftc, ctc, vtc = feat_t[base:base + chunk], coord_t[base:base + chunk], vt[base:base + chunk]
-        f2 = s2[:, None] - 2.0 * (feat_s @ ftc.T) + (ftc**2).sum(-1)[None, :]
-        c2 = None
-        for d in range(3):
-            cd = coord_s[:, None, d] - ctc[None, :, d]
-            c2 = cd * cd if c2 is None else c2 + cd * cd
-        bad = (c2 > mm2) | ~vs[:, None] | ~vtc[None, :]
-        dist = torch.where(bad, torch.inf, f2)
-        m, a = dist.min(dim=1)
-        upd = m < best_d
-        best_d = torch.where(upd, m, best_d)
-        best_i = torch.where(upd, a + base, best_i)
-        src_of_tgt.append(dist.argmin(dim=0))
-    src_of_tgt = torch.cat(src_of_tgt)
-    valid = torch.isfinite(best_d)
-    if mutual:
-        valid = valid & (src_of_tgt[best_i] == torch.arange(S, device=dev))
-    return best_i.to(torch.int32), valid
-
-
-def _aggregate_chunked(agg, feat_arr, coords, member_idx, member_mask, *,
-                       agg_max_points: int, s_chunk: int = 128):
-    """ClusterFeatureNet over supervoxel buckets, chunked over S, with a
-    strided member subsample bounding the quadratic attention. Chunks
-    with no live member are skipped (their features are never read)."""
-    S, P = member_idx.shape
-    if P > agg_max_points:
-        stride = -(-P // agg_max_points)
-        mi = member_idx[:, ::stride][:, :agg_max_points]
-        mm = member_mask[:, ::stride][:, :agg_max_points]
-    else:
-        mi, mm = member_idx, member_mask
-    spt_feat = torch.zeros((S, 64), dtype=torch.float32, device=feat_arr.device)
-    live = mm.view(-1, mm.shape[1]).any(-1)
-    for s0 in range(0, S, s_chunk):
-        if not bool(live[s0:s0 + s_chunk].any()):
-            continue
-        mic, mmc = mi[s0:s0 + s_chunk].long(), mm[s0:s0 + s_chunk]
-        feats = feat_arr[mic] * mmc[..., None]
-        spt_feat[s0:s0 + s_chunk] = agg(feats, mmc)
-    # Centroid over the FULL member set (not the strided subsample).
-    w = member_mask.to(coords.dtype)[..., None]
-    cent = (coords[member_idx.long()] * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
-    return spt_feat, cent
 
 
 def _segment_centroids(coords, prev_lab, prev_cap: int, prev_n, svl_radius,

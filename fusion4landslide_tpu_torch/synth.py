@@ -15,7 +15,9 @@ from fusion4landslide_tpu_torch.image.geometry import project_points
 __all__ = [
     "IMG_SIZE",
     "PLANTED_SHIFT",
+    "DRIVER_EPOCH",
     "SMALL_IMG_SIZE",
+    "synth_epoch_pair",
     "synth_image_channel",
     "synth_overlap_tile",
     "synth_rgb_tile",
@@ -28,6 +30,23 @@ PLANTED_SHIFT = np.array([0.05, -0.02, 0.01], np.float32)
 IMG_SIZE = (4096, 4096)
 #: The small RGB tile's camera (``synth_small_rgb_tile``).
 SMALL_IMG_SIZE = (512, 512)
+#: The epoch pair of the drivers' production checks (``synth_epoch_pair``):
+#: 145 m x 100 m at 100 pts/m^2 (1.45 M points, about 1.05 M after the
+#: configs' 0.1 m voxel filter), so ``max_pts_per_tile: 1000000`` cuts it
+#: into two tiles; on national-grid-sized coordinates.
+DRIVER_EPOCH = {"width": 145.0, "height": 100.0, "offset": (2_600_000.0, 1_175_000.0, 600.0)}
+
+
+def _terrain(rng, n: int, width: float, height: float) -> np.ndarray:
+    """(n, 3) float32 points uniform over [0, width) x [0, height) on the
+    synthetic slope, with 2 cm of height noise."""
+    xy = rng.uniform(0, [width, height], size=(n, 2))
+    z = (
+        np.sin(xy[:, 0] * 0.31) * 2.0
+        + np.cos(xy[:, 1] * 0.17) * 3.0
+        + rng.normal(scale=0.02, size=n)
+    )
+    return np.column_stack([xy, z]).astype(np.float32)
 
 
 def synth_overlap_tile(n_core: int, halo: float = 20.0, density: float = 100.0,
@@ -37,14 +56,8 @@ def synth_overlap_tile(n_core: int, halo: float = 20.0, density: float = 100.0,
     rng = np.random.default_rng(seed)
     side = float(np.sqrt(n_core / density))
     full = side + 2.0 * halo
-    n_total = int(round(density * full * full))
-    xy = rng.uniform(0, full, size=(n_total, 2))
-    z = (
-        np.sin(xy[:, 0] * 0.31) * 2.0
-        + np.cos(xy[:, 1] * 0.17) * 3.0
-        + rng.normal(scale=0.02, size=n_total)
-    )
-    src = np.column_stack([xy, z]).astype(np.float32)
+    src = _terrain(rng, int(round(density * full * full)), full, full)
+    xy = src[:, :2]
     core = (
         (xy[:, 0] >= halo) & (xy[:, 0] < halo + side)
         & (xy[:, 1] >= halo) & (xy[:, 1] < halo + side)
@@ -53,6 +66,22 @@ def synth_overlap_tile(n_core: int, halo: float = 20.0, density: float = 100.0,
     tgt = src.copy()
     tgt[moving] += PLANTED_SHIFT
     return src, tgt, core, moving
+
+
+def synth_epoch_pair(width: float, height: float, density: float = 100.0, seed: int = 0,
+                     offset=(0.0, 0.0, 0.0)):
+    """A whole epoch pair over ``width`` x ``height`` m of the same slope
+    at ``density`` points per m^2, whose half ``y > height / 2`` moves by
+    ``PLANTED_SHIFT``; coordinates shifted by ``offset`` (float64, e.g. a
+    national grid's). Returns (src (n, 3) float64, tgt (n, 3) float64,
+    moving (n,))."""
+    rng = np.random.default_rng(seed)
+    src = _terrain(rng, int(round(density * width * height)), width, height)
+    moving = src[:, 1] > height / 2
+    tgt = src.copy()
+    tgt[moving] += PLANTED_SHIFT
+    off = np.asarray(offset, np.float64)
+    return src.astype(np.float64) + off, tgt.astype(np.float64) + off, moving
 
 
 def synth_split_tile(n_core: int, src_margin: float, tgt_margin: float,

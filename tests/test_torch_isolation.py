@@ -14,6 +14,10 @@ import fusion4landslide_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.images",
+             "tiling.bsp", "pipelines.driver", "pipelines.run_summary", "image.cameras",
+             "ops.merge", "utils.logging"):
+    assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(

@@ -47,6 +47,28 @@ so every 2D match is wrong); "assigned" and the errors are then held to
     PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_rgb \
         --device cuda --n-core 250000 --margin 10 --halo 20 --chunk 2048 \
         --runs port port:pix_shuffle
+
+``--pipeline fusion_host`` runs the host fusion tile (``run_fusion3d_tile``,
+what ``main_fusion`` runs per tile on one device) on the tiles the driver
+cuts from ``synth_epoch_pair(width, height)``: the port's tiler with the
+shipped configs' 0.1 m voxel filter, ``--max-pts`` per tile and the +-20 m
+halo, then the driver's core/halo crop (5 m / 10 m), with the
+``fusion_3d_brienz.yaml`` config as the driver loads it. Readings are per
+tile on its core, as ``chip_smoke.py``'s driver phase reads its tables.
+Runs: ``jax``, ``port``, ``port:no_icp`` (``icp_refine: false``),
+``port:tgt_seed`` and ``port:tgt_shuffle`` (the target voxels'
+descriptors permuted). ``--pipeline f2s3_host`` does the same for the
+host F2S3 tile (``f2s3_brienz.yaml``; runs ``port:no_refine``,
+``port:tgt_shuffle``). On the CPU at a reduced epoch, and on a card at
+the driver phase's epoch (``DRIVER_EPOCH``), whose readings place
+``chip_smoke.py``'s ``RECOVERY_CLI`` and ``RECOVERY_CLI_F2S3`` floors:
+
+    PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_host \
+        --epoch 40 25 --max-pts 50000 --runs jax port
+    PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_host \
+        --device cuda --runs port port:no_icp port:tgt_seed port:tgt_shuffle
+    PYTHONPATH=. python tests/test_torch_recovery.py --pipeline f2s3_host \
+        --device cuda --runs port port:no_refine port:tgt_shuffle
 """
 
 from __future__ import annotations
@@ -68,7 +90,13 @@ from fusion4landslide_tpu_torch.models.convert import (
 )
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 from fusion4landslide_tpu_torch.parallel.pipeline import f2s3_statics, fusion3d_statics
-from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_rgb_tile, synth_split_tile
+from fusion4landslide_tpu_torch.synth import (
+    DRIVER_EPOCH,
+    PLANTED_SHIFT,
+    synth_epoch_pair,
+    synth_rgb_tile,
+    synth_split_tile,
+)
 
 #: ``chip_smoke.py``'s production config (fusion_3d_brienz.yaml statics).
 CFG = {
@@ -204,6 +232,9 @@ def _fault(name: str | None):
             from fusion4landslide_tpu_torch.pipelines import f2s3_device
 
             mp.setattr(f2s3_device, "compute_dips_features", counted)
+            from fusion4landslide_tpu_torch.pipelines import fusion
+
+            mp.setattr(fusion, "compute_dips_features", counted)
         elif name == "tgt_shuffle":
             from fusion4landslide_tpu_torch.pipelines import f2s3_device
 
@@ -220,6 +251,23 @@ def _fault(name: str | None):
                 return out, overflow
 
             mp.setattr(f2s3_device, "dips_features_device", shuffled)
+            # The host tiles: the second descriptor call is the target's.
+            from fusion4landslide_tpu_torch.pipelines import f2s3, fusion
+
+            host_calls = {"clouds": 0}
+
+            def host_shuffled(fn):
+                def wrapped(*a, **kw):
+                    out, overflow = fn(*a, **kw)
+                    host_calls["clouds"] += 1
+                    if host_calls["clouds"] == 2:
+                        gen = torch.Generator().manual_seed(0)
+                        out = out[torch.randperm(out.shape[0], generator=gen).to(out.device)]
+                    return out, overflow
+                return wrapped
+
+            for mod in (f2s3, fusion):
+                mp.setattr(mod, "compute_dips_features", host_shuffled(mod.compute_dips_features))
         elif name not in (None, "no_icp", "no_refine"):
             raise ValueError(f"unknown fault {name!r}")
         yield
@@ -442,6 +490,76 @@ def stages(tile: dict, chunk: int = 512) -> dict:
     return report
 
 
+def driver_tiles(width: float, height: float, max_pts: int) -> list[dict]:
+    """The tiles ``main_fusion`` runs for ``synth_epoch_pair(width, height)``
+    (offset ``DRIVER_EPOCH``'s) with the shipped configs' tiling: each
+    tile's cropped source and target clouds, core points and the moving
+    half's boundary."""
+    from fusion4landslide_tpu_torch.io.ply import PointCloud
+    from fusion4landslide_tpu_torch.pipelines.driver import crop_cloud_to_core
+    from fusion4landslide_tpu_torch.tiling import tile_epoch_pair
+
+    offset = DRIVER_EPOCH["offset"]
+    src, tgt, _ = synth_epoch_pair(width, height, offset=offset)
+    tiles, sf, tf, *_ = tile_epoch_pair(src, tgt, max_pts, 5000, voxel_size=0.1, halo=20.0)
+    out = []
+    for tp in tiles:
+        core = sf[tp.src_idx]
+        lo, hi = core.min(axis=0), core.max(axis=0)
+        out.append(dict(
+            tile_id=tp.tile_id, core=core, moving_y=offset[1] + height / 2,
+            src=crop_cloud_to_core(PointCloud(sf[tp.src_halo_idx]), lo, hi, 5.0).points,
+            tgt=crop_cloud_to_core(PointCloud(tf[tp.tgt_halo_idx]), lo, hi, 10.0).points,
+        ))
+    return out
+
+
+def run_host(kind: str, tile: dict, device: str = "cpu", pipeline: str = "fusion_host") -> dict:
+    """One host-tile run (``jax``, ``port`` or ``port:<fault>``) of a
+    driver tile with ``seeded_models(0)`` (and ``seeded_filter(0)``) and
+    the shipped ``fusion_3d_brienz.yaml`` (``pipeline='fusion_host'``) or
+    ``f2s3_brienz.yaml`` (``'f2s3_host'``) as the drivers load them;
+    returns its per-tile recovery readings from the written DVF rows."""
+    import importlib
+    import tempfile
+
+    from fusion4landslide_tpu_torch.checks import driver_tile_recovery
+    from fusion4landslide_tpu_torch.config import load_yaml
+
+    fusion = pipeline == "fusion_host"
+    cfg = load_yaml("configs/landslide/" + ("fusion_3d_brienz.yaml" if fusion else
+                                            "f2s3_brienz.yaml"), keep_sub_directory=fusion)
+    td, ta = seeded_models(0, "cpu")
+    second = ta if fusion else seeded_filter(0, "cpu")
+    fault = kind.split(":", 1)[1] if ":" in kind else None
+    if fault == "no_icp":
+        cfg["icp_refine"] = False
+    elif fault == "no_refine":
+        cfg["refine_results"] = False
+    name = "run_fusion3d_tile" if fusion else "run_f2s3_tile"
+    module = "pipelines.fusion" if fusion else "pipelines.f2s3"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["output_dir"] = tmp
+        if kind == "jax":
+            fn = getattr(importlib.import_module("fusion4landslide_tpu." + module), name)
+            with tpu_branch_emulated():
+                out = fn(cfg, flax_from_state_dict(td.state_dict()),
+                         flax_from_state_dict(second.state_dict()), tile["src"], tile["tgt"],
+                         tile_id=tile["tile_id"])
+        else:
+            fn = getattr(importlib.import_module("fusion4landslide_tpu_torch." + module), name)
+            with _fault(None if fault in ("no_icp", "no_refine") else fault):
+                out = fn(cfg, td, second, tile["src"], tile["tgt"], tile_id=tile["tile_id"],
+                         device=device)
+    dvfs = out["dvfs"]
+    rec = driver_tile_recovery(tile["core"], dvfs[:, :3], dvfs[:, 3:6] - dvfs[:, :3],
+                               tile["moving_y"], PLANTED_SHIFT.astype(np.float64))
+    return {"run": f"{pipeline}:{kind}", "tile": tile["tile_id"], **rec,
+            "src": len(tile["src"]), "tgt": len(tile["tgt"]), "dvfs": dvfs,
+            "seconds": time.perf_counter() - t0}
+
+
 def test_flax_bridge_round_trips_the_seeded_weights():
     """The witness hands ``seeded_models`` weights to the JAX step: the
     inverse bridge gives the Flax modules' own tree and round-trips."""
@@ -489,9 +607,35 @@ def main() -> None:
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--chunk", type=int, default=512)
     ap.add_argument("--runs", nargs="+", default=["jax", "port"])
-    ap.add_argument("--pipeline", choices=("fusion", "f2s3", "fusion_rgb"), default="fusion")
+    ap.add_argument("--pipeline", choices=("fusion", "f2s3", "fusion_rgb", "fusion_host",
+                                           "f2s3_host"), default="fusion")
+    ap.add_argument("--epoch", nargs=2, type=float,
+                    default=[DRIVER_EPOCH["width"], DRIVER_EPOCH["height"]],
+                    help="fusion_host: the epoch's width and height (m)")
+    ap.add_argument("--max-pts", type=int, default=1_000_000,
+                    help="fusion_host: max_pts_per_tile")
     args = ap.parse_args()
     torch.set_grad_enabled(False)
+    if args.pipeline in ("fusion_host", "f2s3_host"):
+        tiles = driver_tiles(*args.epoch, args.max_pts)
+        print(json.dumps({"epoch_m": args.epoch, "max_pts": args.max_pts,
+                          "device": args.device, "tiles": len(tiles)}), flush=True)
+        for tile in tiles:
+            by = {}
+            for kind in args.runs:
+                res = run_host(kind, tile, args.device, args.pipeline)
+                by[kind] = res["dvfs"]
+                print(json.dumps({k: v for k, v in res.items() if k != "dvfs"}), flush=True)
+            if "jax" in by and "port" in by:
+                rows = {tuple(r[:3]): r[3:] for r in by["jax"]}
+                both = [(rows[tuple(r[:3])], r[3:]) for r in by["port"] if tuple(r[:3]) in rows]
+                gap = np.array([np.linalg.norm(a - b) for a, b in both])
+                print(json.dumps({"tile": tile["tile_id"], "jax_vs_port": {
+                    "overlap_frac": len(both) / max(len(by["jax"]), len(by["port"]), 1),
+                    "median_gap_m": float(np.median(gap)) if gap.size else None,
+                    "frac_gap_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
+                }}), flush=True)
+        return
     make = rgb_tile if args.pipeline == "fusion_rgb" else split_tile
     tile = make(args.n_core, args.margin, args.halo)
     print(json.dumps({"tile": {"n_core": args.n_core, "margin_m": args.margin,
