@@ -76,12 +76,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``RECOVERY_CLI_F2S3``); each prints seconds per tile with the host
    tile's stage times, tiling and reading seconds, peak memory and
    launches (from the driver's ``run summary`` line);
-12. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
+   Each driver phase also prints the run's grid-window overflow by
+   kernel;
+12. (a) ``nn1_spatial`` on the F1 witness (3 000 sources over 200 000
+   targets, whose first radius overflows kernel 2's window) against an
+   exact float64 1-NN: no row more than 1 mm off (run after phase 4);
+13. (b) the ZNCC matcher on the first 960 x 1280 crop pair of a textured
+   image pair rendered at ``rgb_guided_brienz.yaml``'s 1920 x 2560 from
+   ``RGB_EPOCH``, card vs the port's CPU path (kept-set overlap, flow
+   gap, seconds per crop pair);
+14.-15. (c), (d) ``main_rgb_guided`` (``rgb_guided_brienz.yaml`` with
+   paths, file names and ``img_matching_type: zncc`` changed) on that
+   epoch and image pair, with ``use_mesh: auto`` (the host tile: kernels
+   1 and 2 launched) and ``true`` (the runner: kernel 1 launched); the
+   four tables, stage times, peak memory, and recovery of the planted
+   shift between the floors ``RECOVERY_RGB_GUIDED``;
+16. (e) ``main_piecewise_icp`` (``piecewise_icp_brienz.yaml``, paths and
+   names changed) on the two tiles of phase 9, ``use_mesh: auto`` and
+   ``true``: no kernel launched, the tables, the stable and unstable
+   fractions of each half's core, seconds per tile;
+17. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
    (and per path), time, the time before the kernel's redesign
    (``ms_before``), plain-version time, the least time the card could
    take (bound), what bounds it, and a library yardstick where one
    exists;
-13. last line: ``{"ok": true, "device": {...}}``.
+18. last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
 back to the CPU or to the plain versions.
@@ -707,6 +726,8 @@ DRIVER_CONFIGS = {
     "cli_fusion3d": "fusion_3d_brienz.yaml",
     "cli_fusion_rgb": "fusion_brienz.yaml",
     "cli_f2s3": "f2s3_brienz.yaml",
+    "cli_rgb_guided": "rgb_guided_brienz.yaml",
+    "cli_piecewise": "piecewise_icp_brienz.yaml",
 }
 #: The RGB driver phase's one-tile epoch (m): ~353 k points after the
 #: voxel filter, near ``bench.py``'s RGB tile; zero offset, since the
@@ -727,9 +748,15 @@ def write_epoch(root: str, width: float, height: float, offset) -> tuple:
     return src, tgt, offset[1] + height / 2
 
 
+#: The one key a driver phase may add to a shipped config: no shipped YAML
+#: has it, and every driver reads it (``cfg.get("use_mesh", "auto")``).
+ADDED_KEYS = ("use_mesh",)
+
+
 def driver_config(name: str, path: str, changes: dict) -> str:
     """``configs/landslide/<name>`` with ``changes`` set in the sections
-    that hold each key (every key must exist), written to ``path``."""
+    that hold each key (every key must exist, but ``ADDED_KEYS``, which go
+    to the ``method`` section), written to ``path``."""
     import yaml
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -737,6 +764,8 @@ def driver_config(name: str, path: str, changes: dict) -> str:
         raw = yaml.safe_load(f)
     for key, val in changes.items():
         sections = [sec for sec in raw.values() if isinstance(sec, dict) and key in sec]
+        if not sections and key in ADDED_KEYS:
+            sections = [raw["method"]]
         check(sections, f"{name} has no key {key}")
         for sec in sections:
             sec[key] = val
@@ -799,10 +828,11 @@ def log_driver(label: str, summary: dict) -> None:
     stages = {tid: {k: round(v, 3) for k, v in st.items()}
               for tid, st in summary["stages_s"].items()}
     log(f"# {label}: wall {summary['wall_s']:.2f} s (process start included), driver "
-        f"{summary['total_s']:.2f} s, tiling {summary.get('tiling_s', 0.0):.2f} s, reading "
+        f"{summary['total_s']:.2f} s, runner {summary.get('runner_s', 0.0):.2f} s, tiling "
+        f"{summary.get('tiling_s', 0.0):.2f} s, reading "
         f"tiles {summary['read_tiles_s']:.2f} s, loading weights "
-        f"{summary['load_weights_s']:.2f} s, peak {summary['peak_mem_gib']} GiB, "
-        f"launches {summary['launches']}")
+        f"{summary.get('load_weights_s', 0.0):.2f} s, peak {summary['peak_mem_gib']} GiB, "
+        f"launches {summary['launches']}, window overflow {summary['overflow']}")
     log(f"# {label} tile seconds: " + json.dumps({k: round(v, 2)
                                                  for k, v in summary["tile_s"].items()}))
     log(f"# {label} stages (s): " + json.dumps(stages))
@@ -931,6 +961,248 @@ def driver_phases(dips, agg, filt) -> dict:
                   and rec["static_err_m"] < RECOVERY_CLI_F2S3["static_err_m"], rec)
             check(rec["moving_err_m"] is not None
                   and rec["moving_err_m"] < RECOVERY_CLI_F2S3["moving_err_m"], rec)
+
+        # ---- 13.-16. (b)-(e): rgb_guided and piecewise ICP ----------------
+        by_path.update(rgb_guided_phases(tmp))
+        by_path.update(piecewise_phases(tmp, data, moving_y,
+                                        os.path.join(tmp, "fusion3d", "demo_run", "tiled_data")))
+    return by_path
+
+
+#: The F1 witness (ROADMAP.md queue 3): 200 000 targets uniform over
+#: 50 m x 50 m with 2 cm of height noise, 3 000 uniform sources, centred on
+#: the target mean (seed 0). Without the exact rerun 227 of its 3 000 1-NN
+#: rows were over 1 mm off, by up to 28.45 m.
+F1_WITNESS = {"targets": 200_000, "sources": 3000, "side_m": 50.0, "z_sigma_m": 0.02}
+
+
+def nn1_overflow_phase(dev) -> dict:
+    """(a) ``nn1_spatial`` on the F1 witness on the card against an exact
+    float64 brute-force 1-NN: no row more than 1 mm off. Returns the
+    launches of the call."""
+    from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn, nn1_spatial
+
+    w = F1_WITNESS
+    rng = np.random.default_rng(0)
+    t = np.column_stack([rng.uniform(0, w["side_m"], (w["targets"], 2)),
+                         rng.normal(0, w["z_sigma_m"], w["targets"])]).astype(np.float32)
+    q = np.column_stack([rng.uniform(0, w["side_m"], (w["sources"], 2)),
+                         rng.normal(0, w["z_sigma_m"], w["sources"])]).astype(np.float32)
+    c = t.mean(axis=0)
+    td, qd = torch.from_numpy(t - c).to(dev), torch.from_numpy(q - c).to(dev)
+    r0 = 4.0 * float(np.sqrt(w["side_m"] ** 2 / w["targets"]))
+    first_overflow = int(hash_grid_knn(qd, build_hash_grid(td, r0), r0, 1)[2])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, idx = nn1_spatial(qd, td)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    exact = torch.cdist(qd.double(), td.double()).min(dim=1).values
+    got = torch.linalg.norm(td[idx.long()].double() - qd.double(), dim=1)
+    off = got - exact
+    res = {"first_radius_overflow": first_overflow, "rows_over_1mm": int((off > 1e-3).sum()),
+           "max_excess_m": float(off.max()), "seconds": secs, "launches": launches}
+    log(f"# phase (a) nn1_spatial on the F1 witness ({w['sources']} x {w['targets']}), card vs "
+        f"exact float64 1-NN: {json.dumps(res)}")
+    check(first_overflow > 0 and res["rows_over_1mm"] == 0, res)
+    check(launches["grid_knn"] > 0, launches)
+    return launches
+
+
+#: rgb_guided_brienz.yaml's camera (image_size [1920, 2560]), crops and
+#: matcher settings; the phases change only paths, file names and
+#: ``img_matching_type: zncc``.
+RGB_GUIDED_IMAGE = (1920, 2560)
+#: Recovery floors of the rgb_guided driver on ``RGB_EPOCH`` (its moving
+#: half y > 35 m shifted by ``PLANTED_SHIFT``): the core fraction written,
+#: and the error of each half's median displacement vector. On an H100
+#: 80GB HBM3 (700 W) the sound host tile and runner write 99.999% of the
+#: core, at 0.78 / 0.91 mm on the moving half and 0.83 / 0.79 mm on the
+#: static half; with the source image as the target image (zero flow,
+#: ``rgb_guided_broken_run``) the moving half reads 16.8 mm (ICP on the
+#: chained target points still recovers part of the shift), the static half
+#: 0.76 mm, 99.99% written. Only the moving half's floor separates the two;
+#: the static and coverage floors are regression alarms above the sound
+#: readings.
+RECOVERY_RGB_GUIDED = {"core_assigned": 0.9, "moving_vec_err_m": 8e-3, "static_vec_err_m": 5e-3}
+
+
+def write_rgb_guided_epoch(root: str, broken: bool = False):
+    """``RGB_EPOCH`` as PLY files, its textured image pair at
+    ``RGB_GUIDED_IMAGE`` and camera files under ``root``; ``broken`` writes
+    the source image as the target image too (zero flow). Returns
+    (moving_y, src image, tgt image, metres per pixel, render seconds)."""
+    from fusion4landslide_tpu_torch.synth import synth_textured_images, write_camera_files
+
+    src, tgt, moving_y = write_epoch(root, *RGB_EPOCH, (0.0, 0.0, 0.0))
+    t0 = time.perf_counter()
+    img0, img1, K, E, m_per_px = synth_textured_images(src, tgt, RGB_GUIDED_IMAGE)
+    if broken:
+        img1 = img0
+    write_camera_files(root, K, E, (img0, img1))
+    return moving_y, img0, img1, m_per_px, time.perf_counter() - t0
+
+
+def zncc_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """(b) ZNCC on the first crop pair of the rendered images
+    (rgb_guided_brienz.yaml's crop and matcher defaults), card vs the
+    port's CPU path. cuDNN and the CPU sum the correlations in other
+    orders, so near-tie argmaxes (a flow between two integer offsets) and
+    flat correlation surfaces may differ: the kept-set overlap, the rows
+    whose flows differ by more than 0.05 px (counted, at most 1%), the
+    median and largest flow gap on common rows, seconds per crop pair."""
+    from fusion4landslide_tpu_torch.image.matching import zncc_grid_match
+
+    ch, cw = 960, 1280
+    c0, c1 = img0[:ch, :cw], img1[:ch, :cw]
+    zncc_grid_match(c0, c1, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = zncc_grid_match(c0, c1, device=dev)
+    g_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = zncc_grid_match(c0, c1, device="cpu")
+    c_s = time.perf_counter() - t0
+    kg = {tuple(r): i for i, r in enumerate(g[:, :2].tolist())}
+    kc = {tuple(r): i for i, r in enumerate(c[:, :2].tolist())}
+    common = sorted(set(kg) & set(kc))
+    gap = np.abs(g[[kg[k] for k in common], 2:] - c[[kc[k] for k in common], 2:]).max(axis=1)
+    res = {"kept_card": len(g), "kept_cpu": len(c),
+           "keep_overlap_frac": len(common) / max(len(g), len(c), 1),
+           "rows_flow_gap_over_0.05px": int((gap > 0.05).sum()),
+           "median_flow_gap_px": float(np.median(gap)), "max_flow_gap_px": float(gap.max()),
+           "card_s_per_crop_pair": g_s, "cpu_s_per_crop_pair": c_s}
+    log(f"# phase (b) ZNCC, first {ch}x{cw} crop pair, card vs CPU path: {json.dumps(res)}")
+    check(res["keep_overlap_frac"] >= 0.999 and res["median_flow_gap_px"] <= 1e-4, res)
+    check(res["rows_flow_gap_over_0.05px"] <= 0.01 * len(common), res)
+    return res
+
+
+def rgb_guided_recovery(out_root: str, moving_y: float) -> dict:
+    """Recovery readings of the rgb_guided driver's one tile."""
+    return driver_recovery(out_root, "0", "rgb_guided_w_refinement_dvfs_src2tgt_tile_0.txt",
+                           moving_y)
+
+
+def rgb_guided_phases(tmp: str) -> dict:
+    """(b)-(d): the rendered image pair's ZNCC check, then
+    ``main_rgb_guided`` on ``RGB_EPOCH`` with ``use_mesh: auto`` (host
+    tile) and ``true`` (runner; the tiles copied from the first run).
+    Returns the launches by path."""
+    import shutil
+
+    data = os.path.join(tmp, "rgb_guided_epoch")
+    moving_y, img0, img1, m_per_px, render_s = write_rgb_guided_epoch(data)
+    log(f"# rgb_guided epoch: {RGB_EPOCH[0]:g} x {RGB_EPOCH[1]:g} m, images "
+        f"{RGB_GUIDED_IMAGE[0]}x{RGB_GUIDED_IMAGE[1]} at {m_per_px:.5f} m per pixel, rendered in "
+        f"{render_s:.2f} s")
+    zncc_phase(torch.device("cuda"), img0, img1)
+    by_path = {}
+    for use_mesh, path in (("auto", "cli_rgb_guided"), (True, "cli_rgb_guided_mesh")):
+        out = os.path.join(tmp, path)
+        if use_mesh is True:
+            shutil.copytree(os.path.join(tmp, "cli_rgb_guided", "demo_run", "tiled_data"),
+                            os.path.join(out, "demo_run", "tiled_data"))
+        changes = {"input_root": data, "output_dir": out, "src_pcd": "epoch1.ply",
+                   "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
+                   "img_matching_type": "zncc", "use_mesh": use_mesh}
+        cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, f"{path}.yaml"),
+                            changes)
+        log(f"# phase ({'c' if use_mesh == 'auto' else 'd'}) main_rgb_guided, use_mesh "
+            f"{use_mesh}: {DRIVER_CONFIGS['cli_rgb_guided']} with {sorted(changes)} changed")
+        summary, _ = run_driver("main_rgb_guided", cfg)
+        log_driver(f"main_rgb_guided use_mesh {use_mesh}", summary)
+        by_path[path] = summary["launches"]
+        check(summary["launches"]["radius_sample"] > 0, summary["launches"])
+        if use_mesh == "auto":
+            check(summary["launches"]["grid_knn"] > 0 and list(summary["tile_s"]) == ["0"],
+                  summary)
+        else:
+            check("runner_s" in summary and not summary["tile_s"], summary)
+        out_root = os.path.join(out, "demo_run")
+        tables = tile_tables(out_root, "0", "rgb_guided_")
+        for name in ("rgb_guided_wo_refinement_dvfms_tile_0.txt",
+                     "rgb_guided_w_refinement_dvfs_src2tgt_tile_0.txt",
+                     "rgb_guided_w_refinement_dvfms_src2tgt_tile_0.txt",
+                     "rgb_guided_w_refinement_dvfms_src2tgt_visualize_tile_0.txt"):
+            check(name in tables, (name, tables))
+        rec = rgb_guided_recovery(out_root, moving_y)
+        log(f"# main_rgb_guided use_mesh {use_mesh} tables {tables}; recovery {json.dumps(rec)} "
+            f"(floors {json.dumps(RECOVERY_RGB_GUIDED)})")
+        check(rec["core_assigned"] > RECOVERY_RGB_GUIDED["core_assigned"], rec)
+        check(rec["moving_vec_err_m"] is not None
+              and rec["moving_vec_err_m"] < RECOVERY_RGB_GUIDED["moving_vec_err_m"], rec)
+        check(rec["static_vec_err_m"] is not None
+              and rec["static_vec_err_m"] < RECOVERY_RGB_GUIDED["static_vec_err_m"], rec)
+    return by_path
+
+
+def rgb_guided_broken_run() -> dict:
+    """The broken run that ``RECOVERY_RGB_GUIDED`` is placed against:
+    ``main_rgb_guided`` (host tile) on ``RGB_EPOCH`` with the source image
+    written as the target image, so every flow is zero. Run it on a card
+    as ``python3 -c "import chip_smoke; chip_smoke.rgb_guided_broken_run()"``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        data = os.path.join(tmp, "rgb_guided_epoch")
+        moving_y = write_rgb_guided_epoch(data, broken=True)[0]
+        cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, "broken.yaml"), {
+            "input_root": data, "output_dir": os.path.join(tmp, "broken"), "src_pcd": "epoch1.ply",
+            "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
+            "img_matching_type": "zncc"})
+        summary, _ = run_driver("main_rgb_guided", cfg)
+        rec = rgb_guided_recovery(os.path.join(tmp, "broken", "demo_run"), moving_y)
+    log(f"# main_rgb_guided broken run (target image = source image): tile "
+        f"{summary['tile_s']}, recovery {json.dumps(rec)}")
+    return rec
+
+
+def piecewise_phases(tmp: str, data: str, moving_y: float, tiles_dir: str) -> dict:
+    """(e) ``main_piecewise_icp`` on ``DRIVER_EPOCH`` (the tiles of phase
+    9, copied) with ``use_mesh: auto`` and ``true``: tables, the stable
+    and unstable fractions of each half's core, seconds per tile; no
+    kernel launches. Returns the launches by path."""
+    import shutil
+
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+
+    by_path = {}
+    for use_mesh, path in (("auto", "cli_piecewise"), (True, "cli_piecewise_mesh")):
+        out = os.path.join(tmp, path)
+        shutil.copytree(tiles_dir, os.path.join(out, "demo_run", "tiled_data"))
+        changes = {"input_root": data, "output_dir": out, "src_pcd": "epoch1.ply",
+                   "tgt_pcd": "epoch2.ply", "use_mesh": use_mesh}
+        cfg = driver_config(DRIVER_CONFIGS["cli_piecewise"], os.path.join(tmp, f"{path}.yaml"),
+                            changes)
+        log(f"# phase (e) main_piecewise_icp, use_mesh {use_mesh}: "
+            f"{DRIVER_CONFIGS['cli_piecewise']} with {sorted(changes)} changed")
+        summary, _ = run_driver("main_piecewise_icp", cfg)
+        log_driver(f"main_piecewise_icp use_mesh {use_mesh}", summary)
+        by_path[path] = summary["launches"]
+        check(sum(summary["launches"].values()) == 0, summary["launches"])
+        out_root = os.path.join(out, "demo_run")
+        for tid in ("0", "1"):
+            tables = tile_tables(out_root, tid, "piecewise")
+            check(len(tables) == 3, (tid, tables))
+            rows = np.loadtxt(os.path.join(out_root, "results",
+                                           f"piecewise_icp_dvfs_of_tile_{tid}.txt"), ndmin=2)
+            check(np.isfinite(rows).all() and len(rows) > 0, f"piecewise tile {tid}")
+            core = read_ply(os.path.join(out_root, "tiled_data", "non_overlap",
+                                         f"source_tile_{tid}.ply")).points
+            lo, hi = core.min(axis=0), core.max(axis=0)
+            in_core = np.all((rows[:, :3] >= lo) & (rows[:, :3] <= hi), axis=1)
+            stable = np.all(rows[:, 3:6] == rows[:, :3], axis=1)
+            moving = rows[:, 1] > moving_y
+            frac = {}
+            for half, sel in (("static", in_core & ~moving), ("moving", in_core & moving)):
+                n_half = max(int(sel.sum()), 1)
+                frac[half] = {"rows": int(sel.sum()),
+                              "stable": float((stable & sel).sum()) / n_half,
+                              "unstable": float((~stable & sel).sum()) / n_half}
+            log(f"# main_piecewise_icp use_mesh {use_mesh} tile {tid}: tables {tables}, "
+                f"{len(rows)} rows, core halves {json.dumps(frac)}")
     return by_path
 
 
@@ -939,6 +1211,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from fusion4landslide_tpu_torch import resolve_device
     from fusion4landslide_tpu_torch.checks import (
         knn_agreement,
@@ -1113,6 +1386,9 @@ def main() -> int:
     kernels["knn"] = knn_phase(dev, N, n)
     torch.cuda.empty_cache()
 
+    # ---- 12. (a) nn1_spatial's exact rerun on the F1 witness -------------
+    f1_launches = nn1_overflow_phase(dev)
+
     # ---- 5. small tiles: card vs the port's CPU path ---------------------
     by_path = {
         "fusion3d_small": fusion_small_parity(dev, global_gated=True),
@@ -1124,6 +1400,7 @@ def main() -> int:
                                                        lifting="interpolation"),
     }
     check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
+    by_path["nn1_spatial_f1"] = f1_launches
 
     # ---- 6. the production tile through the fusion runner ---------------
     cfg = {
@@ -1284,7 +1561,9 @@ def main() -> int:
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))
 
-    # ---- 12. kernels line + 13. result line ------------------------------
+    # ---- 17. kernels line + 18. result line ------------------------------
+    log(f"# chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernel build "
+        "included")
     for name, row in kernels.items():
         row["ms_before"] = MS_BEFORE[name]
         row["launches"] = by_path["cli_f2s3"][name]

@@ -5,13 +5,15 @@ The JAX package stays the reference; this package mirrors its layout
 ``tiling/``) so each module's counterpart is easy to find. It imports
 ``torch`` and never ``jax`` nor anything of ``fusion4landslide_tpu``.
 
-Ported so far: the drivers ``main_fusion`` and ``main_f2s3`` (YAML config,
-tiling, checkpoints, resume), the fusion tile step, 3D-only or RGB+3D
-(``pipelines.fusion_device.fusion3d_tile_step``), and the F2S3 tile step
-(``pipelines.f2s3_device.f2s3_tile_step``) with their single-GPU runners
-(``parallel.pipeline.run_fusion3d_tiles`` / ``run_f2s3_tiles``), and the
-host tiles that the drivers run on one GPU (``pipelines.fusion.
-run_fusion3d_tile`` / ``run_fusion_tile``, ``pipelines.f2s3.run_f2s3_tile``).
+Ported so far: all four methods, each with a driver (``main_fusion``,
+``main_f2s3``, ``main_rgb_guided``, ``main_piecewise_icp``: YAML config,
+tiling, checkpoints, resume), host tiles and single-GPU runners
+(``parallel.pipeline``): the fusion tile step, 3D-only or RGB+3D
+(``pipelines.fusion_device.fusion3d_tile_step``), the F2S3 tile step
+(``pipelines.f2s3_device.f2s3_tile_step``), the RGB-guided tile step
+(``pipelines.rgb_guided_device.rgb_guided_tile_step``) and piecewise ICP
+(``pipelines.piecewise_icp``), with the ZNCC image matcher
+(``image.matching``).
 All three Pallas kernels of the JAX package are written in CUDA C++ for
 ``sm_90a`` (``csrc/grid_knn.cu``, ``csrc/radius_sample.cu``,
 ``csrc/knn.cu``).

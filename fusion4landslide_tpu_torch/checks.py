@@ -102,19 +102,24 @@ def driver_tile_recovery(core_pts: np.ndarray, rows_src: np.ndarray, rows_disp: 
     """Recovery of a planted shift from one tile's written DVF rows
     (source points ``rows_src``, displacements ``rows_disp``), on the
     tile's core (``core_pts``, its non-overlap points): the fraction of
-    the core with a row, of the static core (``y <= moving_y``), and the
+    the core with a row, of the static core (``y <= moving_y``), the
     median errors on the static (against 0) and the moving (against
-    ``shift``) core rows."""
+    ``shift``) core rows, and the error of each half's median displacement
+    vector (``*_vec_err_m``)."""
     lo, hi = core_pts.min(axis=0), core_pts.max(axis=0)
     in_core = np.all((rows_src >= lo) & (rows_src <= hi), axis=1)
     moving = rows_src[:, 1] > moving_y
     err_sta = np.linalg.norm(rows_disp[in_core & ~moving], axis=1)
     err_mov = np.linalg.norm(rows_disp[in_core & moving] - shift, axis=1)
     n_static = int((core_pts[:, 1] <= moving_y).sum())
+    sta, mov = rows_disp[in_core & ~moving], rows_disp[in_core & moving]
     return {
         "core_points": int(len(core_pts)),
         "core_assigned": float(in_core.sum()) / max(len(core_pts), 1),
         "static_assigned": float((in_core & ~moving).sum()) / max(n_static, 1),
         "static_err_m": float(np.median(err_sta)) if err_sta.size else None,
         "moving_err_m": float(np.median(err_mov)) if err_mov.size else None,
+        "static_vec_err_m": float(np.linalg.norm(np.median(sta, axis=0))) if len(sta) else None,
+        "moving_vec_err_m": (float(np.linalg.norm(np.median(mov, axis=0) - shift))
+                             if len(mov) else None),
     }

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from fusion4landslide_tpu_torch.ops.knn import nn1
+from fusion4landslide_tpu_torch.ops.knn import nn1_xla_rounded
 
 __all__ = [
     "bilinear_depth",
@@ -159,7 +159,7 @@ def chain_2d_matches_to_3d(corres_2d, src_proj_uv, tgt_proj_uv, pixel_thres, cor
     thr2 = torch.as_tensor(pixel_thres, dtype=torch.float32, device=corres_2d.device) ** 2
 
     def hop(query, ref, ref_mask):
-        d, idx = nn1(query, ref, ref_mask)
+        d, idx = nn1_xla_rounded(query, ref, ref_mask)
         return idx.long(), torch.isfinite(d) & (d < thr2)
 
     m_idx, hop1 = hop(src_proj_uv, corres_2d[:, :2], corres_mask)

@@ -1,0 +1,291 @@
+"""Dense 2D image matching for epoch pairs (port of
+``fusion4landslide_tpu.image.matching``).
+
+- ``zncc_grid_match``: zero-normalised cross-correlation over a grid of
+  template centres (classical digital image correlation). Every candidate
+  displacement of a block of centres is scored at once: the numerator is a
+  grouped convolution of each centre's search window with its own template
+  (``F.conv2d(..., groups=B)``), the candidates' sums and energies box
+  sums with a shared ones kernel; the candidate norm is
+  ``sqrt(sum c^2 - (sum c)^2 / p^2)`` in float32, as in the JAX package.
+  Sub-pixel refinement by a parabola fit on the correlation surface.
+- ``match_epoch_images``: the sliding-window crop loop (step = crop -
+  overlap), optional 8-neighbour cross pairing, ``max_flow_px`` widening,
+  dedup by the (u0, v0) pixel cell and the near-bound warning.
+- ``get_matcher`` / ``MATCHERS`` and ``resolve_learned_weights``. The
+  learned matchers (E-LoFTR, LoFTR, RoMa) are not ported yet: where the
+  JAX package would run one (its weights resolve), the port raises
+  ``NotImplementedError``; where they do not resolve, both fall back to
+  ZNCC with a warning.
+
+Matching runs on ``device`` (default ``cuda``); TF32 stays off for the
+convolutions (``resolve_device``).
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fusion4landslide_tpu_torch.device import resolve_device
+
+__all__ = [
+    "MATCHERS",
+    "get_matcher",
+    "match_epoch_images",
+    "matcher_options",
+    "resolve_learned_weights",
+    "zncc_grid_match",
+]
+
+#: Centres per block of the correlation (the JAX ``g_block``).
+_G_BLOCK = 512
+_GRAY = (0.299, 0.587, 0.114)
+
+
+def _to_gray(img, device) -> torch.Tensor:
+    """(h, w) float32 intensities of an (h, w) or (h, w, c) image."""
+    x = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img,
+                        dtype=torch.float32, device=device)
+    if x.ndim == 3:
+        return torch.einsum("hwc,c->hw", x[..., :3],
+                            torch.tensor(_GRAY, dtype=torch.float32, device=device))
+    return x
+
+
+def _parab(cm, c0, cp):
+    denom = cm - 2.0 * c0 + cp
+    return torch.where(denom.abs() > 1e-9, torch.clamp(0.5 * (cm - cp) / denom, -1.0, 1.0),
+                       torch.zeros_like(denom))
+
+
+def _zncc_core(img0: torch.Tensor, img1: torch.Tensor, grid_step: int, patch: int, search: int):
+    """(centres (G, 2) [y, x], flow_y, flow_x, score, texture) over the
+    grid of centres at least ``patch // 2 + search`` from the border."""
+    dev = img0.device
+    h, w = img0.shape
+    half = patch // 2
+    margin = half + search
+    ys = torch.arange(margin, h - margin, grid_step, device=dev)
+    xs = torch.arange(margin, w - margin, grid_step, device=dev)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    centers = torch.stack([gy.reshape(-1), gx.reshape(-1)], dim=1)
+    n_off = 2 * search + 1
+    win = patch + 2 * search
+    rel = torch.arange(-half, patch - half, device=dev)
+    py, px = torch.meshgrid(rel, rel, indexing="ij")
+    prel = torch.stack([py.reshape(-1), px.reshape(-1)], dim=1)
+    wrel = torch.arange(-half - search, -half - search + win, device=dev)
+    ones_k = torch.ones((1, 1, patch, patch), dtype=torch.float32, device=dev)
+    np2 = float(patch * patch)
+    outs = []
+    for s0 in range(0, centers.shape[0], _G_BLOCK):
+        cb = centers[s0:s0 + _G_BLOCK]
+        B = cb.shape[0]
+        # Templates from img0, zero-mean and unit-norm: (B, p^2).
+        pos0 = cb[:, None, :] + prel[None]
+        t = img0[pos0[..., 0], pos0[..., 1]]
+        t = t - t.mean(dim=1, keepdim=True)
+        t_norm = torch.sqrt((t * t).sum(dim=1, keepdim=True)) + 1e-6
+        t = t / t_norm
+        # Each centre's img1 search window: (B, win, win).
+        wy = cb[:, 0:1] + wrel[None]
+        wx = cb[:, 1:2] + wrel[None]
+        w1 = img1[wy[:, :, None], wx[:, None, :]]
+        num = F.conv2d(w1[None], t.reshape(B, 1, patch, patch), groups=B)[0]
+        c_sum = F.conv2d(w1[:, None], ones_k)[:, 0]
+        c_sq = F.conv2d((w1 * w1)[:, None], ones_k)[:, 0]
+        c_norm = torch.sqrt(torch.clamp(c_sq - c_sum * c_sum / np2, min=0.0))
+        corr = (num / (c_norm + 1e-6)).reshape(B, -1)
+        best = corr.argmax(dim=1)
+        score = torch.gather(corr, 1, best[:, None])[:, 0]
+        by, bx = best // n_off, best % n_off
+        corr2 = corr.reshape(B, n_off, n_off)
+        bi = torch.arange(B, device=dev)
+        bys = torch.clamp(by, 1, n_off - 2)
+        bxs = torch.clamp(bx, 1, n_off - 2)
+        sub_y = _parab(corr2[bi, bys - 1, bxs], corr2[bi, bys, bxs], corr2[bi, bys + 1, bxs])
+        sub_x = _parab(corr2[bi, bys, bxs - 1], corr2[bi, bys, bxs], corr2[bi, bys, bxs + 1])
+        outs.append(((by - search).float() + sub_y, (bx - search).float() + sub_x, score,
+                     t_norm[:, 0]))
+    if not outs:
+        empty = torch.zeros((0,), device=dev)
+        return centers, empty, empty, empty, empty
+    fy, fx, sc, tn = (torch.cat(z) for z in zip(*outs))
+    return centers, fy, fx, sc, tn
+
+
+def zncc_grid_match(img0, img1, *, grid_step: int = 8, patch: int = 16, search: int = 32,
+                    min_score: float = 0.6, min_texture: float = 1.0,
+                    device=None) -> np.ndarray:
+    """Dense grid matches between two co-registered epoch images (numpy
+    arrays or tensors, grey or colour): an (M, 4) float32 array of
+    [u0, v0, u1, v1], kept where the ZNCC score reaches ``min_score`` and
+    the template's contrast (its zero-mean norm) ``min_texture``."""
+    dev = resolve_device(device)
+    g0, g1 = _to_gray(img0, dev), _to_gray(img1, dev)
+    centers, fy, fx, score, texture = _zncc_core(g0, g1, grid_step, patch, search)
+    keep = ((score >= min_score) & (texture >= min_texture)).cpu().numpy()
+    centers = centers.cpu().numpy()
+    u0 = centers[:, 1].astype(np.float32)
+    v0 = centers[:, 0].astype(np.float32)
+    u1 = u0 + fx.cpu().numpy()
+    v1 = v0 + fy.cpu().numpy()
+    return np.stack([u0, v0, u1, v1], axis=1)[keep]
+
+
+def _learned_not_ported(name: str):
+    def matcher(*_, **__):
+        raise NotImplementedError(
+            f"the learned image matcher '{name}' is not ported yet (ROADMAP.md queue 1 "
+            "item 9); img_matching_type: zncc runs")
+    return matcher
+
+
+MATCHERS = {
+    "zncc": zncc_grid_match,
+    "loftr": _learned_not_ported("loftr"),
+    "eloftr": _learned_not_ported("eloftr"),
+    "roma": _learned_not_ported("roma"),
+    "romav2": _learned_not_ported("romav2"),
+}
+
+#: Probed locations of converted learned-matcher checkpoints (the JAX
+#: package's lists).
+WEIGHT_SEARCH_PATHS = (
+    "weights/efficientloftr",
+    "weights/eloftr.safetensors",
+    "weights/eloftr_outdoor.ckpt",
+    "weights/eloftr_tiny.npz",
+)
+ROMA_WEIGHT_SEARCH_PATHS = (
+    "weights/roma_tiny.npz",
+    "weights/roma.npz",
+)
+
+
+def get_matcher(name: str):
+    """The matcher registered under ``name`` (case-insensitive)."""
+    try:
+        return MATCHERS[name.lower()]
+    except KeyError as e:
+        raise NotImplementedError(
+            f"image matcher '{name}' is not available; options: {sorted(MATCHERS)}"
+        ) from e
+
+
+def resolve_learned_weights(weights=None, paths=WEIGHT_SEARCH_PATHS):
+    """A learned matcher's checkpoint path: ``weights`` (must exist), else
+    the first of ``paths`` found relative to the working directory or to
+    the repository root; None when nothing is there."""
+    if weights is not None:
+        if not osp.exists(str(weights)):
+            raise FileNotFoundError(f"learned matcher weights not found: {weights}")
+        return str(weights)
+    repo_root = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+    for cand in paths:
+        for base in ("", repo_root):
+            p = osp.join(base, cand) if base else cand
+            if osp.exists(p):
+                return p
+    return None
+
+
+def matcher_options(cfg) -> dict:
+    """``match_epoch_images`` options from a config (``img_matching_type``,
+    ``crop_size``, ``overlap_size``, ``img_matching_cross_crops``,
+    ``max_flow_px``)."""
+    return dict(
+        matcher=str(cfg.get("img_matching_type", "zncc")).lower(),
+        crop_size=tuple(cfg["crop_size"]) if cfg.get("crop_size") else None,
+        overlap_size=tuple(cfg["overlap_size"]) if cfg.get("overlap_size") else None,
+        cross_crops=bool(cfg.get("img_matching_cross_crops", False)),
+        max_flow_px=cfg.get("max_flow_px"),
+    )
+
+
+def match_epoch_images(img0, img1, *, matcher: str = "zncc",
+                       crop_size: tuple[int, int] | None = None,
+                       overlap_size: tuple[int, int] | None = None,
+                       cross_crops: bool = False, max_flow_px: float | None = None,
+                       logger=None, device=None, **kw) -> np.ndarray:
+    """(M, 4) float32 [u0, v0, u1, v1] matches between two epoch images.
+
+    With ``crop_size`` the images are matched over a sliding grid of crop
+    pairs (step = crop - overlap, default overlap half a crop); each img0
+    crop pairs with the same-position img1 crop, or with ``cross_crops``
+    also its 8 neighbours. ``max_flow_px`` widens the ZNCC search to cover
+    it and turns cross pairing on when it exceeds half the overlap.
+    Matches from overlapping crops are deduplicated by their (u0, v0)
+    pixel cell, the first kept. A warning is logged when the median flow
+    is within 20% of the ZNCC search bound."""
+    name = matcher.lower()
+    if name in ("eloftr", "loftr", "roma", "romav2") and kw.get("params") is None:
+        paths = ROMA_WEIGHT_SEARCH_PATHS if name in ("roma", "romav2") else WEIGHT_SEARCH_PATHS
+        resolved = resolve_learned_weights(kw.get("weights"), paths)
+        if resolved is None and not kw.pop("allow_random", False):
+            if logger is not None:
+                logger.warning("no converted %s weights found (checked weights/ and the "
+                               "'weights' option) — falling back to the ZNCC matcher", matcher)
+            matcher, name = "zncc", "zncc"
+            kw.pop("weights", None)
+        elif resolved is not None:
+            kw["weights"] = resolved
+    kw.pop("allow_random", None)
+    fn = get_matcher(matcher)
+    is_zncc = name == "zncc"
+    if is_zncc:
+        kw.pop("weights", None)
+        dev = resolve_device(device)
+        kw["device"] = dev
+        # Grey once, on the device; crops slice it.
+        img0, img1 = _to_gray(img0, dev), _to_gray(img1, dev)
+        if max_flow_px is not None and max_flow_px > int(kw.get("search", 32)):
+            kw["search"] = int(np.ceil(max_flow_px))
+    if max_flow_px is not None and crop_size is not None:
+        oh, ow = overlap_size or (crop_size[0] // 2, crop_size[1] // 2)
+        if max_flow_px > min(oh, ow) / 2:
+            cross_crops = True
+
+    def warn_near_bound(merged):
+        if merged.shape[0] == 0 or not is_zncc or logger is None:
+            return
+        med = float(np.median(np.max(np.abs(merged[:, 2:4] - merged[:, 0:2]), axis=1)))
+        bound = float(kw.get("search", 32))
+        if med > 0.8 * bound:
+            logger.warning("median pixel flow %.1f px is within 20%% of the ZNCC search bound "
+                           "%d px — matches beyond the bound are silently lost; raise 'search' "
+                           "or set max_flow_px", med, int(bound))
+
+    if crop_size is None:
+        out = fn(img0, img1, **kw)
+        warn_near_bound(out)
+        return out
+    ch, cw = crop_size
+    oh, ow = overlap_size or (ch // 2, cw // 2)
+    sh, sw = max(ch - oh, 1), max(cw - ow, 1)
+    h, w = img0.shape[:2]
+    ys = list(range(0, max(h - ch, 0) + 1, sh))
+    xs = list(range(0, max(w - cw, 0) + 1, sw))
+    out = []
+    for y0 in ys:
+        for x0 in xs:
+            c0 = img0[y0:y0 + ch, x0:x0 + cw]
+            pairs = ([(y1, x1) for y1 in ys for x1 in xs
+                      if abs(y1 - y0) <= sh and abs(x1 - x0) <= sw]
+                     if cross_crops else [(y0, x0)])
+            for y1, x1 in pairs:
+                m = fn(c0, img1[y1:y1 + ch, x1:x1 + cw], **kw)
+                if m.size:
+                    out.append(m + np.asarray([x0, y0, x1, y1], np.float32))
+    if not out:
+        return np.zeros((0, 4), np.float32)
+    merged = np.concatenate(out, axis=0)
+    key = merged[:, 1].round().astype(np.int64) * (w + 1) + merged[:, 0].round().astype(np.int64)
+    _, first = np.unique(key, return_index=True)
+    merged = merged[np.sort(first)]
+    warn_near_bound(merged)
+    return merged

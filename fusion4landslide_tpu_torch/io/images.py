@@ -1,7 +1,7 @@
 """Image loading (port of ``fusion4landslide_tpu.io.images``; reference
-cv2.imread at base:839-841, PIL here). The fusion tile reads an image only
-for its size when the config gives no ``image_size``; pixels are read only
-by the image matchers, which are not ported yet."""
+cv2.imread at base:839-841, PIL here). The image matcher
+(``image.matching``) reads the pixels; the fusion driver reads an image
+only where it runs the matcher or the config gives no ``image_size``."""
 
 from __future__ import annotations
 

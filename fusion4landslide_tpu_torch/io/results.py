@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-__all__ = ["dvf_magnitudes", "save_dvfms", "save_txt", "visual_clamp_magnitude"]
+__all__ = ["dvf_magnitudes", "save_dvfms", "save_dvfs", "save_txt", "visual_clamp_magnitude"]
 
 #: CloudCompare visualisation scale per dataset (base:3490-3497).
 VIS_MAX_MAGNITUDE = {
@@ -33,6 +33,11 @@ def save_txt(path: str, table: np.ndarray, fmt: str = "%.6f") -> None:
     """Result-table text writer (fixed ``%.6f``: micrometres on metres)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savetxt(path, table, fmt=fmt)
+
+
+def save_dvfs(path: str, dvfs: np.ndarray) -> None:
+    """Write the (n, 6) dvfs table."""
+    save_txt(path, dvfs[:, :6])
 
 
 def save_dvfms(path: str, dvfs: np.ndarray, magnitudes: np.ndarray | None = None) -> np.ndarray:

@@ -102,8 +102,9 @@ def main(argv: list[str] | None = None) -> dict:
             iter_tile_clouds(tiles, split=split, budgets=(n_bucket, m_bucket), logger=logger)))
         timings: dict = {}
         with summary.phase("runner_s"):
-            run_f2s3_tiles(cfg, dips, filt, clouds, device=dev, logger=logger, timings=timings,
-                           n_bucket=n_bucket, m_bucket=m_bucket)
+            res = run_f2s3_tiles(cfg, dips, filt, clouds, device=dev, logger=logger,
+                                 timings=timings, n_bucket=n_bucket, m_bucket=m_bucket)
+        summary.add_overflow(*res.values())
         summary.stages["runner"] = timings
     else:
         from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
@@ -112,8 +113,9 @@ def main(argv: list[str] | None = None) -> dict:
                                                                       logger=logger)):
             logger.info("Processing tile %s", tile_id)
             with summary.tile(tile_id) as timings:
-                run_f2s3_tile(cfg, dips, filt, src.points, tgt.points, tile_id=tile_id,
-                              logger=logger, device=dev, timings=timings)
+                res = run_f2s3_tile(cfg, dips, filt, src.points, tgt.points, tile_id=tile_id,
+                                    logger=logger, device=dev, timings=timings)
+            summary.add_overflow(res)
     return summary.finish(logger, cfg.output_root)
 
 

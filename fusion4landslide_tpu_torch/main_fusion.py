@@ -15,14 +15,17 @@ takes the single-GPU runner ``run_fusion3d_tiles``. Where ``auto`` would
 pick the multi-device path (several GPUs, several tiles), the runner runs
 on the first GPU (one tile stream per GPU is ROADMAP.md queue 1 item 13).
 
-The RGB+3D method (``use_2d_matches: true``) runs with a fixed image pair
-and precomputed pixel matches (``img_matching_result_dir/*.txt``); image
-pixels are read only for their size when the config has no ``image_size``.
-Per-tile camera selection (``Images_used.txt``) selects the cameras and then
-raises ``NotImplementedError`` at the image matcher (ROADMAP.md queue 1
-item 9). The driver logs one ``run summary:`` JSON line at the end (tile
-seconds, stage times, tiling and I/O seconds, peak device memory, kernel
-launches).
+The RGB+3D method (``use_2d_matches: true``) takes the fixed image pair
+(``src_image`` / ``tgt_image``) with precomputed pixel matches
+(``img_matching_result_dir/*.txt``) when they exist, else the image
+matcher (``img_matching_type``; ZNCC in the port, the learned matchers
+raise ``NotImplementedError``, ROADMAP.md queue 1 item 9) on the pair, or
+with ``Images_used.txt`` on each tile's best cameras (``num_sub_img`` per
+epoch), matching each distinct image pair once. Image pixels are read
+only where the matcher needs them or the config has no ``image_size``. The
+driver logs one ``run summary:`` JSON line at the end (tile seconds, stage
+times, tiling and I/O seconds, peak device memory, kernel launches,
+window overflow).
 """
 
 from __future__ import annotations
@@ -116,14 +119,19 @@ def _image_setup(cfg, logger):
         input_root, cfg.get("dataset"), coord_type=cfg.get("coord_type", "PRCS"),
         src_pose=cfg.get("src_pose"), tgt_pose=cfg.get("tgt_pose"),
     )
-    # Pixels are read only for the image size (the matcher is not ported).
-    src_img = None
-    if not cfg.get("image_size"):
-        src_img = load_image(osp.join(input_root, "image", "raw_images", cfg.get("src_image")))
     mdir = cfg.get("img_matching_result_dir")
     if mdir and not osp.isabs(mdir):
         mdir = osp.join(input_root, mdir)
-    return (src_img, intrinsic, src_ext, tgt_ext, _precomputed_matches(mdir, logger)), None
+    corres_2d = _precomputed_matches(mdir, logger)
+    # Pixels are read where the matcher runs, or for the image size.
+    raw = osp.join(input_root, "image", "raw_images")
+    src_img = tgt_img = None
+    if corres_2d is None or not cfg.get("image_size"):
+        src_img = load_image(osp.join(raw, cfg.get("src_image")))
+    if corres_2d is None:
+        tgt_img = load_image(osp.join(raw, cfg.get("tgt_image")))
+    return (src_img, tgt_img, intrinsic, src_ext, tgt_ext, corres_2d), None
+
 
 
 def _select_cameras(cfg, image_candidates, points: np.ndarray, device):
@@ -171,6 +179,17 @@ def main(argv: list[str] | None = None) -> dict:
     if cfg.get("use_2d_matches", False):
         image_kit, image_candidates = _image_setup(cfg, logger)
     has_rgb = image_kit is not None or image_candidates is not None
+    images: dict = {}
+
+    def candidate_image(side: str, name: str) -> np.ndarray:
+        """A candidate camera's image (``raw_images/<side>_images``), read once."""
+        from fusion4landslide_tpu_torch.io.images import load_image
+
+        if (side, name) not in images:
+            root = cfg.get("input_root") or cfg.get("data_dir")
+            images[side, name] = load_image(osp.join(root, "image", "raw_images",
+                                                     f"{side}_images", name))
+        return images[side, name]
 
     use_mesh = cfg.get("use_mesh", "auto")
     if not tiles:
@@ -187,29 +206,63 @@ def main(argv: list[str] | None = None) -> dict:
 
         logger.info("Running %d tiles through the single-GPU runner on %s", len(tiles), dev)
         image_kit_fn = pix_cap = None
+        n_ip = 1
         if has_rgb:
-            if image_candidates is not None:
-                raise NotImplementedError(
-                    "per-tile camera selection runs the image matcher, which is not ported "
-                    "yet (ROADMAP.md queue 1 item 9)")
-            _, intrinsic, src_ext, tgt_ext, corres_2d = image_kit
-            if corres_2d is None:
-                raise NotImplementedError("the image matcher (no img_matching_result_dir "
-                                          "matches) is not ported yet (ROADMAP.md queue 1 item 9)")
-            pix = np.asarray(corres_2d, np.float32)[:, :4]
-            kit0 = {"pix": [pix], "intrinsic": intrinsic, "src_extrinsics": [src_ext],
-                    "tgt_extrinsics": [tgt_ext]}
-            image_kit_fn = lambda tid, s, t: kit0  # noqa: E731
-            pix_cap = bucket_size(max(1, len(pix)))
+            from fusion4landslide_tpu_torch.image.matching import (
+                match_epoch_images,
+                matcher_options,
+            )
+
+            def match_pair(simg, timg):
+                m = match_epoch_images(simg, timg, **matcher_options(cfg), logger=logger,
+                                       weights=cfg.get("img_matcher_weights"), device=dev)
+                return np.asarray(m, np.float32).reshape(-1, 4)
+
+            if image_kit is not None:
+                src_img, tgt_img, intrinsic, src_ext, tgt_ext, corres_2d = image_kit
+                pix = (np.asarray(corres_2d, np.float32)[:, :4] if corres_2d is not None
+                       else match_pair(src_img, tgt_img))
+                kit0 = {"pix": [pix], "intrinsic": intrinsic, "src_extrinsics": [src_ext],
+                        "tgt_extrinsics": [tgt_ext]}
+                kits = None
+                max_px = max(1, len(pix))
+            else:
+                # Each tile's best cameras; each distinct image pair is
+                # matched once across tiles.
+                n_ip = int(cfg.get("num_sub_img", 1) or 1) ** 2
+                pair_cache: dict = {}
+                kits, max_px = {}, 1
+                for tile_id, src, tgt in iter_tile_clouds(tiles, split=split):
+                    best_s, best_t = _select_cameras(cfg, image_candidates,
+                                                     (src.points, tgt.points), dev)
+                    kit = {"pix": [], "intrinsic": image_candidates[2], "src_extrinsics": [],
+                           "tgt_extrinsics": []}
+                    for sn, sext in best_s:
+                        for tn, text in best_t:
+                            if (sn, tn) not in pair_cache:
+                                pair_cache[(sn, tn)] = match_pair(candidate_image("src", sn),
+                                                                  candidate_image("tgt", tn))
+                            kit["pix"].append(pair_cache[(sn, tn)])
+                            kit["src_extrinsics"].append(sext)
+                            kit["tgt_extrinsics"].append(text)
+                    max_px = max([max_px] + [len(p) for p in kit["pix"]])
+                    kits[tile_id] = kit
+            if kits is None:
+                image_kit_fn = lambda tid, s, t: kit0  # noqa: E731
+            else:
+                image_kit_fn = lambda tid, s, t: kits[tid]  # noqa: E731
+            pix_cap = bucket_size(max_px)
         n_bucket, m_bucket = tile_size_buckets(tiles, split=split,
                                                halo=float(cfg.get("tile_halo", 20.0)))
         clouds = ((tid, s.points, t.points) for tid, s, t in summary.timed_reads(
             iter_tile_clouds(tiles, split=split, budgets=(n_bucket, m_bucket), logger=logger)))
         timings: dict = {}
         with summary.phase("runner_s"):
-            run_fusion3d_tiles(cfg, dips, agg, clouds, device=dev, logger=logger,
-                               timings=timings, n_bucket=n_bucket, m_bucket=m_bucket,
-                               image_kit_fn=image_kit_fn, pix_cap=pix_cap)
+            res = run_fusion3d_tiles(cfg, dips, agg, clouds, device=dev, logger=logger,
+                                     timings=timings, n_bucket=n_bucket, m_bucket=m_bucket,
+                                     image_kit_fn=image_kit_fn, pix_cap=pix_cap,
+                                     n_image_pairs=n_ip)
+        summary.add_overflow(*res.values())
         summary.stages["runner"] = timings
         tiles = []
 
@@ -224,22 +277,26 @@ def main(argv: list[str] | None = None) -> dict:
                                                  (src.points, tgt.points), dev)
                 logger.info("tile %s: selected src image(s) %s / tgt %s", tile_id,
                             [n for n, _ in best_s], [n for n, _ in best_t])
-                # Without precomputed matches the tile reaches the matcher
-                # and raises NotImplementedError (ROADMAP.md queue 1 item 9).
-                run_fusion_tile(
-                    cfg, dips, agg, src.points, tgt.points, None, None,
-                    image_candidates[2], best_s[0][1], best_t[0][1],
-                    src_extrinsics=[e for _, e in best_s], tgt_extrinsics=[e for _, e in best_t],
-                    tile_id=tile_id, logger=logger, device=dev, timings=timings,
+                simgs = [candidate_image("src", n) for n, _ in best_s]
+                timgs = [candidate_image("tgt", n) for n, _ in best_t]
+                res = run_fusion_tile(
+                    cfg, dips, agg, src.points, tgt.points, simgs[0], timgs[0],
+                    image_candidates[2], best_s[0][1], best_t[0][1], src_images=simgs,
+                    tgt_images=timgs, src_extrinsics=[e for _, e in best_s],
+                    tgt_extrinsics=[e for _, e in best_t], tile_id=tile_id, logger=logger,
+                    device=dev, timings=timings,
                 )
             elif image_kit is not None:
-                src_img, intrinsic, src_ext, tgt_ext, corres_2d = image_kit
-                run_fusion_tile(cfg, dips, agg, src.points, tgt.points, src_img, None,
-                                intrinsic, src_ext, tgt_ext, corres_2d=corres_2d,
-                                tile_id=tile_id, logger=logger, device=dev, timings=timings)
+                src_img, tgt_img, intrinsic, src_ext, tgt_ext, corres_2d = image_kit
+                res = run_fusion_tile(cfg, dips, agg, src.points, tgt.points, src_img, tgt_img,
+                                      intrinsic, src_ext, tgt_ext, corres_2d=corres_2d,
+                                      tile_id=tile_id, logger=logger, device=dev,
+                                      timings=timings)
             else:
-                run_fusion3d_tile(cfg, dips, agg, src.points, tgt.points, tile_id=tile_id,
-                                  logger=logger, device=dev, timings=timings)
+                res = run_fusion3d_tile(cfg, dips, agg, src.points, tgt.points,
+                                        tile_id=tile_id, logger=logger, device=dev,
+                                        timings=timings)
+        summary.add_overflow(res)
     return summary.finish(logger, cfg.output_root)
 
 

@@ -8,7 +8,10 @@ gives each cell's run. The join itself is the grid-window kernel
 
 The radius-growing loops (``knn_grid_traced``, ``median_nn_distance_traced``)
 are Python ``while`` loops over tensors; each attempt's control value is
-read back once.
+read back once. They keep a truncated window's result, as the JAX package's
+traced callers do. ``nn1_spatial`` is the JAX package's eager caller: a
+radius step whose kernel call reports overflow reruns every query through
+the exact gather join ``hash_grid_knn_join`` (the JAX ``_hash_grid_knn_xla``).
 """
 
 from __future__ import annotations
@@ -18,13 +21,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fusion4landslide_tpu_torch.ops.hashgrid_cuda import hash_grid_knn_window
+from fusion4landslide_tpu_torch.ops.hashgrid_cuda import hash_grid_knn_window, xla_sqnorm
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
 __all__ = [
     "HashGrid",
     "build_hash_grid",
     "hash_grid_knn",
+    "hash_grid_knn_join",
     "knn_grid_traced",
     "median_nn_distance_traced",
     "nn1_spatial",
@@ -105,7 +109,8 @@ def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *,
 
     The query count is padded to ``bucket_size`` (padded queries ride
     along in the kernel's blocks and are sliced off). Blocks whose window
-    overflowed are truncated, as under the JAX package's traced callers.
+    overflowed are truncated, as under the JAX package's traced callers;
+    a caller that must stay exact reruns through ``hash_grid_knn_join``.
 
     Returns ((n, k) squared distances, +inf past radius; (n, k) original
     indices, 0 where invalid; () overflow count).
@@ -119,6 +124,61 @@ def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *,
         qp = torch.cat([query, query.new_zeros((nb - n, 3))])
     d, i, ov = hash_grid_knn_window(qp, grid, radius, k, exclude_self=exclude_self)
     return d[:n], i[:n], ov
+
+
+def hash_grid_knn_join(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 32,
+                       query_block: int = 8192, exclude_self: bool = False):
+    """The exact gather join (JAX ``_hash_grid_knn_xla``): queries sorted
+    by cell (stable), in blocks of ``query_block``; each query reads the
+    first ``cap`` points of each of its 27 neighbour cells' runs, with no
+    window to overflow. Ties go to the lower candidate position. Returns
+    ((n, k) squared distances, +inf past radius; (n, k) indices, 0 where
+    invalid; () count of the queries' neighbour-cell runs longer than
+    ``cap``)."""
+    n, m = query.shape[0], grid.points.shape[0]
+    dev = query.device
+    radius = torch.as_tensor(radius, dtype=query.dtype, device=dev)
+    r = torch.arange(-1, 2, device=dev)
+    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
+    dims = grid.dims.long()
+    qcell = torch.floor((query - grid.origin) / grid.cell).long()
+    qcell = torch.clamp(qcell, torch.zeros_like(dims), dims - 1)
+    qorder = torch.sort((qcell[:, 0] * dims[1] + qcell[:, 1]) * dims[2] + qcell[:, 2],
+                        stable=True).indices
+    q_sorted, qc_sorted = query[qorder], qcell[qorder]
+    starts = grid.starts.long()
+    lane = torch.arange(cap, device=dev)
+    d_out = torch.zeros((n, k), dtype=query.dtype, device=dev)
+    i_out = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for s0 in range(0, n, query_block):
+        q, qc = q_sorted[s0:s0 + query_block], qc_sorted[s0:s0 + query_block]
+        B = q.shape[0]
+        nc = qc[:, None, :] + offsets[None]
+        in_grid = ((nc >= 0) & (nc < dims)).all(-1)
+        ncl = torch.clamp(nc, torch.zeros_like(dims), dims - 1)
+        nlin = (ncl[..., 0] * dims[1] + ncl[..., 1]) * dims[2] + ncl[..., 2]
+        start = torch.where(in_grid, starts[nlin], 0)
+        end = torch.where(in_grid, starts[nlin + 1], 0)
+        overflow = overflow + (end - start > cap).sum()
+        pos = (start[..., None] + lane).reshape(B, 27 * cap)
+        valid = pos < end[..., None].expand(B, 27, cap).reshape(B, 27 * cap)
+        pos_c = torch.clamp(pos, 0, m - 1)
+        d2 = xla_sqnorm(grid.points[pos_c] - q[:, None, :])
+        cand = grid.index[pos_c]
+        bad = ~valid | (d2 > radius * radius)
+        if exclude_self:
+            bad = bad | (cand == qorder[s0:s0 + B, None].to(torch.int32))
+        d2 = torch.where(bad, torch.inf, d2)
+        if k == 1:
+            sel = d2.argmin(dim=1, keepdim=True)
+        else:
+            sel = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+        best_d = torch.gather(d2, 1, sel)
+        best_i = torch.where(torch.isfinite(best_d), torch.gather(cand, 1, sel), 0)
+        d_out[qorder[s0:s0 + B]] = best_d
+        i_out[qorder[s0:s0 + B]] = best_i.to(torch.int32)
+    return d_out, i_out, overflow.to(torch.int32)
 
 
 def _masked_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -228,8 +288,10 @@ _NN1_DOUBLINGS = 12
 def nn1_spatial(query, ref):
     """Unbounded spatial 1-NN through the grid join with radius growth:
     the radius starts at the bounding-box density 4 sqrt(area / m) and
-    doubles until every query found a neighbour. Returns ((n,) squared
-    distances, (n,) int32 indices); queries still unmatched after
+    doubles until every query found a neighbour. A radius step whose
+    kernel call overflowed its window reruns every query through the exact
+    gather join, as the JAX package's eager call does. Returns ((n,)
+    squared distances, (n,) int32 indices); queries still unmatched after
     ``_NN1_DOUBLINGS`` (an empty reference only) get +inf / 0."""
     n, m = query.shape[0], ref.shape[0]
     dev = query.device
@@ -243,7 +305,9 @@ def nn1_spatial(query, ref):
     radius = 4.0 * float(np.sqrt(area / m))
     for _ in range(_NN1_DOUBLINGS):
         grid = build_hash_grid(ref, radius, valid)
-        d, i, _ = hash_grid_knn(query, grid, radius, 1)
+        d, i, ov = hash_grid_knn(query, grid, radius, 1)
+        if int(ov) > 0:
+            d, i, _ = hash_grid_knn_join(query, grid, radius, 1)
         found_new = torch.isfinite(d[:, 0]) & ~torch.isfinite(best_d)
         best_d = torch.where(found_new, d[:, 0], best_d)
         best_i = torch.where(found_new, i[:, 0], best_i)

@@ -64,6 +64,14 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def xla_sqnorm(c: torch.Tensor) -> torch.Tensor:
+    """Squared norm of (..., 2) or (..., 3) differences in the rounding of
+    the JAX package's CPU build, which contracts the sum of squares to
+    fma(c2, c2, fma(c0, c0, c1 * c1))."""
+    s = _fma(c[..., 0], c[..., 0], c[..., 1] * c[..., 1])
+    return _fma(c[..., 2], c[..., 2], s) if c.shape[-1] == 3 else s
+
+
 def _lin(c: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
     return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
 

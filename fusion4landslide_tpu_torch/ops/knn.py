@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
-from fusion4landslide_tpu_torch.ops.hashgrid_cuda import _fma
+from fusion4landslide_tpu_torch.ops.hashgrid_cuda import xla_sqnorm
 from fusion4landslide_tpu_torch.ops.knn_cuda import MAX_K, knn_feature
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
-__all__ = ["pairwise_sqdist", "knn", "nn1", "median_nn_distance"]
+__all__ = ["pairwise_sqdist", "knn", "nn1", "nn1_xla_rounded", "median_nn_distance"]
 
 _DIFF_DIM_MAX = 8
 _QUERY_BLOCK = 4096  # query rows per distance slab, at most
@@ -95,6 +95,17 @@ def nn1(query, ref, ref_mask=None, **kw):
     return d[:, 0], i[:, 0]
 
 
+def nn1_xla_rounded(query, ref, ref_mask=None, *, exclude_self: bool = False):
+    """``nn1`` on 2-d or 3-d points with the selected squared distance
+    recomputed in the rounding of the JAX package's CPU build
+    (``xla_sqnorm``), so thresholds and medians over it agree with the JAX
+    function's bit for bit (one ulp can move a point across a voxel
+    boundary or a pixel threshold)."""
+    sqd, idx = nn1(query, ref, ref_mask, exclude_self=exclude_self)
+    sq = xla_sqnorm(query - ref[idx.long()])
+    return torch.where(torch.isfinite(sqd), sq, sqd), idx
+
+
 def _median_of_first(d_sorted: torch.Tensor, cnt) -> torch.Tensor:
     """Median of the first ``cnt`` entries of an ascending vector."""
     lo = max((int(cnt) - 1) // 2, 0)
@@ -135,14 +146,10 @@ def median_nn_distance(points, mask=None):
             if 2 * int(found.sum()) > cnt:
                 return med
             radius *= 2.0
-    sqd, idx = knn(points, points, 1, mask, exclude_self=True)
-    # The selected distances in the rounding of the JAX package's CPU
-    # build (XLA contracts the difference form to fma(dz, dz, fma(dx, dx,
-    # dy * dy))): the median feeds the voxel grid, where one ulp can move
-    # a point across a cell boundary.
-    c = points - points[idx[:, 0].long()]
-    sq = _fma(c[:, 2], c[:, 2], _fma(c[:, 0], c[:, 0], c[:, 1] * c[:, 1]))
-    d = torch.sqrt(torch.where(torch.isfinite(sqd[:, 0]), sq, sqd[:, 0]))
+    # The median feeds the voxel grid, where one ulp can move a point
+    # across a cell boundary.
+    sqd, _ = nn1_xla_rounded(points, points, mask, exclude_self=True)
+    d = torch.sqrt(sqd)
     if mask is None:
         return _median_of_first(torch.sort(d).values, n)
     valid = mask.to(torch.bool) & torch.isfinite(d)

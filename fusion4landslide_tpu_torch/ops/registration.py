@@ -20,7 +20,8 @@ def icp_by_type(icp_type: str, src, tgt, max_dist, *, src_mask=None,
     if icp_type not in _ICP_TYPES:
         raise ValueError(f"unknown icp_type {icp_type!r}; expected one of {_ICP_TYPES}")
     if icp_type != "point2point":
-        raise NotImplementedError(f"icp_type {icp_type!r} is not ported yet")
+        raise NotImplementedError(
+            f"icp_type {icp_type!r} is not ported yet (ROADMAP.md queue 1 item 4)")
     return icp_point2point(
         src, tgt, max_dist, src_mask=src_mask, tgt_mask=tgt_mask,
         max_iter=max_iter, R_init=R_init, t_init=t_init,

@@ -29,6 +29,7 @@ class SupervoxelResult(NamedTuple):
     n_supervoxels: torch.Tensor  # ()
     seed_idx: torch.Tensor  # (n,) point index of each cell's seed
     normals: torch.Tensor  # (n, 3)
+    overflow: torch.Tensor | int = 0  # () sampler window overflow of the graph built here
 
 
 def _vccs(p, n_p, q, n_q, resolution):
@@ -80,21 +81,24 @@ def supervoxel_segmentation(points, resolution, mask=None, *,
                             k_neighbors: int = 15, num_sweeps: int = 24,
                             neigh_idx=None, neigh_mask=None, normals=None):
     """Segment a cloud into supervoxels of roughly ``resolution`` size;
-    labels compacted to 0..K-1, masked points -1."""
+    labels compacted to 0..K-1, masked points -1. The result's
+    ``overflow`` is the window overflow of the kNN graph when it is built
+    here (0 when the caller passes ``neigh_idx`` / ``neigh_mask``)."""
     n = points.shape[0]
     valid = (
         torch.ones((n,), dtype=torch.bool, device=points.device)
         if mask is None
         else mask.to(torch.bool)
     )
+    overflow = 0
     if neigh_idx is None or neigh_mask is None:
-        neigh_idx, neigh_mask, _ = supervoxel_graph(
+        neigh_idx, neigh_mask, overflow = supervoxel_graph(
             points, resolution, valid, k_neighbors=k_neighbors
         )
     return _supervoxel_core(
         points, torch.as_tensor(resolution, dtype=points.dtype, device=points.device),
         valid, neigh_idx, neigh_mask, normals=normals, num_sweeps=num_sweeps,
-    )
+    )._replace(overflow=overflow)
 
 
 def _supervoxel_core(points, resolution, valid, neigh_idx, neigh_mask,

@@ -1,10 +1,11 @@
-"""Single-GPU tile runners for the fusion step (3D-only or RGB+3D) and the
-F2S3 step.
+"""Single-GPU tile runners for the fusion step (3D-only or RGB+3D), the
+F2S3 step, the RGB-guided step and piecewise ICP.
 
-Port of ``fusion4landslide_tpu.parallel.pipeline.run_fusion3d_tiles_sharded``
-and ``run_f2s3_tiles_sharded`` for one device: the JAX mesh runs tiles
-with no collectives, so the multi-GPU form is one such tile stream per
-GPU. Statics are derived from the config exactly as the JAX runners derive
+Port of ``fusion4landslide_tpu.parallel.pipeline``'s
+``run_fusion3d_tiles_sharded``, ``run_f2s3_tiles_sharded``,
+``run_rgb_guided_tiles_sharded`` and ``run_piecewise_tiles_sharded`` for
+one device: the JAX mesh runs tiles with no collectives, so the multi-GPU
+form is one such tile stream per GPU. Statics are derived from the config exactly as the JAX runners derive
 them; each tile is centred on its source mean, padded to its bucket, run
 through the tile step, and its result tables (``c2f_*`` / ``f2s3_*``) are
 written.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
+from fusion4landslide_tpu_torch.image.matching import match_epoch_images, matcher_options
 from fusion4landslide_tpu_torch.io.results import (
     dvf_magnitudes,
     save_dvfms,
@@ -26,11 +28,25 @@ from fusion4landslide_tpu_torch.io.results import (
     visual_clamp_magnitude,
 )
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
-from fusion4landslide_tpu_torch.pipelines.f2s3 import is_rockfall, write_f2s3_outputs
+from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer, is_rockfall, write_f2s3_outputs
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
 from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
+from fusion4landslide_tpu_torch.pipelines.piecewise_icp import (
+    piecewise_icp_core,
+    suggest_max_cells,
+    write_piecewise_tables,
+)
+from fusion4landslide_tpu_torch.pipelines.rgb_guided import write_rgb_guided_tables
+from fusion4landslide_tpu_torch.pipelines.rgb_guided_device import rgb_guided_tile_step
 
-__all__ = ["f2s3_statics", "fusion3d_statics", "run_f2s3_tiles", "run_fusion3d_tiles"]
+__all__ = [
+    "f2s3_statics",
+    "fusion3d_statics",
+    "run_f2s3_tiles",
+    "run_fusion3d_tiles",
+    "run_piecewise_tiles",
+    "run_rgb_guided_tiles",
+]
 
 
 def _padded_tile(src: np.ndarray, tgt: np.ndarray, N: int, M: int, dev):
@@ -248,8 +264,10 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             )
         if logger:
             logger.info(
-                "tile %s (fusion_3d): %.1f%% of src points assigned, %d/%d voxels",
+                "tile %s (fusion_3d): %.1f%% of src points assigned, %d/%d voxels, "
+                "window overflow %s",
                 tile_id, 100.0 * float(valid.mean()) if n else 0.0, int(out.n_vox_src), n,
+                out.overflow_by_source,
             )
         results[tile_id] = {
             "dvfs": dvfs_dense,
@@ -257,6 +275,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             "assigned_fraction": float(valid.mean()) if n else 0.0,
             "n_dropped": n_dropped,
             "overflow": int(out.overflow),
+            "overflow_by_source": out.overflow_by_source,
             "n_c2d": int(out.n_c2d),
         }
     return results
@@ -338,11 +357,137 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
         written = write_f2s3_outputs(cfg, tile_id, center, s, t, pruned, keep,
                                      c2c=c2c, logger=logger, device=dev)
         if logger:
-            logger.info("tile %s (f2s3): %d kept correspondences", tile_id, int(keep.sum()))
+            logger.info("tile %s (f2s3): %d kept correspondences, window overflow %s",
+                        tile_id, int(keep.sum()), out.overflow_by_source)
         results[tile_id] = {
             **written,
             "keep": keep,
             "n_dropped": n_dropped,
             "overflow": out.overflow,
+            "overflow_by_source": out.overflow_by_source,
         }
+    return results
+
+
+def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_extrinsic,
+                         tgt_extrinsic, *, tgt_intrinsic=None, corres_2d=None, device=None,
+                         logger=None, timings: dict | None = None, n_bucket: int | None = None,
+                         m_bucket: int | None = None) -> dict:
+    """RGB-guided estimation over (tile_id, src (n, 3), tgt (m, 3)) tiles
+    on one device: the image pair is matched once (``image.matching``,
+    unless ``corres_2d`` is given), its matches padded to
+    ``max(bucket(M), 64)`` rows, then each tile runs through
+    ``rgb_guided_tile_step`` (``sv_cap`` = ``bucket(N / 16)``, at least 64,
+    ``member_cap`` 1024) and its ``rgb_guided_*`` tables are written.
+
+    Returns {tile_id: {"dvfs", "valid", "matched", "n_matches",
+    "n_dropped", "overflow_by_source"}}. ``timings`` (optional
+    dict) collects the matcher's and the step's per-stage seconds."""
+
+    dev = resolve_device(device)
+    tiles, (N, M) = _tiles_and_buckets(tiles, n_bucket, m_bucket)
+    if N == 0:
+        return {}
+    timer = StageTimer(timings, dev)
+    if corres_2d is None:
+        corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg), logger=logger,
+                                       device=dev)
+    corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
+    timer.mark("match_2d")
+    C = max(bucket_size(max(len(corres_2d), 1)), 64)
+    c2 = torch.zeros((C, 4), dtype=torch.float32, device=dev)
+    c2[:len(corres_2d)] = torch.from_numpy(corres_2d).to(dev)
+    cmask = torch.arange(C, device=dev) < len(corres_2d)
+    mode = str(cfg.get("matches_from_2d_type", "nn_src_only"))
+    if mode == "nn_src_with_tgt_for_visualize":
+        mode = "nn_src_only"
+    statics = dict(
+        image_size=tuple(int(v) for v in (cfg.get("image_size") or src_image.shape[:2])),
+        v_flip=str(cfg.get("dataset", "")).lower() != "rockfall_simulator",
+        k_neighbors=int(cfg.get("n_normals", 30)),
+        sv_cap=int(cfg.get("sv_cap", 0)) or max(bucket_size(max(N // 16, 1)), 64),
+        member_cap=int(cfg.get("member_cap", 0)) or 1024,
+        mode=mode,
+        icp_type=str(cfg.get("icp_type", "point2point")),
+        icp_max_iter=30 if bool(cfg.get("icp_refine", True)) else 0,
+    )
+    scalars = dict(
+        pixel_thres=float(cfg.get("pixel_thres", 5)),
+        max_magnitude=float(cfg.get("max_magnitude", 10.0)),
+        icp_threshold=float(cfg.get("icp_threshold", cfg.get("threshold", 0.1))),
+        voxel_size=float(cfg.get("voxel_size", 0.0) or 0.0),
+    )
+    K = np.asarray(intrinsic, np.float32)
+    cams = dict(src_extrinsic=np.asarray(src_extrinsic, np.float32),
+                tgt_extrinsic=np.asarray(tgt_extrinsic, np.float32), intrinsic=K,
+                tgt_intrinsic=K if tgt_intrinsic is None else np.asarray(tgt_intrinsic, np.float32))
+    results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
+                           "results")
+    os.makedirs(results_dir, exist_ok=True)
+
+    results: dict = {}
+    for tile_id, src, tgt in tiles:
+        n = src.shape[0]
+        center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
+        out = rgb_guided_tile_step(
+            sb, sm, tb, tm, center.astype(np.float32), c2, cmask, **cams, **scalars,
+            **statics, timings=timings, device=dev,
+        )
+        matched = out.matched[:n].cpu().numpy()
+        valid = out.valid[:n].cpu().numpy()
+        mags0 = np.linalg.norm(out.tgt_match[:n].cpu().numpy() - sb[:n].cpu().numpy(), axis=1)
+        dvfs = np.hstack([src[valid], out.moved[:n].cpu().numpy()[valid] + center])
+        write_rgb_guided_tables(results_dir, tile_id,
+                                np.hstack([src[matched], mags0[matched][:, None]]), dvfs,
+                                cfg.get("dataset"))
+        n_dropped = int(out.n_dropped)
+        if n_dropped and logger:
+            logger.warning("tile %s: %d points exceeded the supervoxel caps (sv_cap=%d, "
+                           "member_cap=%d)", tile_id, n_dropped, statics["sv_cap"],
+                           statics["member_cap"])
+        if logger:
+            logger.info("tile %s (rgb_guided): %d matched, %d assigned, window overflow %s",
+                        tile_id, int(matched.sum()), int(valid.sum()), out.overflow_by_source)
+        results[tile_id] = {
+            "dvfs": dvfs,
+            "valid": valid,
+            "matched": matched,
+            "n_matches": int(matched.sum()),
+            "n_dropped": n_dropped,
+            "overflow_by_source": out.overflow_by_source,
+        }
+    return results
+
+
+def run_piecewise_tiles(cfg: dict, tiles, *, device=None, logger=None) -> dict:
+    """Piecewise ICP over (tile_id, src (n, 3), tgt (m, 3)) tiles on one
+    device, padded to the buckets of the largest tiles with one static cell
+    bound from the largest source extent; writes the same tables as
+    ``pipelines.piecewise_icp.run_piecewise_icp``. Returns {tile_id:
+    {"dvfs"}}."""
+    dev = resolve_device(device)
+    smax = float(cfg.get("smax", 5.0))
+    n_min = int(cfg.get("number_points_min", 10))
+    tiles, (N, M) = _tiles_and_buckets(tiles, None, None)
+    if N == 0:
+        return {}
+    ext = max(float((t[1].max(axis=0) - t[1].min(axis=0)).max()) for t in tiles)
+    max_cells = suggest_max_cells(ext, smax, N, n_min)
+    results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
+                           "results")
+    os.makedirs(results_dir, exist_ok=True)
+    results: dict = {}
+    with torch.inference_mode():
+        for tile_id, src, tgt in tiles:
+            n = src.shape[0]
+            _, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
+            out = piecewise_icp_core(sb, tb, sm, tm, smax, n_min, max_cells=max_cells)
+            keep = out.out_mask[:n].cpu().numpy()
+            src_kept = src[keep]
+            dvfs = np.hstack([src_kept, src_kept + out.displacement[:n].cpu().numpy()[keep]])
+            write_piecewise_tables(results_dir, tile_id, dvfs, cfg.get("dataset"))
+            if logger:
+                logger.info("tile %s (piecewise): %d kept, %d cells", tile_id, int(keep.sum()),
+                            int(out.n_cells_src))
+            results[tile_id] = {"dvfs": dvfs}
     return results

@@ -353,8 +353,8 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         logger.info("tile %s: median_res=%.4f, patch radius=%.4f", tile_id, median_res, radius)
 
     # 2. DIPs descriptors, patches from the halo clouds (f2s3.py:111-114).
-    src_feat, _ = compute_dips_features(dips, s_d, sh, radius)
-    tgt_feat, _ = compute_dips_features(dips, t_d, th, radius)
+    src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius)
+    tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius)
     timer.mark("dips_features")
 
     # 3. Supervoxels of the source, small patches removed, labels compacted
@@ -400,6 +400,8 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         "magnitudes": written["magnitudes"],
         "keep": keep,
         "labels": labels,
+        "overflow": int(ov_s) + int(ov_t) + int(seg.overflow),
+        "overflow_by_source": {"sampler": int(ov_s) + int(ov_t) + int(seg.overflow), "grid_knn": 0},
         "src_feat": src_feat.cpu().numpy(),
         "tgt_feat": tgt_feat.cpu().numpy(),
     }

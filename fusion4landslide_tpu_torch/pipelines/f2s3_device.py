@@ -87,6 +87,7 @@ class F2S3TileResult(NamedTuple):
     c2c: torch.Tensor  # (N,) spatial 1-NN distance src -> tgt (inf if disabled)
     n_dropped: torch.Tensor  # () points lost to the static supervoxel caps
     overflow: int  # grid-window blocks truncated to the window, this step
+    overflow_by_source: dict | None = None  # overflow split: {"sampler", "grid_knn"}
 
 
 def _count_bound(mask: torch.Tensor) -> int:
@@ -151,7 +152,7 @@ def f2s3_tile_step(
     med_s, ov_s = median_nn_distance_traced(src, smask)
     med_t, ov_t = median_nn_distance_traced(tgt, tmask)
     median_res = torch.maximum(med_s, med_t)
-    overflow = ov_s + ov_t
+    ov_grid = ov_s + ov_t
     radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
     stages.mark("median_res")
 
@@ -162,7 +163,7 @@ def f2s3_tile_step(
                                           query_count=_count_bound(smask), **feat_kw)
     tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius,
                                           query_count=_count_bound(tmask), **feat_kw)
-    overflow = overflow + ov_s + ov_t
+    ov_sampler = ov_s + ov_t
     stages.mark("dips_features")
 
     # 3. Supervoxels of the source (f2s3.py:183-189), small patches out.
@@ -171,7 +172,7 @@ def f2s3_tile_step(
     else:
         svl_radius = torch.clamp(radius, min=float(voxel_size))
     gi, gm, ov = supervoxel_graph(src, svl_radius, smask, k_neighbors=k_neighbors)
-    overflow = overflow + ov
+    ov_sampler = ov_sampler + ov
     seg = supervoxel_segmentation(src, svl_radius, smask, neigh_idx=gi, neigh_mask=gm)
     labels, _ = drop_small_and_compact(seg.labels, smask, 10 if small_patch_removal else 1)
     stages.mark("supervoxels")
@@ -215,7 +216,7 @@ def f2s3_tile_step(
             src, tgt, 1, r0=4.0 * median_res, ref_mask=tmask, query_mask=smask,
             max_doublings=10,
         )
-        overflow = overflow + ov
+        ov_grid = ov_grid + ov
         c2c = torch.sqrt(c2c_sq[:, 0])
     else:
         c2c = torch.full((n,), torch.inf, dtype=f32, device=dev)
@@ -223,5 +224,7 @@ def f2s3_tile_step(
 
     return F2S3TileResult(
         new_tgt=new_tgt, keep=keep, mag=mag, nn_tgt=nn_tgt, labels=labels,
-        median_res=median_res, c2c=c2c, n_dropped=n_dropped, overflow=int(overflow),
+        median_res=median_res, c2c=c2c, n_dropped=n_dropped,
+        overflow=int(ov_sampler + ov_grid),
+        overflow_by_source={"sampler": int(ov_sampler), "grid_knn": int(ov_grid)},
     )

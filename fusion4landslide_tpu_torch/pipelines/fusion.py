@@ -13,12 +13,13 @@ Port of ``fusion4landslide_tpu.pipelines.fusion``:
   base:3258-3296), shared with the device step;
 - ``run_fusion3d_tile`` / ``run_fusion_tile``: the host tile that
   ``main_fusion`` runs per tile on one device (3D-only, or RGB+3D with
-  precomputed pixel matches): unpadded clouds, numpy bookkeeping between
-  the stages, the same ``c2f_*`` tables as the runner.
+  precomputed pixel matches or the image matcher over one or more image
+  pairs): unpadded clouds, numpy bookkeeping between the stages, the same
+  ``c2f_*`` tables as the runner.
 
 Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
 ``partition_type: superpoint``, ICP types other than point2point, bf16
-descriptors, the image matcher and the figure writers.
+descriptors, the learned image matchers and the figure writers.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ from fusion4landslide_tpu_torch.image.geometry import (
     project_points,
     rasterize_depth,
 )
+from fusion4landslide_tpu_torch.image.matching import match_epoch_images, matcher_options
 from fusion4landslide_tpu_torch.io.results import dvf_magnitudes, save_txt, visual_clamp_magnitude
 from fusion4landslide_tpu_torch.ops.gated_match import gated_feature_nn1
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
-from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
+from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1, nn1_xla_rounded
 from fusion4landslide_tpu_torch.ops.normals import pca_normals
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
@@ -332,9 +334,6 @@ def _check_ported(cfg, image_data) -> None:
         return
     if bool(cfg.get("save_img_matching_visualization", False)):
         raise _not_ported("save_img_matching_visualization (matching figures)", 14)
-    single_pair = len(image_data["src_extrinsics"]) == 1 and len(image_data["tgt_extrinsics"]) == 1
-    if image_data.get("corres_2d") is None or not single_pair:
-        raise _not_ported("the image matcher (no precomputed matches for the image pair)", 9)
     if not cfg.get("image_size") and image_data.get("src_image") is None:
         raise ValueError("image_size is not in the config and no source image was given")
 
@@ -356,20 +355,26 @@ def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
                     src_image: np.ndarray | None, tgt_image: np.ndarray | None,
                     intrinsic: np.ndarray, src_extrinsic: np.ndarray,
                     tgt_extrinsic: np.ndarray, *, corres_2d: np.ndarray | None = None,
+                    src_images: list | None = None, tgt_images: list | None = None,
                     src_extrinsics: list | None = None, tgt_extrinsics: list | None = None,
                     src_halo: np.ndarray | None = None, tgt_halo: np.ndarray | None = None,
                     tile_id=0, logger=None, device=None, timings: dict | None = None) -> dict:
     """One tile of the RGB+3D fusion method (use_2d_matches=True), host
     orchestrated: learned 3D matches fused with 3D matches chained from
-    the (M, 4) pixel matches ``corres_2d`` (the reference's
-    ``img_matching_result_dir``), at the coarse vote (base:3015-3070) and
-    the fine solve (base:3258-3296). Images are read only for their size,
-    when the config has no ``image_size``; the image matcher (no
-    ``corres_2d``, or several image pairs) is not ported yet."""
+    pixel matches, at the coarse vote (base:3015-3070) and the fine solve
+    (base:3258-3296). ``corres_2d`` injects precomputed (M, 4) matches of
+    the one image pair (the reference's ``img_matching_result_dir``);
+    otherwise the configured matcher (``img_matching_type``) runs on every
+    pair of ``src_images`` x ``tgt_images`` (default the one pair, with
+    ``src_extrinsics`` / ``tgt_extrinsics`` aligned, best camera first),
+    and the pairs' matches merge by fill-in (base:1697-1953). Without
+    ``image_size`` in the config it is the source image's size."""
     image_data = {
         "src_image": src_image,
         "intrinsic": np.asarray(intrinsic, np.float32),
         "corres_2d": corres_2d,
+        "src_images": src_images or [src_image],
+        "tgt_images": tgt_images or [tgt_image],
         "src_extrinsics": [np.asarray(e, np.float32)
                            for e in (src_extrinsics or [src_extrinsic])],
         "tgt_extrinsics": [np.asarray(e, np.float32)
@@ -443,7 +448,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     assign_type = str(cfg.get("assign_type", "assign_then_nn"))
     out_tgt2src = bool(cfg.get("output_tgt2src", False))
     dataset = cfg.get("dataset")
-    overflow = 0
+    overflow = {"sampler": 0, "grid_knn": 0}  # window overflow by kernel
 
     # 1. median resolution and voxel subsampling on the clouds' shared min
     # corner (base:1012-1030).
@@ -482,7 +487,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         feats = compute_feats()
     src_feat_d = on_dev(feats["src_feat"], torch.float32)
     tgt_feat_d = on_dev(feats["tgt_feat"], torch.float32)
-    overflow += sum(dips_overflow)
+    overflow["sampler"] += sum(dips_overflow)
     timer.mark("dips_features")
 
     # 3. Global 3D voxel matches: the banded magnitude-gated search by
@@ -525,41 +530,64 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
             mode = "nn_src_only"
         K = on_dev(image_data["intrinsic"])
         center32 = center.astype(np.float32)
-        sext, text = (on_dev(image_data[k][0]) for k in ("src_extrinsics", "tgt_extrinsics"))
-        uv_s, dep_s, pval_s = project_points(on_dev(src_vox + center32), sext, K, image_size,
-                                             v_flip=v_flip)
-        uv_t, dep_t, pval_t = project_points(on_dev(tgt_vox + center32), text, K, image_size,
-                                             v_flip=v_flip)
-        corres_2d = np.asarray(image_data["corres_2d"], np.float32).reshape(-1, 4)
+        # Each image's projection once, outside the cross-pair loop.
+        src_projs = [project_points(on_dev(src_vox + center32), on_dev(e), K, image_size,
+                                    v_flip=v_flip) for e in image_data["src_extrinsics"]]
+        tgt_projs = [project_points(on_dev(tgt_vox + center32), on_dev(e), K, image_size,
+                                    v_flip=v_flip) for e in image_data["tgt_extrinsics"]]
+        single_pair = len(image_data["src_images"]) == 1 and len(image_data["tgt_images"]) == 1
+        pair_channels, n_px_total = [], 0
+        for a, simg in enumerate(image_data["src_images"]):
+            for b, timg in enumerate(image_data["tgt_images"]):
+                (uv_s, dep_s, pval_s), (uv_t, dep_t, pval_t) = src_projs[a], tgt_projs[b]
+                if image_data["corres_2d"] is not None and single_pair:
+                    corres_2d = image_data["corres_2d"]
+                else:
+                    corres_2d = match_epoch_images(
+                        simg, timg, **matcher_options(cfg), logger=logger,
+                        weights=cfg.get("img_matcher_weights"), device=dev)
+                corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
+                n_px_total += len(corres_2d)
+                if not len(corres_2d):
+                    continue
+                c2 = on_dev(corres_2d)
+                sext, text = (on_dev(image_data[k][i]) for k, i in
+                              (("src_extrinsics", a), ("tgt_extrinsics", b)))
+                if lifting == "interpolation":
+                    dmap_s, _ = rasterize_depth(uv_s, dep_s, pval_s, image_size)
+                    dmap_t, _ = rasterize_depth(uv_t, dep_t, pval_t, image_size)
+                    p3d, ok3 = lift_matches_to_3d(c2, dmap_s, dmap_t, sext, text, K,
+                                                  image_size, v_flip=v_flip)
+                    c32 = on_dev(center32)
+                    ds2, i_s = nn1_xla_rounded(p3d[:, 0:3] - c32, src_vox_d)
+                    dt2, i_t = nn1_xla_rounded(p3d[:, 3:6] - c32, tgt_vox_d)
+                    thr3 = 2.0 * max(median_res, 1e-6)
+                    ok = (ok3.cpu().numpy() & (np.sqrt(ds2.cpu().numpy()) < thr3)
+                          & (np.sqrt(dt2.cpu().numpy()) < thr3))
+                    # Duplicate source voxels: the last match wins (numpy
+                    # fancy assignment, as in the JAX host path).
+                    t2d, v2d = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
+                    src_i = i_s.cpu().numpy()[ok]
+                    t2d[src_i] = i_t.cpu().numpy()[ok]
+                    v2d[src_i] = True
+                else:
+                    t2d, v2d = chain_2d_matches_to_3d(c2, uv_s, uv_t, pixel_thres,
+                                                      src_valid=pval_s, tgt_valid=pval_t,
+                                                      mode=mode)
+                    t2d, v2d = t2d.cpu().numpy().astype(np.int64), v2d.cpu().numpy()
+                # Per-pair max-magnitude gate (base:1640-1646).
+                mag2d = np.linalg.norm(tgt_vox[np.clip(t2d, 0, max(t_nv - 1, 0))] - src_vox,
+                                       axis=1)
+                pair_channels.append((t2d, v2d & (mag2d <= max_mag)))
+        # Fill-in merge over image pairs (base:1940-1953): the first pair
+        # is primary, later pairs fill unmatched voxels.
         c2d_idx, c2d_valid = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
-        if len(corres_2d):
-            c2 = on_dev(corres_2d)
-            if lifting == "interpolation":
-                dmap_s, _ = rasterize_depth(uv_s, dep_s, pval_s, image_size)
-                dmap_t, _ = rasterize_depth(uv_t, dep_t, pval_t, image_size)
-                p3d, ok3 = lift_matches_to_3d(c2, dmap_s, dmap_t, sext, text, K, image_size,
-                                              v_flip=v_flip)
-                c32 = on_dev(center32)
-                ds2, i_s = nn1(p3d[:, 0:3] - c32, src_vox_d)
-                dt2, i_t = nn1(p3d[:, 3:6] - c32, tgt_vox_d)
-                thr3 = 2.0 * max(median_res, 1e-6)
-                ok = (ok3.cpu().numpy() & (np.sqrt(ds2.cpu().numpy()) < thr3)
-                      & (np.sqrt(dt2.cpu().numpy()) < thr3))
-                # Duplicate source voxels: the last match wins (numpy
-                # fancy assignment, as in the JAX host path).
-                src_i = i_s.cpu().numpy()[ok]
-                c2d_idx[src_i] = i_t.cpu().numpy()[ok]
-                c2d_valid[src_i] = True
-            else:
-                t2d, v2d = chain_2d_matches_to_3d(c2, uv_s, uv_t, pixel_thres, src_valid=pval_s,
-                                                  tgt_valid=pval_t, mode=mode)
-                c2d_idx, c2d_valid = t2d.cpu().numpy().astype(np.int64), v2d.cpu().numpy()
-            # Max-magnitude gate (base:1640-1646).
-            mag2d = np.linalg.norm(tgt_vox[np.clip(c2d_idx, 0, max(t_nv - 1, 0))] - src_vox,
-                                   axis=1)
-            c2d_valid = c2d_valid & (mag2d <= max_mag)
-        log("tile %s: %d 2D pixel matches over 1 image pair(s) -> %d lifted 3D voxel matches",
-            tile_id, len(corres_2d), int(c2d_valid.sum()))
+        for t2d, v2d in pair_channels:
+            fill = ~c2d_valid & v2d
+            c2d_idx[fill] = t2d[fill]
+            c2d_valid |= fill
+        log("tile %s: %d 2D pixel matches over %d image pair(s) -> %d lifted 3D voxel matches",
+            tile_id, n_px_total, max(len(pair_channels), 1), int(c2d_valid.sum()))
         if c2d_valid.any():
             save_txt(osp.join(results_dir, "c2f_dvfms_from_global_2d_src2tgt_wo_pruning_"
                               f"visualize_tile_{tile_id}.txt"),
@@ -593,10 +621,9 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     graphs: dict = {}
 
     def segment(which, vox_d, svl_radius):
-        nonlocal overflow
         if which not in graphs:
             ni, nm, ov = supervoxel_graph(vox_d, svl_radius)
-            overflow += int(ov)
+            overflow["sampler"] += int(ov)
             graphs[which] = (ni, nm, pca_normals(vox_d, neigh_idx=ni, neigh_mask=nm))
         ni, nm, nrm = graphs[which]
         return supervoxel_segmentation(vox_d, svl_radius, neigh_idx=ni, neigh_mask=nm,
@@ -758,7 +785,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         r_nn = torch.tensor(radius_nn, dtype=torch.float32, device=dev)
         grid = build_hash_grid(t_d, r_nn)
         d2, nn_idx, ov = hash_grid_knn(on_dev(q), grid, r_nn, 1)
-        overflow += int(ov)
+        overflow["grid_knn"] += int(ov)
         d = np.sqrt(d2[:nq, 0].cpu().numpy())
         ok = np.isfinite(d) & (d < adaptive)
         nn_idx = nn_idx[:nq, 0].cpu().numpy()
@@ -794,7 +821,8 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         "n_2d_matches": int(c2d_valid.sum()) if c2d_valid is not None else 0,
         "median_res": median_res,
         "n_vox": (s_nv, t_nv),
-        "overflow": overflow,
+        "overflow": sum(overflow.values()),
+        "overflow_by_source": overflow,
     }
     if keep_interim:
         out["interim"] = {

@@ -255,6 +255,7 @@ class Fusion3DTileResult(NamedTuple):
     n_dropped: torch.Tensor  # () voxels lost to the static supervoxel caps
     overflow: int  # grid-window blocks truncated to the window, this step
     n_c2d: torch.Tensor  # () src voxels with a lifted 2D match (0 if no RGB)
+    overflow_by_source: dict | None = None  # overflow split: {"sampler", "grid_knn"}
 
 
 def _per_level_caps(cap, n_levels: int):
@@ -360,7 +361,7 @@ def fusion3d_tile_step(
     med_s, ov_s = median_nn_distance_traced(src, smask)
     med_t, ov_t = median_nn_distance_traced(tgt, tmask)
     median_res = torch.maximum(med_s, med_t)
-    overflow = ov_s + ov_t  # grid-window overflow, summed over the step
+    ov_grid = ov_s + ov_t  # window overflow by kernel, summed over the step
     # float32 throughout, as the JAX expression sqrt(3.0) * 10.0 * res.
     radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
     grid0 = torch.minimum(
@@ -379,7 +380,7 @@ def fusion3d_tile_step(
                                           query_count=s_nv, **feat_kw)
     tgt_feat, ov_t = dips_features_device(dips, t_cent, tgt, tmask, radius,
                                           query_count=t_nv, **feat_kw)
-    overflow = overflow + ov_s + ov_t
+    ov_sampler = ov_s + ov_t
     stages.mark("dips_features")
 
     # 3. Global 3D voxel matches: the banded magnitude-gated search, or
@@ -429,7 +430,7 @@ def fusion3d_tile_step(
             else:
                 t2d, v2d, ov = _chain_2d_device(uv_s, pv_s, uv_t, pv_t, pix, pmask,
                                                 pixel_thres, matches_2d_mode)
-            overflow = overflow + ov
+            ov_grid = ov_grid + ov
             mag2 = ((t_cent[t2d] - s_cent) ** 2).sum(dim=1)
             fill = ~c2d_ok & v2d & (mag2 <= mm2)
             c2d_idx = torch.where(fill, t2d, c2d_idx)
@@ -440,7 +441,7 @@ def fusion3d_tile_step(
     gi_s, gm_s, ov_s = supervoxel_graph(s_cent, base_svl, vvalid_s, k_neighbors=k_neighbors)
     nrm_s = pca_normals(s_cent, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s)
     gi_t, gm_t, ov_t = supervoxel_graph(t_cent, base_svl, vvalid_t, k_neighbors=k_neighbors)
-    overflow = overflow + ov_s + ov_t
+    ov_sampler = ov_sampler + ov_s + ov_t
     nrm_t = pca_normals(t_cent, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t)
     stages.mark("graph_normals")
 
@@ -475,7 +476,7 @@ def fusion3d_tile_step(
                                              n_s_prev, svl_radius, k_neighbors)
             raw_t, ov_t = _segment_centroids(t_cent, lab_t_prev, sv_caps_t[li - 1],
                                              n_t_prev, svl_radius, k_neighbors)
-            overflow = overflow + ov_s + ov_t
+            ov_sampler = ov_sampler + ov_s + ov_t
         lab_s, n_s = drop_small_and_compact(raw_s, vvalid_s, small_patch)
         lab_t, n_t = drop_small_and_compact(raw_t, vvalid_t, small_patch)
         lab_s_prev, n_s_prev, lab_t_prev, n_t_prev = lab_s, n_s, lab_t, n_t
@@ -605,7 +606,7 @@ def fusion3d_tile_step(
             moved, tgt, 1, r0=2.0 * median_res, ref_mask=tmask,
             query_mask=merged_valid, r_max=r_need * 1.001,
         )
-        overflow = overflow + ov
+        ov_grid = ov_grid + ov
         nn_d = torch.sqrt(nn_sq[:, 0])
         sparse_ok = merged_valid & torch.isfinite(nn_d) & (nn_d < adaptive)
         sparse_tgt = tgt[nn_i[:, 0].long()]
@@ -625,6 +626,7 @@ def fusion3d_tile_step(
         moved=moved, valid=merged_valid, rmse=merged_rmse, sparse_tgt=sparse_tgt,
         sparse_ok=sparse_ok, t2s_src_est=t2s_src_est, t2s_valid=t2s_valid,
         median_res=median_res, n_vox_src=s_nv, n_vox_tgt=t_nv,
-        n_dropped=n_dropped, overflow=int(overflow),
+        n_dropped=n_dropped, overflow=int(ov_sampler + ov_grid),
         n_c2d=(c2d_ok & vvalid_s).sum() if with_2d else torch.zeros((), dtype=torch.int64, device=dev),
+        overflow_by_source={"sampler": int(ov_sampler), "grid_knn": int(ov_grid)},
     )

@@ -1,8 +1,9 @@
 """What a driver run reports at its end: seconds per tile with the tile's
 stage times, seconds of tiling, weight loading and tile reading (the
-reader thread's time the loop waited for), peak device memory and the
+reader thread's time the loop waited for), peak device memory, the
 kernel launches of the run (``ops.cuda_build.LAUNCHES``, counted from the
-summary's creation)."""
+summary's creation) and the grid-window overflow summed over the run's
+tiles, by kernel (``sampler``: kernel 1, ``grid_knn``: kernel 2)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ class RunSummary:
         self.tile_seconds: dict[str, float] = {}
         self.stages: dict[str, dict] = {}
         self.launches0 = dict(LAUNCHES)
+        self.overflow = {"sampler": 0, "grid_knn": 0}
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
 
@@ -56,6 +58,12 @@ class RunSummary:
             self.tile_seconds[str(tile_id)] = time.perf_counter() - t0
             self.stages[str(tile_id)] = timings
 
+    def add_overflow(self, *tile_results: dict) -> None:
+        """Add the window overflow (``overflow_by_source``) of tile results."""
+        for res in tile_results:
+            for key, val in res["overflow_by_source"].items():
+                self.overflow[key] += int(val)
+
     def timed_reads(self, items):
         """Yield from ``items``, adding the time spent waiting for each to
         ``read_tiles_s``."""
@@ -79,6 +87,7 @@ class RunSummary:
             "tile_s": self.tile_seconds,
             "stages_s": self.stages,
             "launches": {k: v - self.launches0.get(k, 0) for k, v in LAUNCHES.items()},
+            "overflow": self.overflow,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(self.device) / 2**30
                              if self.device.type == "cuda" else None),
         }

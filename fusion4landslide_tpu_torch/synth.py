@@ -1,16 +1,21 @@
 """Synthetic production-shaped tiles (the port's copy of the generators in
 the repository's ``bench.py``): a terrain-like epoch pair whose half-plane
 ``x > full / 2`` moves by ``PLANTED_SHIFT`` and whose other half is static,
-and a nadir camera with dense pixel matches through it for the RGB
-channel (``synth_image_channel``, ``synth_rgb_tile``).
+a nadir camera with dense pixel matches through it for the RGB channel
+(``synth_image_channel``, ``synth_rgb_tile``), and a textured image pair
+that the camera takes of an epoch pair (``synth_textured_images``, the
+recipe of ``tests/test_rgb_guided.py``), written with the camera files in
+the drivers' data layout by ``write_camera_files``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from fusion4landslide_tpu_torch.image.geometry import project_points
+from fusion4landslide_tpu_torch.image.geometry import project_points, rasterize_depth
 
 __all__ = [
     "IMG_SIZE",
@@ -23,6 +28,8 @@ __all__ = [
     "synth_rgb_tile",
     "synth_small_rgb_tile",
     "synth_split_tile",
+    "synth_textured_images",
+    "write_camera_files",
 ]
 
 PLANTED_SHIFT = np.array([0.05, -0.02, 0.01], np.float32)
@@ -152,3 +159,81 @@ def synth_small_rgb_tile():
     (8.8 mm per pixel): the CPU tests' and the small-tile card checks'
     tile. Returns what ``synth_rgb_tile`` returns."""
     return synth_rgb_tile(600, 0.6, 1.0, halo=1.0, image_size=SMALL_IMG_SIZE, focal=500.0)
+
+
+#: Texture cells per image pixel side: the texture is smooth over a few
+#: pixels (bilinear between cell corners).
+TEXTURE_CELL_PX = 4.0
+
+
+def synth_textured_images(src: np.ndarray, tgt: np.ndarray, image_size: tuple[int, int], *,
+                          v_flip: bool = True, seed: int = 0, camera=None):
+    """An image pair of an epoch pair (``src[i]`` and ``tgt[i]`` the same
+    surface point in both epochs) taken by one nadir camera that sees the
+    whole source epoch at ``image_size`` = (height, width). Each point
+    carries the texture of its source ground position (x, y): seeded
+    uniform values on a grid of ``TEXTURE_CELL_PX`` pixels, bilinear in
+    between, so a moved point carries its texture along. Each epoch is
+    rasterised through ``project_points`` (v flipped as the dataset flips
+    it) and ``rasterize_depth``; pixels no point hits take the nearest
+    rendered pixel's value. ``camera`` = (K, E) renders through that
+    camera instead (the texture grid unchanged). Returns (src image, tgt
+    image) as (h, w) uint8, K (3, 3), E (4, 4) world->camera, metres per
+    pixel at the epoch's mean depth."""
+    from scipy.ndimage import distance_transform_edt
+
+    h, w = image_size
+    lo, hi = src.min(axis=0), src.max(axis=0)
+    mid = (lo + hi) / 2
+    span = float(max(hi[0] - lo[0], hi[1] - lo[1], 1.0))
+    depth = 1.2 * span
+    focal = 1.1 * min(h, w)  # the epoch spans ~92% of the shorter side
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]], np.float32)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, 3] = [-mid[0], -mid[1], depth - mid[2]]
+    m_per_px = depth / focal
+    cell = TEXTURE_CELL_PX * m_per_px
+    if camera is not None:
+        K, E = (np.asarray(c, np.float32) for c in camera)
+    rng = np.random.default_rng(seed)
+    gxy = (src[:, :2] - lo[:2]) / cell
+    grid = rng.uniform(0.0, 255.0, size=(int(gxy[:, 0].max()) + 2, int(gxy[:, 1].max()) + 2))
+    i0 = np.floor(gxy).astype(np.int64)
+    f = gxy - i0
+    tex = ((1 - f[:, 0]) * (1 - f[:, 1]) * grid[i0[:, 0], i0[:, 1]]
+           + f[:, 0] * (1 - f[:, 1]) * grid[i0[:, 0] + 1, i0[:, 1]]
+           + (1 - f[:, 0]) * f[:, 1] * grid[i0[:, 0], i0[:, 1] + 1]
+           + f[:, 0] * f[:, 1] * grid[i0[:, 0] + 1, i0[:, 1] + 1])
+    Et, Kt = torch.from_numpy(E), torch.from_numpy(K)
+
+    def render(pts: np.ndarray) -> np.ndarray:
+        uv, z, ok = project_points(torch.from_numpy(pts.astype(np.float32)), Et, Kt, image_size,
+                                   v_flip=v_flip)
+        _, imap = rasterize_depth(uv, z, ok, image_size)
+        imap = imap.numpy()
+        near = distance_transform_edt(imap < 0, return_distances=False, return_indices=True)
+        filled = imap[near[0], near[1]]
+        return np.clip(np.rint(tex[filled]), 0, 255).astype(np.uint8)
+
+    return render(src), render(tgt), K, E, m_per_px
+
+
+def write_camera_files(root: str, K: np.ndarray, E: np.ndarray,
+                       images: tuple[np.ndarray, np.ndarray] | None = None,
+                       names: tuple[str, str] = ("epoch1.png", "epoch2.png")) -> None:
+    """The drivers' camera layout under ``root``: ``image/camera_intrinsic.txt``,
+    one camera pose (the inverse of the world->camera ``E``) per epoch in
+    ``image/transformations/pose_epoch{1,2}.txt`` (the ``brienz_tls``
+    reader), and with ``images`` the two images as
+    ``image/raw_images/<names>``."""
+    os.makedirs(os.path.join(root, "image", "transformations"), exist_ok=True)
+    np.savetxt(os.path.join(root, "image", "camera_intrinsic.txt"), K, delimiter=" ")
+    for epoch in (1, 2):
+        np.savetxt(os.path.join(root, "image", "transformations", f"pose_epoch{epoch}.txt"),
+                   np.linalg.inv(E.astype(np.float64)), delimiter=" ")
+    if images is not None:
+        from PIL import Image
+
+        os.makedirs(os.path.join(root, "image", "raw_images"), exist_ok=True)
+        for img, name in zip(images, names):
+            Image.fromarray(img).save(os.path.join(root, "image", "raw_images", name))

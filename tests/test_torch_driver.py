@@ -437,16 +437,26 @@ def test_use_mesh_true_takes_the_runner(tmp_path, seeded_weights, monkeypatch, m
 
 
 def test_camera_selection_reaches_the_matcher_and_raises(tmp_path, seeded_weights):
-    """``Images_used.txt``: the RGB driver selects each tile's cameras,
-    then raises at the image matcher, which is not ported yet."""
+    """``Images_used.txt``: the RGB driver selects each tile's cameras and
+    reads their images, then raises at the learned image matcher
+    (``fusion_brienz.yaml``'s ``eloftr``, whose weights the repository
+    ships), which is not ported yet."""
+    from PIL import Image
+
     from fusion4landslide_tpu_torch import main_fusion
 
     cfg = write_run(tmp_path, "fusion_brienz.yaml", "port", seeded_weights, **SMALL)
     image = tmp_path / "data" / "image"
     (image / "transformations").mkdir(parents=True)
     np.savetxt(image / "camera_intrinsic.txt", np.diag([1000.0, 1000.0, 1.0]), delimiter=" ")
+    names = ("epoch1.ply_a.jpg", "epoch1.ply_b.jpg", "epoch2.ply_a.jpg")
     with open(image / "transformations" / "Images_used.txt", "w") as f:
-        for i, name in enumerate(("epoch1.ply_a.jpg", "epoch1.ply_b.jpg", "epoch2.ply_a.jpg")):
+        for i, name in enumerate(names):
             f.write(f"{name}\n0 0 {50 + i}\n1 0 0\n0 1 0\n0 0 1\n")
+    for name in names:
+        side = "src" if name.startswith("epoch1") else "tgt"
+        (image / "raw_images" / f"{side}_images").mkdir(parents=True, exist_ok=True)
+        Image.fromarray(np.zeros((64, 64), np.uint8)).save(
+            image / "raw_images" / f"{side}_images" / name)
     with pytest.raises(NotImplementedError, match="item 9"):
         main_fusion.main(["--config", cfg, "--device", "cpu"])

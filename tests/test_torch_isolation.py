@@ -1,4 +1,6 @@
-"""The port and ``chip_smoke.py`` import neither JAX nor the JAX package."""
+"""The port and ``chip_smoke.py`` import neither JAX nor the JAX package:
+every module of the port (the drivers ``main_fusion``, ``main_f2s3``,
+``main_rgb_guided`` and ``main_piecewise_icp`` among them)."""
 
 import subprocess
 import sys
@@ -16,7 +18,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.images",
              "tiling.bsp", "pipelines.driver", "pipelines.run_summary", "image.cameras",
-             "ops.merge", "utils.logging"):
+             "ops.merge", "utils.logging", "main_rgb_guided", "main_piecewise_icp",
+             "image.matching", "ops.clustering", "pipelines.rgb_guided",
+             "pipelines.rgb_guided_device", "pipelines.piecewise_icp"):
     assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)
