@@ -85,12 +85,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    image pair rendered at ``rgb_guided_brienz.yaml``'s 1920 x 2560 from
    ``RGB_EPOCH``, card vs the port's CPU path (kept-set overlap, flow
    gap, seconds per crop pair);
+   Then the learned matchers on the same crop pair: (f) E-LoFTR with
+   ``weights/eloftr_tiny.npz``, card vs CPU path (kept cells, |duv|),
+   seconds per crop pair by stage and peak memory; (g) E-LoFTR at the
+   upstream width with seeded weights (seconds and peak memory at the
+   shipped crop, card vs CPU on a 256 x 320 crop); (i) RoMa with
+   ``weights/roma_tiny.npz`` (the self-check's consistent fraction, card
+   vs CPU, the ZNCC fallback, and the sampled matches with the card's
+   draws fed to the CPU path);
 14.-15. (c), (d) ``main_rgb_guided`` (``rgb_guided_brienz.yaml`` with
    paths, file names and ``img_matching_type: zncc`` changed) on that
    epoch and image pair, with ``use_mesh: auto`` (the host tile: kernels
    1 and 2 launched) and ``true`` (the runner: kernel 1 launched); the
    four tables, stage times, peak memory, and recovery of the planted
-   shift between the floors ``RECOVERY_RGB_GUIDED``;
+   shift between the floors ``RECOVERY_RGB_GUIDED``; then (h) the same
+   host-tile run with only paths and file names changed, so with the
+   shipped ``eloftr`` matcher (``RECOVERY_RGB_GUIDED_ELOFTR``; kernels 1
+   and 2 launched), with its match count;
 16. (e) ``main_piecewise_icp`` (``piecewise_icp_brienz.yaml``, paths and
    names changed) on the two tiles of phase 9, ``use_mesh: auto`` and
    ``true``: no kernel launched, the tables, the stable and unstable
@@ -1027,6 +1038,17 @@ RGB_GUIDED_IMAGE = (1920, 2560)
 #: the static and coverage floors are regression alarms above the sound
 #: readings.
 RECOVERY_RGB_GUIDED = {"core_assigned": 0.9, "moving_vec_err_m": 8e-3, "static_vec_err_m": 5e-3}
+#: Recovery floors of the same driver run with the shipped matcher
+#: (``img_matching_type: eloftr``, ``weights/eloftr_tiny.npz``; phase (h)).
+#: On an H100 80GB HBM3 (700 W) the sound host tile writes 99.86% of the
+#: core, at 9.66 mm on the moving half and 7.83 mm on the static half (ZNCC:
+#: 0.78 / 0.83 mm); with the source image as the target image
+#: (``eloftr_broken_run``) the moving half reads 26.1 mm, the static half
+#: 7.79 mm, 99.99% written. Only the moving half's floor separates the two;
+#: the static and coverage floors are regression alarms above the sound
+#: readings.
+RECOVERY_RGB_GUIDED_ELOFTR = {"core_assigned": 0.9, "moving_vec_err_m": 16e-3,
+                              "static_vec_err_m": 12e-3}
 
 
 def write_rgb_guided_epoch(root: str, broken: bool = False):
@@ -1080,6 +1102,225 @@ def zncc_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
     return res
 
 
+#: The learned matchers' checkpoints in the repository (what
+#: ``img_matching_type: eloftr`` / ``roma`` resolve to).
+ELOFTR_WEIGHTS = os.path.join("weights", "eloftr_tiny.npz")
+ROMA_WEIGHTS = os.path.join("weights", "roma_tiny.npz")
+#: rgb_guided_brienz.yaml's crop.
+CROP = (960, 1280)
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def eloftr_dense(model, c0: np.ndarray, c1: np.ndarray):
+    """E-LoFTR's dense outputs on one crop pair: ((S, 4) [u0 v0 u1 v1] per
+    coarse cell of img0, (S,) ok) as numpy."""
+    from fusion4landslide_tpu_torch.image.eloftr import eloftr_core, eloftr_prepare
+
+    out = eloftr_core(model, *eloftr_prepare(c0, c1, next(model.parameters()).device))
+    return torch.stack(out[:4], dim=1).cpu().numpy(), out[5].cpu().numpy()
+
+
+def eloftr_compare(g_model, c_model, c0: np.ndarray, c1: np.ndarray) -> dict:
+    """Card vs CPU path on one crop pair: kept-set sizes and overlap (cells
+    kept by both over the larger set; 1 when both are empty), |duv| (the
+    largest of the four coordinate gaps) on the common cells (median, max,
+    rows over 0.05 px and 1 px), and the same over every coarse cell."""
+    ug, okg = eloftr_dense(g_model, c0, c1)
+    uc, okc = eloftr_dense(c_model, c0, c1)
+    gap = np.abs(ug - uc).max(axis=1)
+    both = okg & okc
+    big = max(int(okg.sum()), int(okc.sum()))
+    g = gap[both]
+    return {"cells": len(gap), "kept_card": int(okg.sum()), "kept_cpu": int(okc.sum()),
+            "keep_overlap_frac": float(both.sum()) / big if big else 1.0,
+            "median_duv_px": float(np.median(g)) if g.size else None,
+            "max_duv_px": float(g.max()) if g.size else None,
+            "rows_duv_over_0.05px": int((g > 0.05).sum()),
+            "rows_duv_over_1px": int((g > 1.0).sum()),
+            "all_cells_median_duv_px": float(np.median(gap)),
+            "all_cells_over_1px": int((gap > 1.0).sum())}
+
+
+def eloftr_timing(model, c0: np.ndarray, c1: np.ndarray, reps: int = 3) -> dict:
+    """Seconds per crop pair on the card (warm, synchronised, the crop's
+    upload included; the first call apart), one synchronised run split by
+    stage, and the peak
+    device memory of a call (absolute, and above what was allocated
+    before it)."""
+    from fusion4landslide_tpu_torch.image.eloftr import eloftr_core, eloftr_prepare
+
+    dev = next(model.parameters()).device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eloftr_core(model, *eloftr_prepare(c0, c1, dev))  # warm-up
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eloftr_core(model, *eloftr_prepare(c0, c1, dev))
+    torch.cuda.synchronize()
+    per_pair = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    stages: dict = {}
+    inputs = eloftr_prepare(c0, c1, dev)
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - last[0]
+        last[0] = now
+
+    eloftr_core(model, *inputs, mark)
+    return {"s_per_crop_pair": per_pair, "first_call_s": first, "stages_s": stages,
+            "peak_gib": peak / 2**30,
+            "peak_above_base_gib": (peak - base) / 2**30}
+
+
+def eloftr_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """(f) E-LoFTR with the shipped weights on the first crop pair of the
+    rendered images, card vs the port's CPU path. cuBLAS and the CPU sum in
+    other orders, so near-tie cells of the exact mutual-max test and of the
+    fine argmaxes may differ: counted, with the overlap held to >= 99% and
+    the median |duv| to <= 1e-3 px."""
+    from fusion4landslide_tpu_torch.image.eloftr import load_eloftr_weights
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c0, c1 = img0[:CROP[0], :CROP[1]], img1[:CROP[0], :CROP[1]]
+    g_model = load_eloftr_weights(os.path.join(here, ELOFTR_WEIGHTS), dev)
+    c_model = load_eloftr_weights(os.path.join(here, ELOFTR_WEIGHTS), "cpu")
+    timing = eloftr_timing(g_model, c0, c1)
+    t0 = time.perf_counter()
+    res = eloftr_compare(g_model, c_model, c0, c1)
+    res.update(timing, compare_s=time.perf_counter() - t0)
+    res["known_shifts"] = eloftr_known_shifts(g_model, c0)
+    log(f"# phase (f) E-LoFTR ({ELOFTR_WEIGHTS}), first {CROP[0]}x{CROP[1]} crop pair, card vs CPU "
+        f"path ({card()}): {json.dumps(res)}")
+    check(res["kept_card"] > 0 and res["keep_overlap_frac"] >= 0.99, res)
+    check(res["median_duv_px"] is not None and res["median_duv_px"] <= 1e-3, res)
+    return res
+
+
+#: Shifts (dy, dx) in pixels of ``eloftr_known_shifts``: none, one coarse
+#: cell, and a few pixels off the cell grid.
+KNOWN_SHIFTS = ((0, 0), (0, 8), (3, -5))
+
+
+def eloftr_known_shifts(model, c0: np.ndarray) -> dict:
+    """E-LoFTR's flow error on the card where the true flow is known: the
+    crop against itself rolled by each of ``KNOWN_SHIFTS``; per shift the
+    kept matches at least 16 px inside the crop, their median end-point
+    error and median flow error per axis (px)."""
+    from fusion4landslide_tpu_torch.image.eloftr import eloftr_match
+
+    out = {}
+    for dy, dx in KNOWN_SHIFTS:
+        uv, _ = eloftr_match(model, c0, np.roll(c0, (dy, dx), axis=(0, 1)))
+        h, w = c0.shape[:2]
+        inner = ((uv[:, 0] > 16) & (uv[:, 0] < w - 16) & (uv[:, 1] > 16) & (uv[:, 1] < h - 16))
+        err = uv[inner, 2:] - uv[inner, :2] - np.array([dx, dy], np.float32)
+        out[f"{dy},{dx}"] = {
+            "kept": int(inner.sum()),
+            "median_epe_px": float(np.median(np.linalg.norm(err, axis=1))) if len(err) else None,
+            "median_err_xy_px": np.median(err, axis=0).tolist() if len(err) else None}
+    return out
+
+
+#: (g)'s card-vs-CPU crop (the top-left corner of the rendered images).
+UPSTREAM_CHECK_CROP = (256, 320)
+
+
+def eloftr_upstream_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """(g) E-LoFTR at the upstream width (``ELoFTRConfig()``: blocks
+    (1, 2, 4, 14), channels (64, 64, 128, 256), hidden 256, 4 layers, 8
+    heads) with ``seeded_eloftr(cfg, 0)``: seconds per crop pair and peak
+    memory at the shipped crop on the card; card vs CPU on a smaller crop,
+    over the kept cells (random weights may keep none) and every coarse
+    cell."""
+    from fusion4landslide_tpu_torch.image.eloftr import ELoFTRConfig, seeded_eloftr
+
+    cfg = ELoFTRConfig()
+    g_model = seeded_eloftr(cfg, 0, dev)
+    res = eloftr_timing(g_model, img0[:CROP[0], :CROP[1]], img1[:CROP[0], :CROP[1]])
+    h, w = UPSTREAM_CHECK_CROP
+    t0 = time.perf_counter()
+    res["check"] = eloftr_compare(g_model, seeded_eloftr(cfg, 0, "cpu"), img0[:h, :w], img1[:h, :w])
+    res["compare_s"] = time.perf_counter() - t0
+    log(f"# phase (g) E-LoFTR upstream width, seeded weights ({card()}): {CROP[0]}x{CROP[1]} "
+        f"on the card, {h}x{w} card vs CPU path: {json.dumps(res)}")
+    chk = res["check"]
+    check(chk["keep_overlap_frac"] >= 0.99 and chk["all_cells_median_duv_px"] <= 1e-3, chk)
+    check(chk["median_duv_px"] is None or chk["median_duv_px"] <= 1e-3, chk)
+    return res
+
+
+def roma_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
+    """(i) RoMa with the shipped weights on the first crop pair, card vs
+    the port's CPU path: the certainty-weighted forward-backward consistent
+    fraction and the self-check at the shipped settings (the JAX package
+    expects it to fail at production crops), seconds per crop pair, and
+    whether ``match_epoch_images`` fell back to ZNCC; then the sampling
+    path with the self-check off (``fb_min_frac=0``), the card's draws fed
+    to the CPU path, the matches compared row by row. At ``work_size`` 224
+    the GP's Gram matrix is ill-conditioned (condition ~8e5), so float32
+    solves on the card and on the CPU differ and the warps move by about a
+    crop pixel: the median row is held within one work-resolution pixel."""
+    import logging
+
+    from fusion4landslide_tpu_torch.image.matching import match_epoch_images, roma_crop_match
+    from fusion4landslide_tpu_torch.image.roma import load_roma_weights
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c0, c1 = img0[:CROP[0], :CROP[1]], img1[:CROP[0], :CROP[1]]
+    g_model = load_roma_weights(os.path.join(here, ROMA_WEIGHTS), dev)
+    c_model = load_roma_weights(os.path.join(here, ROMA_WEIGHTS), "cpu")
+    roma_crop_match(g_model, c0, c1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = roma_crop_match(g_model, c0, c1)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    c = roma_crop_match(c_model, c0, c1)
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("chip_smoke.roma")
+    logger.addHandler(handler)
+    try:
+        m = match_epoch_images(c0, c1, matcher="roma", weights=os.path.join(here, ROMA_WEIGHTS),
+                               logger=logger, device=dev)
+    finally:
+        logger.removeHandler(handler)
+    fell_back = any("falling back to the ZNCC matcher" in r.getMessage() for r in records)
+    gs = roma_crop_match(g_model, c0, c1, fb_min_frac=0.0, min_certainty=0.0)
+    cs = roma_crop_match(c_model, c0, c1, fb_min_frac=0.0, min_certainty=0.0,
+                         sample_idx=gs.sample_idx.cpu())
+    gap = np.abs(gs.matches - cs.matches).max(axis=1)
+    res = {"fb_frac_card": g.fb_frac, "fb_frac_cpu": c.fb_frac, "self_check_card": g.passed,
+           "self_check_cpu": c.passed, "card_s_per_crop_pair": g_s,
+           "match_epoch_images_rows": len(m), "zncc_fallback_ran": fell_back,
+           "sampled": len(gs.matches),
+           "sampled_median_gap_px": float(np.median(gap)),
+           "sampled_max_gap_px": float(gap.max()),
+           "sampled_rows_gap_over_1px": int((gap > 1.0).sum())}
+    log(f"# phase (i) RoMa ({ROMA_WEIGHTS}), first {CROP[0]}x{CROP[1]} crop pair, card vs CPU path "
+        f"({card()}): {json.dumps(res)}")
+    check(g.passed == c.passed and abs(g.fb_frac - c.fb_frac) <= 0.01, res)
+    check(fell_back == (not g.passed) and len(m) > 0, res)
+    check(res["sampled_median_gap_px"] <= CROP[1] / 224, res)
+    return res
+
+
 def rgb_guided_recovery(out_root: str, moving_y: float) -> dict:
     """Recovery readings of the rgb_guided driver's one tile."""
     return driver_recovery(out_root, "0", "rgb_guided_w_refinement_dvfs_src2tgt_tile_0.txt",
@@ -1087,33 +1328,47 @@ def rgb_guided_recovery(out_root: str, moving_y: float) -> dict:
 
 
 def rgb_guided_phases(tmp: str) -> dict:
-    """(b)-(d): the rendered image pair's ZNCC check, then
-    ``main_rgb_guided`` on ``RGB_EPOCH`` with ``use_mesh: auto`` (host
-    tile) and ``true`` (runner; the tiles copied from the first run).
-    Returns the launches by path."""
+    """(b)-(d) and (f)-(i): the rendered image pair's matcher checks (ZNCC,
+    E-LoFTR shipped and at the upstream width, RoMa), then
+    ``main_rgb_guided`` on ``RGB_EPOCH`` with ZNCC and ``use_mesh: auto``
+    (host tile) and ``true`` (runner; the tiles copied from the first run),
+    and with the shipped ``eloftr`` matcher and ``use_mesh: auto``. Returns
+    the launches by path."""
+    import re
     import shutil
 
+    dev = torch.device("cuda")
     data = os.path.join(tmp, "rgb_guided_epoch")
     moving_y, img0, img1, m_per_px, render_s = write_rgb_guided_epoch(data)
     log(f"# rgb_guided epoch: {RGB_EPOCH[0]:g} x {RGB_EPOCH[1]:g} m, images "
         f"{RGB_GUIDED_IMAGE[0]}x{RGB_GUIDED_IMAGE[1]} at {m_per_px:.5f} m per pixel, rendered in "
         f"{render_s:.2f} s")
-    zncc_phase(torch.device("cuda"), img0, img1)
+    zncc_phase(dev, img0, img1)
+    t_new = time.perf_counter()
+    eloftr_phase(dev, img0, img1)
+    eloftr_upstream_phase(dev, img0, img1)
+    roma_phase(dev, img0, img1)
+    new_s = time.perf_counter() - t_new
+    torch.cuda.empty_cache()
     by_path = {}
-    for use_mesh, path in (("auto", "cli_rgb_guided"), (True, "cli_rgb_guided_mesh")):
+    runs = (("c", "auto", "cli_rgb_guided", RECOVERY_RGB_GUIDED, {"img_matching_type": "zncc"}),
+            ("d", True, "cli_rgb_guided_mesh", RECOVERY_RGB_GUIDED, {"img_matching_type": "zncc"}),
+            ("h", "auto", "cli_rgb_guided_eloftr", RECOVERY_RGB_GUIDED_ELOFTR, {}))
+    for phase, use_mesh, path, floors, matcher in runs:
+        t0 = time.perf_counter()
         out = os.path.join(tmp, path)
         if use_mesh is True:
             shutil.copytree(os.path.join(tmp, "cli_rgb_guided", "demo_run", "tiled_data"),
                             os.path.join(out, "demo_run", "tiled_data"))
         changes = {"input_root": data, "output_dir": out, "src_pcd": "epoch1.ply",
                    "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
-                   "img_matching_type": "zncc", "use_mesh": use_mesh}
+                   **matcher, "use_mesh": use_mesh}
         cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, f"{path}.yaml"),
                             changes)
-        log(f"# phase ({'c' if use_mesh == 'auto' else 'd'}) main_rgb_guided, use_mesh "
-            f"{use_mesh}: {DRIVER_CONFIGS['cli_rgb_guided']} with {sorted(changes)} changed")
-        summary, _ = run_driver("main_rgb_guided", cfg)
-        log_driver(f"main_rgb_guided use_mesh {use_mesh}", summary)
+        log(f"# phase ({phase}) main_rgb_guided, use_mesh {use_mesh}: "
+            f"{DRIVER_CONFIGS['cli_rgb_guided']} with {sorted(changes)} changed")
+        summary, stdout = run_driver("main_rgb_guided", cfg)
+        log_driver(f"main_rgb_guided use_mesh {use_mesh}{'' if matcher else ' eloftr'}", summary)
         by_path[path] = summary["launches"]
         check(summary["launches"]["radius_sample"] > 0, summary["launches"])
         if use_mesh == "auto":
@@ -1129,34 +1384,51 @@ def rgb_guided_phases(tmp: str) -> dict:
                      "rgb_guided_w_refinement_dvfms_src2tgt_visualize_tile_0.txt"):
             check(name in tables, (name, tables))
         rec = rgb_guided_recovery(out_root, moving_y)
-        log(f"# main_rgb_guided use_mesh {use_mesh} tables {tables}; recovery {json.dumps(rec)} "
-            f"(floors {json.dumps(RECOVERY_RGB_GUIDED)})")
-        check(rec["core_assigned"] > RECOVERY_RGB_GUIDED["core_assigned"], rec)
+        n_matches = [int(x) for x in re.findall(r"tile \S+: (\d+) 2D matches", stdout)]
+        log(f"# main_rgb_guided use_mesh {use_mesh} tables {tables}; {n_matches} 2D matches; "
+            f"recovery {json.dumps(rec)} (floors {json.dumps(floors)})")
+        check(rec["core_assigned"] > floors["core_assigned"], rec)
         check(rec["moving_vec_err_m"] is not None
-              and rec["moving_vec_err_m"] < RECOVERY_RGB_GUIDED["moving_vec_err_m"], rec)
+              and rec["moving_vec_err_m"] < floors["moving_vec_err_m"], rec)
         check(rec["static_vec_err_m"] is not None
-              and rec["static_vec_err_m"] < RECOVERY_RGB_GUIDED["static_vec_err_m"], rec)
+              and rec["static_vec_err_m"] < floors["static_vec_err_m"], rec)
+        if phase == "h":
+            check(n_matches and n_matches[0] > 0, n_matches)
+            new_s += time.perf_counter() - t0
+    log(f"# phases (f)-(i): {new_s:.1f} s ({card()})")
     return by_path
 
 
-def rgb_guided_broken_run() -> dict:
-    """The broken run that ``RECOVERY_RGB_GUIDED`` is placed against:
-    ``main_rgb_guided`` (host tile) on ``RGB_EPOCH`` with the source image
-    written as the target image, so every flow is zero. Run it on a card
-    as ``python3 -c "import chip_smoke; chip_smoke.rgb_guided_broken_run()"``."""
+def rgb_guided_broken_run(matcher: str = "zncc") -> dict:
+    """The broken run that ``RECOVERY_RGB_GUIDED`` (``matcher`` ``zncc``)
+    or ``RECOVERY_RGB_GUIDED_ELOFTR`` (``eloftr``, the shipped setting) is
+    placed against: ``main_rgb_guided`` (host tile) on ``RGB_EPOCH`` with
+    the source image written as the target image, so every flow is zero.
+    Run it on a card as ``python3 -c "import chip_smoke;
+    chip_smoke.rgb_guided_broken_run()"``."""
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
         data = os.path.join(tmp, "rgb_guided_epoch")
         moving_y = write_rgb_guided_epoch(data, broken=True)[0]
-        cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, "broken.yaml"), {
-            "input_root": data, "output_dir": os.path.join(tmp, "broken"), "src_pcd": "epoch1.ply",
-            "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
-            "img_matching_type": "zncc"})
+        changes = {"input_root": data, "output_dir": os.path.join(tmp, "broken"),
+                   "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png",
+                   "tgt_image": "epoch2.png"}
+        if matcher != "eloftr":
+            changes["img_matching_type"] = matcher
+        cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, "broken.yaml"),
+                            changes)
         summary, _ = run_driver("main_rgb_guided", cfg)
         rec = rgb_guided_recovery(os.path.join(tmp, "broken", "demo_run"), moving_y)
-    log(f"# main_rgb_guided broken run (target image = source image): tile "
+    log(f"# main_rgb_guided broken run ({matcher}, target image = source image): tile "
         f"{summary['tile_s']}, recovery {json.dumps(rec)}")
     return rec
+
+
+def eloftr_broken_run() -> dict:
+    """``rgb_guided_broken_run`` with the shipped ``eloftr`` matcher: the
+    reading ``RECOVERY_RGB_GUIDED_ELOFTR`` is placed against. Run it on a
+    card as ``python3 -c "import chip_smoke; chip_smoke.eloftr_broken_run()"``."""
+    return rgb_guided_broken_run("eloftr")
 
 
 def piecewise_phases(tmp: str, data: str, moving_y: float, tiles_dir: str) -> dict:
@@ -1231,11 +1503,7 @@ def main() -> int:
     from fusion4landslide_tpu_torch.synth import IMG_SIZE, PLANTED_SHIFT, synth_rgb_tile, synth_split_tile
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    log(f"# card: {smi}")
+    log(f"# card: {card()}")
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 

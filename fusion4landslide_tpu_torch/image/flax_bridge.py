@@ -1,0 +1,112 @@
+"""Parameters of the learned image matchers: the JAX package's Flax trees
+and its flat ``.npz`` checkpoints (``weights/eloftr_tiny.npz``,
+``weights/roma_tiny.npz``) read into torch modules without flax, and
+written back in the same format.
+
+A checkpoint holds one array per Flax leaf under its ``/``-joined path
+(``params/backbone/stage0_block0/conv/kernel``) and the architecture as
+the ``repr`` of the config's ``dataclasses.asdict`` under ``__cfg__``. The
+port's modules carry the Flax module names, so a leaf's torch key is its
+path joined by ``.``: conv kernels go from HWIO to OIHW, dense kernels
+from (in, out) to ``Linear``'s (out, in), norm ``scale`` becomes
+``weight``.
+
+``norm_stats`` computes Flax's normalisation statistics (fast variance
+E[x^2] - E[x]^2, clipped at 0) and applies them as Flax does.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+__all__ = [
+    "flat_from_tree",
+    "flax_norm",
+    "read_flat_npz",
+    "state_dict_from_flat",
+    "flat_from_module",
+    "write_flat_npz",
+]
+
+
+def flat_from_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """``{'a/b/leaf': array}`` of a nested Flax tree (or a flat dict,
+    returned with numpy leaves)."""
+    out: dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            out.update(flat_from_tree(val, path))
+        else:
+            out[path] = np.asarray(val, np.float32)
+    return out
+
+
+def state_dict_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Torch state dict of a flat Flax tree (a leading ``params/`` level is
+    dropped)."""
+    sd = {}
+    for path, val in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        name = parts[-1]
+        arr = torch.from_numpy(np.array(val, dtype=np.float32))
+        if name == "kernel":
+            name = "weight"
+            arr = arr.permute(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif name == "scale":
+            name = "weight"
+        sd[".".join(parts[:-1] + [name])] = arr.contiguous()
+    return sd
+
+
+def flat_from_module(module: torch.nn.Module, is_norm) -> dict[str, np.ndarray]:
+    """The flat Flax tree (``params/...`` paths) of a port module;
+    ``is_norm(torch key)`` names the norm weights that Flax calls
+    ``scale``."""
+    flat = {}
+    for key, val in module.state_dict().items():
+        arr = val.detach().cpu().numpy().astype(np.float32)
+        parts = key.split(".")
+        name = parts[-1]
+        if name == "weight" and is_norm(key):
+            name = "scale"
+        elif name == "weight":
+            name = "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        flat["/".join(["params"] + parts[:-1] + [name])] = np.ascontiguousarray(arr)
+    return flat
+
+
+def read_flat_npz(path: str, tuple_keys) -> tuple[dict[str, np.ndarray], dict]:
+    """(flat leaves, config keyword arguments) of a checkpoint; the config
+    literal is parsed with ``ast.literal_eval``, and ``tuple_keys`` become
+    tuples."""
+    data = np.load(path, allow_pickle=False)
+    cfg = ast.literal_eval(bytes(data["__cfg__"]).decode())
+    for key in tuple_keys:
+        cfg[key] = tuple(cfg[key])
+    return {k: np.asarray(v) for k, v in data.items() if k != "__cfg__"}, cfg
+
+
+def write_flat_npz(path: str, flat: Mapping[str, np.ndarray], cfg) -> None:
+    """Write a checkpoint in the JAX package's format."""
+    arrays = dict(flat)
+    arrays["__cfg__"] = np.frombuffer(repr(dataclasses.asdict(cfg)).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+
+
+def flax_norm(x: torch.Tensor, dims, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Normalise ``x`` over ``dims`` as Flax's LayerNorm / GroupNorm do:
+    var = max(E[x^2] - E[x]^2, 0), y = (x - mean) * (rsqrt(var + eps) *
+    weight) + bias; ``weight`` and ``bias`` broadcast against ``x``."""
+    mean = x.mean(dim=dims, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=dims, keepdim=True) - mean * mean, min=0.0)
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias

@@ -9,22 +9,28 @@
   sums with a shared ones kernel; the candidate norm is
   ``sqrt(sum c^2 - (sum c)^2 / p^2)`` in float32, as in the JAX package.
   Sub-pixel refinement by a parabola fit on the correlation surface.
+- the learned matchers E-LoFTR (``image.eloftr``; the shipped configs'
+  ``img_matching_type: eloftr``, ``weights/eloftr_tiny.npz``) and RoMa
+  (``image.roma``; ``weights/roma_tiny.npz``, with its forward-backward
+  self-check and certainty-weighted sample). Where their weights do not
+  resolve, both fall back to ZNCC with a warning, as in the JAX package;
+  classic LoFTR is not ported yet and raises ``NotImplementedError``
+  (ROADMAP.md queue 1 item 9) where the JAX package would run it.
 - ``match_epoch_images``: the sliding-window crop loop (step = crop -
   overlap), optional 8-neighbour cross pairing, ``max_flow_px`` widening,
-  dedup by the (u0, v0) pixel cell and the near-bound warning.
-- ``get_matcher`` / ``MATCHERS`` and ``resolve_learned_weights``. The
-  learned matchers (E-LoFTR, LoFTR, RoMa) are not ported yet: where the
-  JAX package would run one (its weights resolve), the port raises
-  ``NotImplementedError``; where they do not resolve, both fall back to
-  ZNCC with a warning.
+  dedup by the (u0, v0) pixel cell, the near-bound warning and RoMa's ZNCC
+  fallback when every crop fails its self-check.
+- ``get_matcher`` / ``MATCHERS`` and ``resolve_learned_weights``.
 
 Matching runs on ``device`` (default ``cuda``); TF32 stays off for the
-convolutions (``resolve_device``).
+convolutions and matmuls (``resolve_device``).
 """
 
 from __future__ import annotations
 
 import os.path as osp
+import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,10 +40,12 @@ from fusion4landslide_tpu_torch.device import resolve_device
 
 __all__ = [
     "MATCHERS",
+    "RomaCrop",
     "get_matcher",
     "match_epoch_images",
     "matcher_options",
     "resolve_learned_weights",
+    "roma_crop_match",
     "zncc_grid_match",
 ]
 
@@ -141,17 +149,13 @@ def _learned_not_ported(name: str):
     def matcher(*_, **__):
         raise NotImplementedError(
             f"the learned image matcher '{name}' is not ported yet (ROADMAP.md queue 1 "
-            "item 9); img_matching_type: zncc runs")
+            "item 9); img_matching_type: zncc, eloftr or roma runs")
     return matcher
 
 
-MATCHERS = {
-    "zncc": zncc_grid_match,
-    "loftr": _learned_not_ported("loftr"),
-    "eloftr": _learned_not_ported("eloftr"),
-    "roma": _learned_not_ported("roma"),
-    "romav2": _learned_not_ported("romav2"),
-}
+#: Loaded learned matchers, keyed by (weights, device).
+_ELOFTR_CACHE: dict = {}
+_ROMA_CACHE: dict = {}
 
 #: Probed locations of converted learned-matcher checkpoints (the JAX
 #: package's lists).
@@ -165,6 +169,144 @@ ROMA_WEIGHT_SEARCH_PATHS = (
     "weights/roma_tiny.npz",
     "weights/roma.npz",
 )
+
+
+def _eloftr_model(params, weights, dev):
+    """The E-LoFTR module: ``params`` (a module), else the resolved
+    checkpoint (a JAX-format ``.npz`` or a ``transformers`` checkpoint),
+    else random weights of the tiny-like architecture, with a warning
+    (seeded here; the JAX package draws its Flax init)."""
+    from fusion4landslide_tpu_torch.image import eloftr as E
+
+    if params is not None:
+        return params.to(dev)
+    weights = resolve_learned_weights(weights)
+    key = (weights or "__random__", str(dev))
+    if key not in _ELOFTR_CACHE:
+        if weights is not None and str(weights).endswith(".npz"):
+            _ELOFTR_CACHE[key] = E.load_eloftr_weights(weights, dev)
+        elif weights is not None:
+            _ELOFTR_CACHE[key] = E.load_torch_eloftr(weights, device=dev)
+        else:
+            warnings.warn("eloftr matcher running with random weights; convert an upstream "
+                          "checkpoint (image.eloftr.load_torch_eloftr) for production matching",
+                          stacklevel=3)
+            cfg = E.ELoFTRConfig(stage_num_blocks=(1, 1, 2, 2), out_features=(32, 32, 64, 128),
+                                 hidden_size=128, num_attention_layers=2)
+            _ELOFTR_CACHE[key] = E.seeded_eloftr(cfg, 0, dev)
+    return _ELOFTR_CACHE[key]
+
+
+def _eloftr_matcher(img0, img1, *, params=None, weights=None, device=None, mark=None, **_):
+    """EfficientLoFTR (``image.eloftr``): the reference's production
+    matcher. (M, 4) float32 [u0, v0, u1, v1]; ``mark(stage)`` as
+    ``eloftr_core`` takes it."""
+    from fusion4landslide_tpu_torch.image.eloftr import eloftr_match
+
+    dev = resolve_device(device)
+    uv, _conf = eloftr_match(_eloftr_model(params, weights, dev), img0, img1, mark=mark)
+    return uv
+
+
+class RomaCrop(NamedTuple):
+    """One crop pair through RoMa: the kept matches (M, 4), the
+    certainty-weighted forward-backward consistent fraction, whether the
+    self-check passed, and the drawn flat indices (None when it failed)."""
+
+    matches: np.ndarray
+    fb_frac: float
+    passed: bool
+    sample_idx: torch.Tensor | None
+
+
+def _resize(g: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear resize of an (h, w) image to (size, size), antialiased
+    when it shrinks (``jax.image.resize``'s ``"bilinear"``)."""
+    return F.interpolate(g[None, None], size=(size, size), mode="bilinear", align_corners=False,
+                         antialias=True)[0, 0]
+
+
+def roma_crop_match(model, img0, img1, *, num_matches: int = 5000, min_certainty: float = 0.3,
+                    work_size: int = 224, fb_px: float = 6.0, fb_min_frac: float = 0.15,
+                    sample_idx=None, generator: torch.Generator | None = None) -> RomaCrop:
+    """RoMa on one crop pair: grey by the channel mean, resized to
+    ``work_size``; the forward-backward self-check (matches whose round
+    trip exceeds ``fb_px`` at work resolution are dropped; the crop is
+    unmatched when less than ``fb_min_frac`` of the certainty survives);
+    a certainty-weighted sample of ``num_matches`` (``sample_idx``, or
+    drawn from ``generator``, by default one seeded with 0 on the model's
+    device), mapped to crop pixels and kept where certainty reaches
+    ``min_certainty``."""
+    from fusion4landslide_tpu_torch.image.roma import (
+        roma_fb_error_px,
+        roma_sample,
+        roma_to_pixel_coordinates,
+    )
+
+    dev = next(model.parameters()).device
+    (h0, w0), (h1, w1) = img0.shape[:2], img1.shape[:2]
+    g0, g1 = (torch.as_tensor(np.asarray(g, np.float32) if not torch.is_tensor(g) else g,
+                              dtype=torch.float32, device=dev) for g in (img0, img1))
+    if g0.ndim == 3:
+        g0 = g0.mean(dim=-1)
+    if g1.ndim == 3:
+        g1 = g1.mean(dim=-1)
+    warp, cert, err_px = roma_fb_error_px(model, _resize(g0, work_size), _resize(g1, work_size))
+    consistent = err_px <= fb_px
+    frac = float((cert * consistent).sum()) / max(float(cert.sum()), 1e-9)
+    if frac < fb_min_frac:
+        return RomaCrop(np.zeros((0, 4), np.float32), frac, False, None)
+    if generator is None and sample_idx is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    matches, c, idx = roma_sample(warp, cert * consistent, num_matches, idx=sample_idx,
+                                  generator=generator)
+    ka, kb = roma_to_pixel_coordinates(matches, h0, w0, h1, w1)
+    keep = c >= min_certainty
+    out = torch.cat([ka[keep], kb[keep]], dim=1).cpu().numpy().astype(np.float32)
+    return RomaCrop(out, frac, True, idx)
+
+
+def _roma_matcher(img0, img1, *, params=None, weights=None, device=None, logger=None,
+                  fb_px: float = 6.0, **kw):
+    """RoMa (``image.roma``): the reference's ``img_matching_type: RoMA``
+    role, self-checked per crop (``roma_crop_match``), with ``params`` (a
+    module) or the resolved checkpoint. A crop that fails the check
+    returns no matches, with a warning."""
+    from fusion4landslide_tpu_torch.image.roma import load_roma_weights
+
+    dev = resolve_device(device)
+    if params is not None:
+        model = params.to(dev)
+    else:
+        weights = resolve_learned_weights(weights, ROMA_WEIGHT_SEARCH_PATHS)
+        if weights is None:
+            raise FileNotFoundError("no RoMa weights provisioned; pass weights= (the JAX "
+                                    "package's roma_train writes them)")
+        if (weights, str(dev)) not in _ROMA_CACHE:
+            _ROMA_CACHE[(weights, str(dev))] = load_roma_weights(weights, dev)
+        model = _ROMA_CACHE[(weights, str(dev))]
+    keys = ("num_matches", "min_certainty", "work_size", "fb_min_frac", "sample_idx", "generator")
+    res = roma_crop_match(model, img0, img1, fb_px=fb_px,
+                          **{k: v for k, v in kw.items() if k in keys})
+    if not res.passed:
+        msg = (f"roma self-check failed: only {100 * res.fb_frac:.1f}% of certainty-weighted "
+               f"pixels are forward-backward consistent within {fb_px} px at work resolution "
+               "— returning no matches for this crop (the matcher is unreliable at these "
+               "shapes)")
+        if logger is not None:
+            logger.warning(msg)
+        else:
+            warnings.warn(msg, stacklevel=2)
+    return res.matches
+
+
+MATCHERS = {
+    "zncc": zncc_grid_match,
+    "loftr": _learned_not_ported("loftr"),
+    "eloftr": _eloftr_matcher,
+    "roma": _roma_matcher,
+    "romav2": _roma_matcher,
+}
 
 
 def get_matcher(name: str):
@@ -221,7 +363,12 @@ def match_epoch_images(img0, img1, *, matcher: str = "zncc",
     it and turns cross pairing on when it exceeds half the overlap.
     Matches from overlapping crops are deduplicated by their (u0, v0)
     pixel cell, the first kept. A warning is logged when the median flow
-    is within 20% of the ZNCC search bound."""
+    is within 20% of the ZNCC search bound.
+
+    A learned matcher runs with the checkpoint ``weights=`` or the first
+    one found under ``weights/``; without one it falls back to ZNCC with a
+    warning (``allow_random=True`` runs it with random weights). When every
+    RoMa crop fails its self-check, the pair is matched by ZNCC instead."""
     name = matcher.lower()
     if name in ("eloftr", "loftr", "roma", "romav2") and kw.get("params") is None:
         paths = ROMA_WEIGHT_SEARCH_PATHS if name in ("roma", "romav2") else WEIGHT_SEARCH_PATHS
@@ -237,10 +384,10 @@ def match_epoch_images(img0, img1, *, matcher: str = "zncc",
     kw.pop("allow_random", None)
     fn = get_matcher(matcher)
     is_zncc = name == "zncc"
+    dev = resolve_device(device)
+    kw["device"] = dev
     if is_zncc:
         kw.pop("weights", None)
-        dev = resolve_device(device)
-        kw["device"] = dev
         # Grey once, on the device; crops slice it.
         img0, img1 = _to_gray(img0, dev), _to_gray(img1, dev)
         if max_flow_px is not None and max_flow_px > int(kw.get("search", 32)):
@@ -260,10 +407,24 @@ def match_epoch_images(img0, img1, *, matcher: str = "zncc",
                            "%d px — matches beyond the bound are silently lost; raise 'search' "
                            "or set max_flow_px", med, int(bound))
 
+    def fallback_if_empty(merged):
+        """RoMa's per-crop self-check can empty every crop: match the pair
+        by ZNCC instead of returning an empty channel."""
+        if merged.shape[0] or name not in ("roma", "romav2"):
+            return merged
+        if logger is not None:
+            logger.warning("img_matching_type=%s produced no self-check-consistent matches — "
+                           "falling back to the ZNCC matcher", matcher)
+        zkw = {k: v for k, v in kw.items()
+               if k in ("grid_step", "patch", "search", "min_score", "min_texture")}
+        return match_epoch_images(img0, img1, matcher="zncc", crop_size=crop_size,
+                                  overlap_size=overlap_size, cross_crops=cross_crops,
+                                  max_flow_px=max_flow_px, logger=logger, device=dev, **zkw)
+
     if crop_size is None:
         out = fn(img0, img1, **kw)
         warn_near_bound(out)
-        return out
+        return fallback_if_empty(out)
     ch, cw = crop_size
     oh, ow = overlap_size or (ch // 2, cw // 2)
     sh, sw = max(ch - oh, 1), max(cw - ow, 1)
@@ -282,10 +443,10 @@ def match_epoch_images(img0, img1, *, matcher: str = "zncc",
                 if m.size:
                     out.append(m + np.asarray([x0, y0, x1, y1], np.float32))
     if not out:
-        return np.zeros((0, 4), np.float32)
+        return fallback_if_empty(np.zeros((0, 4), np.float32))
     merged = np.concatenate(out, axis=0)
     key = merged[:, 1].round().astype(np.int64) * (w + 1) + merged[:, 0].round().astype(np.int64)
     _, first = np.unique(key, return_index=True)
     merged = merged[np.sort(first)]
     warn_near_bound(merged)
-    return merged
+    return fallback_if_empty(merged)

@@ -15,10 +15,11 @@ per tile on one GPU; ``use_mesh: true`` the single-GPU runner
 ``run_rgb_guided_tiles``, which matches the image pair once; where
 ``auto`` would pick the multi-device path (several GPUs, several tiles),
 the runner runs on the first GPU. ``clustering_type: hdbscan`` always takes
-the host tiles. The image matcher is ZNCC (``img_matching_type: zncc``, or
-a learned matcher whose weights are not provisioned); the learned matchers
-raise ``NotImplementedError`` (ROADMAP.md queue 1 item 9). The driver logs
-one ``run summary:`` JSON line at the end.
+the host tiles. The image matcher is ``img_matching_type``: the shipped
+``eloftr`` (``weights/eloftr_tiny.npz``), ``roma`` or ``zncc``; a learned
+matcher whose weights are not provisioned falls back to ZNCC, and classic
+``loftr`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 9). The
+driver logs one ``run summary:`` JSON line at the end.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ refined per supervoxel by a rigid fit (port of
 
 Stages of ``run_rgb_guided_tile``: project both epochs into their images
 (v flipped unless the dataset is ``rockfall_simulator``), match the image
-pair (``image.matching``, ZNCC in the port), chain each projected source
+pair (``image.matching``: E-LoFTR, RoMa or ZNCC), chain each projected source
 point through the pixel matches to a projected target point
 (``image.geometry.chain_2d_matches_to_3d``), drop chains longer than
 ``max_magnitude``, write the ``wo_refinement`` table, segment the source

@@ -438,14 +438,16 @@ def test_use_mesh_true_takes_the_runner(tmp_path, seeded_weights, monkeypatch, m
 
 def test_camera_selection_reaches_the_matcher_and_raises(tmp_path, seeded_weights):
     """``Images_used.txt``: the RGB driver selects each tile's cameras and
-    reads their images, then raises at the learned image matcher
-    (``fusion_brienz.yaml``'s ``eloftr``, whose weights the repository
-    ships), which is not ported yet."""
+    reads their images, then raises at the image matcher: classic LoFTR,
+    which is not ported yet (its weights resolve: it probes the E-LoFTR
+    paths, and the repository ships ``weights/eloftr_tiny.npz``).
+    ``fusion_brienz.yaml``'s own ``eloftr`` runs (``tests/test_torch_matching.py``)."""
     from PIL import Image
 
     from fusion4landslide_tpu_torch import main_fusion
 
-    cfg = write_run(tmp_path, "fusion_brienz.yaml", "port", seeded_weights, **SMALL)
+    cfg = write_run(tmp_path, "fusion_brienz.yaml", "port", seeded_weights,
+                    img_matching_type="loftr", **SMALL)
     image = tmp_path / "data" / "image"
     (image / "transformations").mkdir(parents=True)
     np.savetxt(image / "camera_intrinsic.txt", np.diag([1000.0, 1000.0, 1.0]), delimiter=" ")

@@ -142,6 +142,29 @@ def test_main_rgb_guided_matches_jax_driver(tmp_path, monkeypatch, use_mesh):
     assert not again["tile_s"] and "runner_s" not in again
 
 
+def test_main_rgb_guided_runs_the_shipped_matcher(tmp_path, monkeypatch):
+    """``rgb_guided_brienz.yaml`` with its own ``img_matching_type:
+    eloftr`` (``weights/eloftr_tiny.npz``), paths, names and the small
+    camera changed: the port's matcher in the driver against the JAX
+    driver's, tile for tile; the planted shift recovered on the moving
+    half."""
+    from fusion4landslide_tpu_torch import main_rgb_guided
+
+    data = rgb_epoch(tmp_path)
+    kw = {k: v for k, v in RGB_CHANGES.items() if k != "img_matching_type"}
+    j_cfg = write_config(tmp_path, "rgb_guided_brienz.yaml", "jax", data, **kw)
+    t_cfg = write_config(tmp_path, "rgb_guided_brienz.yaml", "port", data, **kw)
+    run_jax_driver("main_rgb_guided", j_cfg, monkeypatch)
+    summary = main_rgb_guided.main(["--config", t_cfg, "--device", "cpu"])
+    jt, tt = tables(tmp_path / "jax"), tables(tmp_path / "port")
+    assert len(tt) == 8 and sorted(summary["tile_s"]) == ["0", "1"]
+    assert_same_tables(jt, tt)
+    rows = np.concatenate([v for k, v in tt.items() if k.startswith("rgb_guided_w_refinement_dvfs_")])
+    disp = rows[:, 3:6] - rows[:, :3]
+    moving = rows[:, 1] > 3.0
+    assert np.linalg.norm(np.median(disp[moving], axis=0) - PLANTED_SHIFT) < 0.02
+
+
 def test_main_rgb_guided_hdbscan_takes_the_host_tiles(tmp_path):
     """``clustering_type: hdbscan`` with ``use_mesh: true`` falls back to
     the serial host tiles, with the port's own matcher; the density

@@ -333,7 +333,7 @@ def test_merge_by_priority_matches_jax():
     ({"feat_patch_points": 100}, "item 10"),
     ({"visualize_patch": True}, "item 14"),
     ({"use_2d_matches": True, "save_img_matching_visualization": True}, "item 14"),
-    ({"use_2d_matches": True, "no_matches": True, "img_matching_type": "eloftr",
+    ({"use_2d_matches": True, "no_matches": True, "img_matching_type": "loftr",
       "image_size": [64, 64]}, "item 9"),
 ])
 def test_unported_host_options_raise(tmp_path, extra, item):

@@ -1,6 +1,7 @@
 """The port and ``chip_smoke.py`` import neither JAX nor the JAX package:
 every module of the port (the drivers ``main_fusion``, ``main_f2s3``,
-``main_rgb_guided`` and ``main_piecewise_icp`` among them)."""
+``main_rgb_guided`` and ``main_piecewise_icp`` and the learned image
+matchers among them)."""
 
 import subprocess
 import sys
@@ -20,7 +21,8 @@ for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.image
              "tiling.bsp", "pipelines.driver", "pipelines.run_summary", "image.cameras",
              "ops.merge", "utils.logging", "main_rgb_guided", "main_piecewise_icp",
              "image.matching", "ops.clustering", "pipelines.rgb_guided",
-             "pipelines.rgb_guided_device", "pipelines.piecewise_icp"):
+             "pipelines.rgb_guided_device", "pipelines.piecewise_icp", "image.eloftr",
+             "image.roma", "image.crop", "image.flax_bridge"):
     assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)

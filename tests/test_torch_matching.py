@@ -97,18 +97,27 @@ def test_near_bound_warning(caplog):
 
 
 def test_learned_matchers_fall_back_or_raise(tmp_path, monkeypatch, caplog):
-    """Without provisioned weights a learned matcher falls back to ZNCC with
-    a warning, as in the JAX package; where JAX would run it (its weights
-    resolve, here the repository's ``weights/eloftr_tiny.npz``), the port
-    raises, naming ROADMAP item 9."""
+    """Where the weights resolve (here the repository's
+    ``weights/eloftr_tiny.npz``) E-LoFTR runs over the crops and returns
+    JAX's matches (the same (u0, v0) cells, the flows within 1e-3 px:
+    ``tests/test_torch_eloftr.py``'s tolerance); classic LoFTR still raises,
+    naming ROADMAP item 9. Without provisioned weights a learned matcher
+    falls back to ZNCC with a warning, as in the JAX package, and RoMa
+    with ``allow_random`` refuses to run without weights, as JAX's does."""
     rng = np.random.default_rng(3)
     img0 = textured_image(rng)
     img1 = np.roll(img0, 1, axis=0)
     kw = dict(grid_step=16, patch=16, search=6)
     assert tm.resolve_learned_weights() == jm.resolve_learned_weights()
     assert tm.resolve_learned_weights() is not None
+    crops = dict(crop_size=(128, 160), overlap_size=(32, 40))
+    ref = jm.match_epoch_images(img0, img1, matcher="eloftr", **crops)
+    got = tm.match_epoch_images(img0, img1, matcher="eloftr", device="cpu", **crops)
+    assert got.shape == ref.shape and len(got) > 100 and got[:, 0].max() > 160
+    np.testing.assert_array_equal(got[:, :2], ref[:, :2])
+    np.testing.assert_allclose(got[:, 2:], ref[:, 2:], atol=1e-3)
     with pytest.raises(NotImplementedError, match="item 9"):
-        tm.match_epoch_images(img0, img1, matcher="eloftr", device="cpu", **kw)
+        tm.match_epoch_images(img0, img1, matcher="loftr", device="cpu", **kw)
     with pytest.raises(FileNotFoundError):
         tm.resolve_learned_weights(str(tmp_path / "missing.npz"))
     with pytest.raises(NotImplementedError, match="not available"):
@@ -126,6 +135,39 @@ def test_learned_matchers_fall_back_or_raise(tmp_path, monkeypatch, caplog):
         assert "falling back to the ZNCC matcher" in caplog.text
         assert_same_matches(jm.match_epoch_images(img0, img1, matcher=matcher, **kw), got)
         caplog.clear()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tm.match_epoch_images(img0, img1, matcher="roma", allow_random=True, device="cpu", **kw)
+    for mod, dev in ((tm, {"device": "cpu"}), (jm, {})):
+        with pytest.raises(FileNotFoundError, match="RoMa weights"):
+            mod.match_epoch_images(img0, img1, matcher="roma", allow_random=True, **dev, **kw)
     jax.clear_caches()
+
+
+@pytest.mark.parametrize("image_size, crop, overlap", [
+    ((100, 140), (40, 60), (10, 20)),
+    ((64, 96), (32, 48), (16, 24)),
+    ((30, 50), (40, 60), (10, 20)),  # crop larger than the image
+    ((960, 1280), (960, 1280), (480, 640)),
+])
+def test_crop_boxes_and_crops_match_jax(tmp_path, image_size, crop, overlap):
+    """``image.crop``: the same boxes, crops and written files as JAX's."""
+    from PIL import Image
+
+    from fusion4landslide_tpu.image import crop as jc
+    from fusion4landslide_tpu_torch.image import crop as tc
+
+    assert tc.grid_crop_boxes(image_size, crop, overlap) == jc.grid_crop_boxes(image_size, crop,
+                                                                               overlap)
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 255, size=image_size + (3,)).astype(np.uint8)
+    got, ref = tc.crop_image(img, crop, overlap), jc.crop_image(img, crop, overlap)
+    assert [pos for pos, _ in got] == [pos for pos, _ in ref]
+    for (_, a), (_, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    if image_size[0] > 200:
+        return
+    path = tmp_path / "epoch1.png"
+    Image.fromarray(img).save(path)
+    written = tc.crop_and_save(str(path), str(tmp_path / "port"), crop, overlap)
+    expected = jc.crop_and_save(str(path), str(tmp_path / "jax"), crop, overlap)
+    assert [p.split("port")[1] for p in written] == [p.split("jax")[1] for p in expected]
+    for a, b in zip(written, expected):
+        np.testing.assert_array_equal(np.asarray(Image.open(a)), np.asarray(Image.open(b)))

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from fusion4landslide_tpu_torch.pipelines import rgb_guided as tr
-from fusion4landslide_tpu_torch.synth import synth_epoch_pair, synth_textured_images
+from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_epoch_pair, synth_textured_images
 
 H, W = 240, 320
 K = np.array([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]])
@@ -128,26 +128,38 @@ def results_of(root):
     return out
 
 
-@pytest.mark.parametrize("case", ["precomputed", "matcher", "hdbscan"])
+@pytest.mark.parametrize("case", ["precomputed", "matcher", "hdbscan", "eloftr"])
 def test_run_rgb_guided_tile_matches_jax(tmp_path, case):
+    """``eloftr``: the shipped matcher with the repository's
+    ``weights/eloftr_tiny.npz`` inside the tile on both sides, on a
+    ``synth_textured_images`` pair (v-flipped camera); the matcher keeps no
+    cell of the sparsely rendered scene of the other cases."""
     from fusion4landslide_tpu.image.matching import match_epoch_images
     from fusion4landslide_tpu.pipelines.rgb_guided import run_rgb_guided_tile as j_run
 
     rng = np.random.default_rng(0)
-    src, tgt, img0, img1, E = textured_scene(rng)
+    cam, dataset = K, "rockfall_simulator"
+    if case == "eloftr":
+        src, tgt, _ = synth_epoch_pair(8, 6, density=80.0, seed=1)
+        img0, img1, cam, E, _ = synth_textured_images(src, tgt, (H, W))
+        dataset = "brienz_tls"
+    else:
+        src, tgt, img0, img1, E = textured_scene(rng)
     cfg = {"image_size": [H, W], "pixel_thres": 4, "max_magnitude": 2.0, "icp_threshold": 0.2,
            "n_normals": 15, "voxel_size": 0.0, "img_matching_type": "zncc",
-           "dataset": "rockfall_simulator", "output_folder": "run"}
+           "dataset": dataset, "output_folder": "run"}
     corres = None
     if case == "precomputed":
         corres = match_epoch_images(img0, img1, matcher="zncc", grid_step=4, patch=12,
                                     search=10, min_score=0.5, min_texture=1.0)
     if case == "hdbscan":
         cfg.update(clustering_type="hdbscan", hdbscan_min_samples=20)
-    jo = j_run(dict(cfg, output_dir=str(tmp_path / "jax")), src, tgt, img0, img1, K, E, E,
+    if case == "eloftr":
+        cfg["img_matching_type"] = "eloftr"
+    jo = j_run(dict(cfg, output_dir=str(tmp_path / "jax")), src, tgt, img0, img1, cam, E, E,
                corres_2d=corres)
     to = tr.run_rgb_guided_tile(dict(cfg, output_dir=str(tmp_path / "port")), src, tgt, img0,
-                                img1, K, E, E, corres_2d=corres, device="cpu")
+                                img1, cam, E, E, corres_2d=corres, device="cpu")
     assert to["n_matches"] == jo["n_matches"] > 200
     assert to["n_supervoxels"] == jo["n_supervoxels"] > 5
     np.testing.assert_allclose(to["corres_2d"], jo["corres_2d"], atol=1e-4)
@@ -161,6 +173,10 @@ def test_run_rgb_guided_tile_matches_jax(tmp_path, case):
     wo = tt["rgb_guided_wo_refinement_dvfms_tile_0.txt"]
     assert len(wo) == int(to["matched"].sum()) and to["quality"].any()
     disp = to["dvfs"][:, 3:6] - to["dvfs"][:, :3]
+    if case == "eloftr":
+        mov = to["dvfs"][:, 1] > 3.0
+        np.testing.assert_allclose(np.median(disp[mov], axis=0), PLANTED_SHIFT, atol=0.03)
+        return
     mov = to["dvfs"][:, 0] > 0.5
     assert abs(np.median(disp[mov, 0]) - 0.15) < 0.08
 
@@ -284,12 +300,13 @@ def test_run_rgb_guided_tiles_writes_the_steps_tables(tmp_path):
 @pytest.mark.parametrize("extra, item", [
     ({"icp_type": "point2plane"}, "item 4"),
     ({"save_img_matching_visualization": True}, "item 14"),
-    ({"img_matching_type": "eloftr"}, "item 9"),
+    ({"img_matching_type": "loftr"}, "item 9"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     """What the port does not run yet raises, naming its ROADMAP item:
-    point-to-plane ICP, the matching figures, a learned matcher whose
-    weights resolve (the repository ships ``weights/eloftr_tiny.npz``)."""
+    point-to-plane ICP, the matching figures, classic LoFTR where its
+    weights resolve (it probes ``WEIGHT_SEARCH_PATHS``, and the repository
+    ships ``weights/eloftr_tiny.npz``)."""
     rng = np.random.default_rng(1)
     src, tgt, img0, img1, E = textured_scene(rng, n=1500)
     cfg = {"image_size": [H, W], "pixel_thres": 4, "max_magnitude": 2.0, "n_normals": 15,
