@@ -7,7 +7,8 @@ block mean or a dot product): near-ties between neighbouring kNN
 distances, and sampler candidates whose squared distance lies within
 ``rel`` * r^2 of the radius or of the self-exclusion threshold (plus
 near-ties of d^2 in ``'distance'`` mode). ``driver_tile_recovery`` reads
-the recovery of a planted shift from a driver's written tables.
+the recovery of a planted shift from a driver's written tables;
+``partition_differing`` compares two labelings up to relabelling.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from fusion4landslide_tpu_torch.ops.hashgrid_cuda import Window, _scan_len
 
 __all__ = [
     "driver_tile_recovery",
+    "partition_differing",
     "knn_agreement",
     "sample_agreement",
     "sampler_borderline_rows",
@@ -123,3 +125,17 @@ def driver_tile_recovery(core_pts: np.ndarray, rows_src: np.ndarray, rows_disp: 
         "moving_vec_err_m": (float(np.linalg.norm(np.median(mov, axis=0) - shift))
                              if len(mov) else None),
     }
+
+
+def partition_differing(a: np.ndarray, b: np.ndarray) -> int:
+    """Points of two (n,) non-negative labelings outside the majority
+    overlap of their regions, the larger of the two counts: 0 iff the
+    labelings are equal up to relabelling."""
+    pairs, counts = np.unique(np.stack([a, b], 1), axis=0, return_counts=True)
+    if len(pairs) == len(np.unique(a)) == len(np.unique(b)):
+        return 0
+    best_a = np.zeros(int(a.max()) + 1, np.int64)
+    np.maximum.at(best_a, pairs[:, 0], counts)
+    best_b = np.zeros(int(b.max()) + 1, np.int64)
+    np.maximum.at(best_b, pairs[:, 1], counts)
+    return int(max(len(a) - best_a.sum(), len(b) - best_b.sum()))

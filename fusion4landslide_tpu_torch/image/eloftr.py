@@ -51,6 +51,7 @@ from fusion4landslide_tpu_torch.image.flax_bridge import (
     flat_from_tree,
     flax_norm,
     read_flat_npz,
+    seeded_init,
     state_dict_from_flat,
     write_flat_npz,
 )
@@ -474,20 +475,7 @@ def seeded_eloftr(cfg: ELoFTRConfig = ELoFTRConfig(), seed: int = 0, device=None
     conv and dense kernels, N(0, 0.05) biases, norm scales N(1, 0.1) and
     biases N(0, 0.05). Default-initialised E-LoFTR collapses its activations
     to ~1e-14."""
-    rng = np.random.default_rng(seed)
-    model = EfficientLoFTR(cfg)
-    with torch.no_grad():
-        for key, p in model.named_parameters():
-            shape = tuple(p.shape)
-            if _is_norm(key):
-                mean, std = (1.0, 0.1) if key.endswith("weight") else (0.0, 0.05)
-            elif key.endswith("bias"):
-                mean, std = 0.0, 0.05
-            else:
-                fan_in = int(np.prod(shape[1:]))
-                mean, std = 0.0, math.sqrt(2.0 / fan_in)
-            p.copy_(torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)))
-    return model.eval().to(resolve_device(device))
+    return seeded_init(EfficientLoFTR(cfg), seed, _is_norm).eval().to(resolve_device(device))
 
 
 def _fold_bn(w, bn_w, bn_b, bn_mean, bn_var, eps=1e-5):

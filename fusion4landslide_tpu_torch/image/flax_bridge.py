@@ -11,8 +11,9 @@ path joined by ``.``: conv kernels go from HWIO to OIHW, dense kernels
 from (in, out) to ``Linear``'s (out, in), norm ``scale`` becomes
 ``weight``.
 
-``norm_stats`` computes Flax's normalisation statistics (fast variance
-E[x^2] - E[x]^2, clipped at 0) and applies them as Flax does.
+``flax_norm`` computes Flax's normalisation statistics (fast variance
+E[x^2] - E[x]^2, clipped at 0) and applies them as Flax does;
+``seeded_init`` draws numpy-seeded weights at trained-like scales.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 __all__ = [
     "flat_from_tree",
     "flax_norm",
+    "seeded_init",
     "read_flat_npz",
     "state_dict_from_flat",
     "flat_from_module",
@@ -110,3 +112,22 @@ def flax_norm(x: torch.Tensor, dims, weight: torch.Tensor, bias: torch.Tensor,
     mean = x.mean(dim=dims, keepdim=True)
     var = torch.clamp((x * x).mean(dim=dims, keepdim=True) - mean * mean, min=0.0)
     return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+def seeded_init(module: torch.nn.Module, seed: int, is_norm) -> torch.nn.Module:
+    """Overwrite ``module``'s parameters in ``named_parameters`` order with
+    numpy draws (``default_rng(seed)``) at trained-like scales:
+    Kaiming-normal conv and dense kernels, N(0, 0.05) biases, and for the
+    norms (``is_norm(key)``) scales N(1, 0.1) and biases N(0, 0.05)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for key, p in module.named_parameters():
+            shape = tuple(p.shape)
+            if is_norm(key):
+                mean, std = (1.0, 0.1) if key.endswith("weight") else (0.0, 0.05)
+            elif key.endswith("bias"):
+                mean, std = 0.0, 0.05
+            else:
+                mean, std = 0.0, float(np.sqrt(2.0 / int(np.prod(shape[1:]))))
+            p.copy_(torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)))
+    return module

@@ -12,10 +12,16 @@
 - the learned matchers E-LoFTR (``image.eloftr``; the shipped configs'
   ``img_matching_type: eloftr``, ``weights/eloftr_tiny.npz``) and RoMa
   (``image.roma``; ``weights/roma_tiny.npz``, with its forward-backward
-  self-check and certainty-weighted sample). Where their weights do not
-  resolve, both fall back to ZNCC with a warning, as in the JAX package;
-  classic LoFTR is not ported yet and raises ``NotImplementedError``
-  (ROADMAP.md queue 1 item 9) where the JAX package would run it.
+  self-check and certainty-weighted sample), and ``loftr``: a LoFTR-family
+  checkpoint (``LOFTR_WEIGHT_SEARCH_PATHS`` or ``weights=``) through
+  ``image.loftr.load_torch_loftr`` (classic LoFTR or E-LoFTR by layout),
+  ``params=`` (a module), or the compact ``image.loftr.LoFTRMatcher`` with
+  numpy-seeded weights where none resolve. Where their weights do not
+  resolve, the learned matchers fall back to ZNCC with a warning, as in
+  the JAX package. ``match_epoch_images`` probes the E-LoFTR paths for
+  ``loftr`` too, as the JAX function does, so in this repository it hands
+  ``weights/eloftr_tiny.npz`` to ``torch.load`` and raises the same
+  ``RuntimeError``.
 - ``match_epoch_images``: the sliding-window crop loop (step = crop -
   overlap), optional 8-neighbour cross pairing, ``max_flow_px`` widening,
   dedup by the (u0, v0) pixel cell, the near-bound warning and RoMa's ZNCC
@@ -39,6 +45,7 @@ import torch.nn.functional as F
 from fusion4landslide_tpu_torch.device import resolve_device
 
 __all__ = [
+    "LOFTR_WEIGHT_SEARCH_PATHS",
     "MATCHERS",
     "RomaCrop",
     "get_matcher",
@@ -145,17 +152,17 @@ def zncc_grid_match(img0, img1, *, grid_step: int = 8, patch: int = 16, search: 
     return np.stack([u0, v0, u1, v1], axis=1)[keep]
 
 
-def _learned_not_ported(name: str):
-    def matcher(*_, **__):
-        raise NotImplementedError(
-            f"the learned image matcher '{name}' is not ported yet (ROADMAP.md queue 1 "
-            "item 9); img_matching_type: zncc, eloftr or roma runs")
-    return matcher
-
-
 #: Loaded learned matchers, keyed by (weights, device).
 _ELOFTR_CACHE: dict = {}
 _ROMA_CACHE: dict = {}
+_LOFTR_CACHE: dict = {}
+
+#: Probed locations of upstream LoFTR checkpoints (the JAX package's list).
+LOFTR_WEIGHT_SEARCH_PATHS = (
+    "weights/outdoor_ds.ckpt",
+    "weights/indoor_ds.ckpt",
+    "weights/loftr.ckpt",
+)
 
 #: Probed locations of converted learned-matcher checkpoints (the JAX
 #: package's lists).
@@ -205,6 +212,40 @@ def _eloftr_matcher(img0, img1, *, params=None, weights=None, device=None, mark=
 
     dev = resolve_device(device)
     uv, _conf = eloftr_match(_eloftr_model(params, weights, dev), img0, img1, mark=mark)
+    return uv
+
+
+def _loftr_matcher(img0, img1, *, params=None, weights=None, match_threshold: float = 0.2,
+                   device=None, **_):
+    """LoFTR family (``img_matching_type: loftr``): ``params`` (a
+    ``ClassicLoFTR``, ``EfficientLoFTR`` or ``LoFTRMatcher`` module), else
+    the resolved checkpoint through ``load_torch_loftr``, else the compact
+    ``LoFTRMatcher`` with numpy-seeded weights (seed 0), with a warning.
+    (M, 4) float32 [u0, v0, u1, v1]."""
+    from fusion4landslide_tpu_torch.image import loftr as L
+    from fusion4landslide_tpu_torch.image.eloftr import EfficientLoFTR, eloftr_match
+    from fusion4landslide_tpu_torch.image.loftr_classic import ClassicLoFTR, classic_loftr_match
+
+    dev = resolve_device(device)
+    if params is None:
+        weights = resolve_learned_weights(weights, LOFTR_WEIGHT_SEARCH_PATHS)
+        key = (weights or "__random__", str(dev))
+        if key not in _LOFTR_CACHE:
+            if weights is None:
+                warnings.warn("loftr matcher running with random weights; convert an upstream "
+                              "checkpoint (image.loftr.load_torch_loftr) for production matching",
+                              stacklevel=3)
+                _LOFTR_CACHE[key] = L.seeded_loftr(0, dev)
+            else:
+                _LOFTR_CACHE[key] = L.load_torch_loftr(weights, device=dev)
+        params = _LOFTR_CACHE[key]
+    model = params.to(dev)
+    if isinstance(model, ClassicLoFTR):
+        uv, _conf = classic_loftr_match(model, img0, img1, match_threshold=match_threshold)
+    elif isinstance(model, EfficientLoFTR):
+        uv, _conf = eloftr_match(model, img0, img1)
+    else:
+        uv, _conf = L.loftr_match(model, img0, img1, match_threshold=match_threshold)
     return uv
 
 
@@ -302,7 +343,7 @@ def _roma_matcher(img0, img1, *, params=None, weights=None, device=None, logger=
 
 MATCHERS = {
     "zncc": zncc_grid_match,
-    "loftr": _learned_not_ported("loftr"),
+    "loftr": _loftr_matcher,
     "eloftr": _eloftr_matcher,
     "roma": _roma_matcher,
     "romav2": _roma_matcher,

@@ -18,9 +18,9 @@ on the first GPU (one tile stream per GPU is ROADMAP.md queue 1 item 13).
 The RGB+3D method (``use_2d_matches: true``) takes the fixed image pair
 (``src_image`` / ``tgt_image``) with precomputed pixel matches
 (``img_matching_result_dir/*.txt``) when they exist, else the image
-matcher (``img_matching_type``: ``eloftr``, ``roma`` or ``zncc``; classic
-``loftr`` raises ``NotImplementedError``, ROADMAP.md queue 1 item 9) on the
-pair, or with ``Images_used.txt`` on each tile's best cameras
+matcher (``img_matching_type``: ``eloftr``, ``roma``, ``zncc`` or ``loftr``,
+which runs an upstream LoFTR checkpoint given as ``img_matcher_weights``)
+on the pair, or with ``Images_used.txt`` on each tile's best cameras
 (``num_sub_img`` per epoch), matching each distinct image pair once. Image pixels are read
 only where the matcher needs them or the config has no ``image_size``. The
 driver logs one ``run summary:`` JSON line at the end (tile seconds, stage

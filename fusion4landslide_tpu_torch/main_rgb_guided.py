@@ -16,9 +16,10 @@ per tile on one GPU; ``use_mesh: true`` the single-GPU runner
 ``auto`` would pick the multi-device path (several GPUs, several tiles),
 the runner runs on the first GPU. ``clustering_type: hdbscan`` always takes
 the host tiles. The image matcher is ``img_matching_type``: the shipped
-``eloftr`` (``weights/eloftr_tiny.npz``), ``roma`` or ``zncc``; a learned
-matcher whose weights are not provisioned falls back to ZNCC, and classic
-``loftr`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 9). The
+``eloftr`` (``weights/eloftr_tiny.npz``), ``roma``, ``zncc`` or ``loftr``
+(an upstream LoFTR checkpoint given as ``img_matcher_weights``; with none,
+the E-LoFTR paths are probed as in the JAX package); a learned matcher
+whose weights are not provisioned falls back to ZNCC. The
 driver logs one ``run summary:`` JSON line at the end.
 """
 

@@ -28,7 +28,11 @@ class EvalBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.scale * (x - self.mean) * torch.rsqrt(self.var + self.eps) + self.bias
+        # The operations of scale * (x - mean) * rsqrt(var + eps) + bias in
+        # their order, on one temporary (multiplication commutes exactly).
+        y = x - self.mean
+        y.mul_(self.scale).mul_(torch.rsqrt(self.var + self.eps)).add_(self.bias)
+        return y
 
 
 class _MLPStack(nn.Module):
@@ -43,8 +47,8 @@ class _MLPStack(nn.Module):
         self.fc2, self.bn5 = nn.Linear(512, 256), EvalBatchNorm(256)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+        x = self.bn1(self.conv1(x)).relu_()
+        x = self.bn2(self.conv2(x)).relu_()
         x = self.bn3(self.conv3(x))
         x = x.amax(dim=-2)
         x = torch.relu(self.bn4(self.fc1(x)))

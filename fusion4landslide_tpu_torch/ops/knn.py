@@ -7,6 +7,17 @@ its plain version on the CPU), which selects on the Pallas kernel's raw
 score; everything else (the 3-d supervoxel graph for n <= 8192, the
 per-pair ICP correspondence search) takes the exact XLA path
 (``_knn_xla``, ``pairwise_sqdist``), ported as plain PyTorch.
+For k > 1 on 2-d or 3-d points (the superpoint features' 30-NN of a
+whole tile cloud, the ICP variants' normals) the search scans the
+references in chunks of 4096 with a running top-k merge, as
+``_knn_xla`` does: distances in the JAX CPU build's rounding
+(``xla_sqnorm``), candidates ordered by an exact (distance, index) key so
+ties go to the lower reference index, as ``lax.top_k`` breaks them. Above
+``_LOCAL_PAIRS`` query-reference pairs the queries go in spatially sorted
+blocks, each against the references in its bounding box grown until every
+row's k-th distance lies inside it: the same distances and keys over a
+candidate set that provably holds every row's k nearest, so the answer is
+the brute-force one.
 ``median_nn_distance`` is the host tiles' point-cloud resolution: the
 grid loop above 4096 points, brute force below.
 """
@@ -26,6 +37,10 @@ __all__ = ["pairwise_sqdist", "knn", "nn1", "nn1_xla_rounded", "median_nn_distan
 _DIFF_DIM_MAX = 8
 _QUERY_BLOCK = 4096  # query rows per distance slab, at most
 _SLAB_ELEMS = 1 << 26  # distances per slab, at most (256 MB in float32)
+_REF_CHUNK = 4096  # reference rows per merge step of the k > 1 search
+_LOCAL_PAIRS = 1 << 28  # k > 1 searches above this many pairs go block-local
+_LOCAL_BLOCK = 8192  # query rows per block of the block-local search
+_PROBE_ROWS = 256  # queries whose k-th distance sets the block-local radius
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,44 +64,157 @@ def knn(query, ref, k: int, ref_mask=None, *, exclude_self: bool = False):
     (n, k) indices; masked/missing slots are +inf / 0). Ties go to the
     lower reference index, as ``lax.top_k`` resolves them. D > 8 and
     k <= 128: kernel 3 on (n, D) / (m, D) inputs. Otherwise leading batch
-    dimensions of ``query``/``ref`` are supported for ``exclude_self``
-    False."""
+    dimensions of ``query``/``ref`` are supported."""
     if query.shape[-1] > _DIFF_DIM_MAX and k <= MAX_K:
         return knn_feature(query, ref, k, ref_mask, exclude_self=exclude_self)
-    n, m = query.shape[-2], ref.shape[-2]
-    dev = query.device
+    m = ref.shape[-2]
     mask = (
-        torch.ones(ref.shape[:-1], dtype=torch.bool, device=dev)
+        torch.ones(ref.shape[:-1], dtype=torch.bool, device=query.device)
         if ref_mask is None
         else ref_mask.to(torch.bool)
     )
-    kk = min(k, m)
-    outs_d, outs_i = [], []
+    if k > 1:
+        if query.dim() == 2 and query.shape[0] * m > _LOCAL_PAIRS:
+            return _knn_local(query, ref, k, mask, exclude_self)
+        return _knn_topk_merge(query, ref, k, mask, exclude_self)
     block = max(1, min(_QUERY_BLOCK, _SLAB_ELEMS // max(m, 1)))
-    for s in range(0, max(n, 1), block):
+    outs_d, outs_i = [], []
+    for s in range(0, max(query.shape[-2], 1), block):
         q = query[..., s:s + block, :]
-        dist = pairwise_sqdist(q, ref)
-        bad = ~mask[..., None, :]
-        if exclude_self:
-            rows = torch.arange(s, s + q.shape[-2], device=dev)
-            bad = bad | (rows[:, None] == torch.arange(m, device=dev)[None, :])
-        dist = torch.where(bad, torch.inf, dist)
-        if kk == 1:
-            best_i = dist.argmin(dim=-1, keepdim=True)
-            best_d = torch.gather(dist, -1, best_i)
-        else:
-            best_d, best_i = torch.sort(dist, dim=-1, stable=True)
-            best_d, best_i = best_d[..., :kk], best_i[..., :kk]
-        outs_d.append(best_d)
+        dist = torch.where(_bad(mask, s, q.shape[-2], 0, m, exclude_self),
+                           torch.inf, pairwise_sqdist(q, ref))
+        best_i = dist.argmin(dim=-1, keepdim=True)
+        outs_d.append(torch.gather(dist, -1, best_i))
         outs_i.append(best_i)
     best_d = torch.cat(outs_d, dim=-2)
-    best_i = torch.cat(outs_i, dim=-2)
-    if kk < k:
-        fill = best_d.shape[:-1] + (k - kk,)
-        best_d = torch.cat([best_d, torch.full(fill, torch.inf, device=dev)], -1)
-        best_i = torch.cat([best_i, torch.zeros(fill, dtype=best_i.dtype, device=dev)], -1)
-    best_i = torch.where(torch.isfinite(best_d), best_i, 0)
+    best_i = torch.where(torch.isfinite(best_d), torch.cat(outs_i, dim=-2), 0)
     return best_d, best_i.to(torch.int32)
+
+
+def _bad(mask, r0: int, nr: int, c0: int, nc: int, exclude_self: bool):
+    """(..., nr, nc) excluded candidates: masked references, and with
+    ``exclude_self`` the query's own row."""
+    bad = ~mask[..., None, c0:c0 + nc]
+    if exclude_self:
+        dev = mask.device
+        rows = torch.arange(r0, r0 + nr, device=dev)
+        bad = bad | (rows[:, None] == torch.arange(c0, c0 + nc, device=dev)[None, :])
+    return bad
+
+
+_INF_KEY = 0x7F800000 << 32  # the key of (+inf, index 0)
+
+
+def _topk_keys(q, r, k: int, bad_fn, r_cols):
+    """(..., nq, k) smallest int64 keys (float32 bits of the squared
+    distance << 32) | reference index, over ``r`` in chunks with a running
+    merge. The key order equals (distance, index) order for distances >= 0,
+    so ``torch.topk`` selects exactly what ``lax.top_k`` does and no two
+    keys tie. ``bad_fn(c0, nc)`` masks candidates; ``r_cols`` (m,) are the
+    references' indices in the caller's numbering."""
+    lead = torch.broadcast_shapes(q.shape[:-2], r.shape[:-2])
+    m, d = r.shape[-2], q.shape[-1]
+    chunk = max(1, min(_REF_CHUNK, m))
+    best = torch.tensor(_INF_KEY, dtype=torch.int64, device=q.device).expand(
+        *lead, q.shape[-2], k)
+    for c0 in range(0, m, chunk):
+        rc = r[..., c0:c0 + chunk, :]
+        diff = q[..., :, None, :] - rc[..., None, :, :]
+        dist = xla_sqnorm(diff) if d in (2, 3) else (diff * diff).sum(-1)
+        dist = torch.where(bad_fn(c0, rc.shape[-2]), torch.inf, dist)
+        key = (dist.view(torch.int32).to(torch.int64) << 32) | r_cols[c0:c0 + chunk]
+        best = torch.topk(torch.cat([best, key], dim=-1), k, dim=-1, largest=False).values
+    return best
+
+
+def _decode(best):
+    best_d = (best >> 32).to(torch.int32).view(torch.float32)
+    best_i = torch.where(torch.isfinite(best_d), best & 0xFFFFFFFF, 0)
+    return best_d, best_i.to(torch.int32)
+
+
+def _knn_topk_merge(query, ref, k: int, mask, exclude_self: bool):
+    """``_knn_xla``'s chunked search with a running top-k merge
+    (``_topk_keys``) over every reference."""
+    n, m = query.shape[-2], ref.shape[-2]
+    dev = query.device
+    lead = torch.broadcast_shapes(query.shape[:-2], ref.shape[:-2], mask.shape[:-1])
+    chunk = max(1, min(_REF_CHUNK, m))
+    block = max(1, min(n, _SLAB_ELEMS // (chunk * max(lead.numel(), 1))))
+    cols = torch.arange(m, device=dev)
+    outs = []
+    for s in range(0, max(n, 1), block):
+        q = query[..., s:s + block, :]
+        outs.append(_topk_keys(
+            q, ref, k, lambda c0, nc: _bad(mask, s, q.shape[-2], c0, nc, exclude_self), cols))
+    return _decode(torch.cat(outs, dim=-2))
+
+
+def _knn_local(query, ref, k: int, mask, exclude_self: bool):
+    """The k > 1 search in spatially compact query blocks (2-d inputs).
+    Queries are ordered along a serpentine path through a grid of cells
+    holding ~``_LOCAL_BLOCK`` points each; a block's candidates are the
+    valid references in its bounding box grown by r (1.25x the 90th
+    percentile of the k-th distance of a sample of queries) plus a
+    rounding margin. A reference outside the box lies more
+    than r away on some axis, so wherever a row's k-th squared distance is
+    below r^2 its k nearest are all candidates and its keys are the
+    brute-force ones; the other rows retry with 2r, and once r spans the
+    cloud with every reference."""
+    n, m = query.shape[0], ref.shape[0]
+    dev = query.device
+    both = torch.cat([query, ref[mask]])
+    lo, hi = both.min(0).values, both.max(0).values
+    ext = torch.clamp(hi - lo, min=1e-6)
+    dims = ext.numel()
+    slack = 4.0 * float(torch.finfo(torch.float32).eps) * float(both.abs().max())
+    side = float((ext.prod() * _LOCAL_BLOCK / max(n, 1)) ** (1.0 / dims))
+    ncell = (torch.floor(ext / side).to(torch.int64) + 1).tolist()
+    cell = torch.clamp(torch.floor((query - lo) / side).to(torch.int64), min=0)
+    lin = cell[:, 0]
+    for a in range(1, dims):
+        # Serpentine: odd rows of the cells so far run this axis backwards.
+        c = torch.where(lin % 2 == 1, ncell[a] - 1 - cell[:, a], cell[:, a])
+        lin = lin * ncell[a] + c
+    order = torch.sort(lin, stable=True).indices
+    # r0: 1.25x the 90th percentile of the k-th distance over a sample of
+    # queries against every reference.
+    cand = torch.nonzero(mask).squeeze(1)
+    probe = torch.linspace(0, n - 1, min(n, _PROBE_ROWS), device=dev).long()
+    best = _topk_keys(query[probe], ref[cand], k,
+                      lambda c0, nc: (probe[:, None] == cand[None, c0:c0 + nc]) & exclude_self,
+                      cand)
+    kth = (best[:, -1] >> 32).to(torch.int32).view(torch.float32)
+    kth = kth[torch.isfinite(kth)]
+    span = float(ext.max())
+    r0 = 1.25 * float(torch.sqrt(torch.quantile(kth, 0.9))) if kth.numel() else span
+    r0 = max(r0, 1e-6 * span)
+    out = torch.empty((n, k), dtype=torch.int64, device=dev)
+    for s in range(0, n, _LOCAL_BLOCK):
+        todo, r = order[s:s + _LOCAL_BLOCK], r0
+        while todo.numel():
+            q = query[todo]
+            if r > span:
+                cand = torch.nonzero(mask).squeeze(1)
+            else:
+                pad = 1.01 * r + slack
+                box = (ref >= q.min(0).values - pad) & (ref <= q.max(0).values + pad)
+                cand = torch.nonzero(mask & box.all(1)).squeeze(1)
+
+            def bad(c0, nc, todo=todo, cand=cand):
+                if not exclude_self:
+                    return torch.zeros((1, nc), dtype=torch.bool, device=dev)
+                return todo[:, None] == cand[None, c0:c0 + nc]
+
+            best = _topk_keys(q, ref[cand], k, bad, cand)
+            if r > span:
+                out[todo] = best
+                break
+            kth = (best[:, -1] >> 32).to(torch.int32).view(torch.float32)
+            done = kth < r * r
+            out[todo[done]] = best[done]
+            todo, r = todo[~done], 2.0 * r
+    return _decode(out)
 
 
 def nn1(query, ref, ref_mask=None, **kw):

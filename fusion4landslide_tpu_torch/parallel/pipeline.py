@@ -27,6 +27,7 @@ from fusion4landslide_tpu_torch.io.results import (
     save_txt,
     visual_clamp_magnitude,
 )
+from fusion4landslide_tpu_torch.ops.partition_io import load_or_generate_partition_labels
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer, is_rockfall, write_f2s3_outputs
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
@@ -106,8 +107,6 @@ def fusion3d_statics(cfg: dict, N: int, M: int, *, with_image: bool = False) -> 
     """Static step options from a flat config dict (the JAX runner's
     derivation, ``parallel/pipeline.py:388-448``); ``with_image`` adds the
     RGB channel's."""
-    if str(cfg.get("partition_type", "supervoxel")) == "superpoint":
-        raise NotImplementedError("partition_type 'superpoint' is not ported yet")
     sv_cap = int(cfg.get("sv_cap", 0)) or max(bucket_size(max(N // 16, 1)), 64)
     sv_cap_t = int(cfg.get("sv_cap_tgt", 0)) or max(bucket_size(max(M // 16, 1)), 64)
     member_cap = int(cfg.get("member_cap", 0)) or 512
@@ -213,14 +212,35 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     os.makedirs(results_dir, exist_ok=True)
     dips = dips.to(dev).eval()
     agg = agg.to(dev).eval()
+    # partition_type: superpoint: per-point labels per level from each
+    # tile's table, generated when absent (the host tile's loader);
+    # sharded_partition_fallback: true keeps the supervoxel levels.
+    use_partition = (str(cfg.get("partition_type", "supervoxel")) == "superpoint"
+                     and not bool(cfg.get("sharded_partition_fallback", False)))
+    if (str(cfg.get("partition_type", "supervoxel")) == "superpoint" and not use_partition
+            and logger):
+        logger.warning("partition_type=superpoint: the step partitions with multi-level "
+                       "supervoxels (sharded_partition_fallback: true)")
+
+    def partition_labels(tile_id, pts, which, size):
+        labs = load_or_generate_partition_labels(out_root, "superpoint", tile_id, which, pts,
+                                                 statics["levels"], logger=logger, device=dev,
+                                                 timings=timings)
+        lab = np.full((len(labs), size), -1, np.int32)
+        for li, pl in enumerate(labs):
+            lab[li, :pl.shape[0]] = pl
+        return torch.from_numpy(lab).to(dev)
 
     results: dict = {}
     for tile_id, src, tgt in tiles:
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         images = {}
+        if use_partition:
+            images = dict(sp_lab_src=partition_labels(tile_id, src, "src", N),
+                          sp_lab_tgt=partition_labels(tile_id, tgt, "tgt", M))
         if with_image:
-            images = _image_inputs(image_kit_fn(tile_id, src, tgt), n_image_pairs, pix_cap,
+            images |= _image_inputs(image_kit_fn(tile_id, src, tgt), n_image_pairs, pix_cap,
                                    center, cfg, tile_id, dev, logger)
         out = fusion3d_tile_step(
             dips, agg, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,

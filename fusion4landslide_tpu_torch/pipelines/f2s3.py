@@ -93,7 +93,8 @@ def compute_dips_features(model, core_pts, halo_pts, radius, *,
     () sampler window overflow count). ``n_core``: exclusive bound on the
     valid query rows (padded clouds); rows at or past it get zeros."""
     if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128")
+        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
+                                  "ROADMAP.md queue 1 item 10)")
     n = core_pts.shape[0]
     dev = core_pts.device
     nb = max(bucket_size(n), chunk)
@@ -328,11 +329,12 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     Runs on ``device`` (default ``cuda``); ``timings`` (optional dict)
     collects per-stage seconds, synchronised at each stage boundary."""
     if not cfg.get("feat_compute", True):
-        raise NotImplementedError("the feature cache (feat_compute: false) is not ported")
+        raise NotImplementedError("the feature cache (feat_compute: false) is not ported "
+                                  "(ROADMAP.md queue 1 item 6)")
     if cfg.get("save_interim", False):
-        raise NotImplementedError("save_interim is not ported")
+        raise NotImplementedError("save_interim is not ported (ROADMAP.md queue 1 item 6)")
     if cfg.get("feat_dtype") not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported")
+        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
     dev = resolve_device(device)
     timer = StageTimer(timings, dev)
     dips, filt = dips.to(dev).eval(), filt.to(dev).eval()

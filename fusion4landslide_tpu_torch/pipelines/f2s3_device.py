@@ -69,7 +69,7 @@ def dips_features_device(model, query, support, support_mask, radius, *,
     if patch_points % 128:
         raise NotImplementedError(
             "patch_points % 128 != 0 takes the JAX package's CPU sampler, "
-            "which is not ported"
+            "which is not ported (ROADMAP.md queue 1 item 10)"
         )
     return compute_dips_features(
         model, query, support, radius, patch_points=patch_points, chunk=chunk,
@@ -135,9 +135,10 @@ def f2s3_tile_step(
     synchronising the device at each stage boundary.
     """
     if feat_dtype not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported")
+        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
     if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128")
+        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
+                                  "ROADMAP.md queue 1 item 10)")
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)

@@ -17,9 +17,16 @@ Port of ``fusion4landslide_tpu.pipelines.fusion``:
   pairs): unpadded clouds, numpy bookkeeping between the stages, the same
   ``c2f_*`` tables as the runner.
 
+``partition_type: superpoint`` takes each level's labels per tile point
+from the reference's 15-column table (``ops/partition_io.py``, generated
+by ``ops/superpoint.py`` when absent), gives each voxel its first point's
+label and dedups the per-level output tables with the reference's
+distance threshold (``ops/merge.py``). ``icp_type`` selects the fine
+stage's solver (``ops/registration.py::icp_by_type``).
+
 Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-``partition_type: superpoint``, ICP types other than point2point, bf16
-descriptors, the learned image matchers and the figure writers.
+bf16 descriptors, patch sizes that are not a multiple of 128 and the
+figure writers.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ from fusion4landslide_tpu_torch.ops.gated_match import gated_feature_nn1
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
 from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1, nn1_xla_rounded
+from fusion4landslide_tpu_torch.ops.merge import merge_correspondences_by_priority
 from fusion4landslide_tpu_torch.ops.normals import pca_normals
+from fusion4landslide_tpu_torch.ops.partition_io import load_or_generate_partition_labels
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_graph, supervoxel_segmentation
@@ -258,8 +267,6 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
     Dead pairs (label -1 or empty member mask) solve to exactly
     (I, 0, rmse 0, valid False, 0 matches) and are not computed: only live
     pairs go through the solver, ``pair_chunk`` at a time."""
-    if icp_type != "point2point":
-        raise NotImplementedError(f"icp_type {icp_type!r} is not ported yet")
     Pairs = src_members.shape[0]
     dev, f32 = src_vox.device, src_vox.dtype
     R = torch.eye(3, dtype=f32, device=dev).repeat(Pairs, 1, 1)
@@ -282,6 +289,15 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
         )
         R[idx], t[idx], rmse[idx], valid[idx], n_match[idx] = out
     return FinePairResult(R=R, t=t, rmse=rmse, valid=valid, n_matches=n_match)
+
+
+def _first_point_of_voxel(p2v: np.ndarray, n_vox: int) -> np.ndarray:
+    """(n_vox,) lowest point index of each voxel (0 for an empty one)."""
+    first = np.zeros(n_vox, np.int64)
+    rev = p2v[::-1]
+    sel = rev < n_vox
+    first[rev[sel]] = np.arange(len(p2v))[::-1][sel]
+    return first
 
 
 def _compact_labels(labels: np.ndarray, min_count: int) -> tuple[np.ndarray, int]:
@@ -320,12 +336,8 @@ def _not_ported(what: str, item: int):
 
 def _check_ported(cfg, image_data) -> None:
     """Raise for the options the host tile does not run yet."""
-    if str(cfg.get("partition_type", "supervoxel")) == "superpoint":
-        raise _not_ported("partition_type: superpoint", 2)
     if cfg.get("feat_dtype") not in (None, "float32"):
         raise _not_ported(f"feat_dtype: {cfg.get('feat_dtype')}", 3)
-    if str(cfg.get("icp_type", "point2point")) != "point2point":
-        raise _not_ported(f"icp_type: {cfg.get('icp_type')}", 4)
     if int(cfg.get("feat_patch_points", 256)) % 128:
         raise _not_ported("feat_patch_points not a multiple of 128 (the CPU DIPs branch)", 10)
     if bool(cfg.get("visualize_patch", False)):
@@ -432,6 +444,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     max_mag = float(cfg.get("max_magnitude", 10.0))
     icp_thr = float(cfg.get("icp_threshold", 0.1))
+    icp_type = str(cfg.get("icp_type", "point2point"))
     # icp_refine: False returns the SVD transform (base:3346).
     icp_iter = 30 if bool(cfg.get("icp_refine", True)) else 0
     levels = list(cfg.get("level_of_superpoint", [1, 2, 3]) or [1])
@@ -599,11 +612,29 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     base_svl_radius = max(radius, float(cfg.get("voxel_size_init", 0.0) or 0.0))
     n_src_pts, n_tgt_pts = s.shape[0], t.shape[0]
+    # partition_type: superpoint (base:1241-1276): per-point labels of each
+    # level from the tile's table (generated when absent); each voxel takes
+    # its first point's label.
+    use_spt = str(cfg.get("partition_type", "supervoxel")) == "superpoint"
+    if use_spt:
+        spt_labels = {
+            which: load_or_generate_partition_labels(
+                out_root, "superpoint", tile_id, which, core, levels, logger=logger,
+                device=dev, timings=timings)
+            for which, core in (("src", src_core), ("tgt", tgt_core))
+        }
+        first_pt = {"src": _first_point_of_voxel(s_p2v, s_nv),
+                    "tgt": _first_point_of_voxel(t_p2v, t_nv)}
+        timer.mark("partition_tables")
     # Per-point transforms merged across levels by priority (list order).
     merged_R = np.tile(np.eye(3, dtype=np.float32), (n_src_pts, 1, 1))
     merged_t = np.zeros((n_src_pts, 3), np.float32)
     merged_valid = np.zeros(n_src_pts, bool)
     merged_rmse = np.zeros(n_src_pts, np.float32)
+    # The level that claimed each point: the superpoint tables' cross-level
+    # dedup (coarse_to_fine_matching.py:40-118, :282-287) reads it.
+    merged_level = np.full(n_src_pts, -1, np.int8)
+    t2s_level = np.full(n_tgt_pts, -1, np.int8)
     # tgt->src: each pair's inverse transform on its target patch's points
     # (base:3386-3393).
     t2s_R = np.tile(np.eye(3, dtype=np.float32), (n_tgt_pts, 1, 1))
@@ -631,8 +662,14 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     for li, level in enumerate(levels):
         svl_radius = base_svl_radius * (2.0 ** (int(level) - 1))
-        lab_s, n_s = _compact_labels(segment("src", src_vox_d, svl_radius), small_patch)
-        lab_t, n_t = _compact_labels(segment("tgt", tgt_vox_d, svl_radius), small_patch)
+        if use_spt:
+            raw_s = spt_labels["src"][li][first_pt["src"]]
+            raw_t = spt_labels["tgt"][li][first_pt["tgt"]]
+        else:
+            raw_s = segment("src", src_vox_d, svl_radius)
+            raw_t = segment("tgt", tgt_vox_d, svl_radius)
+        lab_s, n_s = _compact_labels(raw_s, small_patch)
+        lab_t, n_t = _compact_labels(raw_t, small_patch)
         if bool(cfg.get("use_debugging", False)):
             # Only the first num_spt superpoints of each epoch
             # (coarse_to_fine_matching.py:292-308).
@@ -714,7 +751,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
             on_dev(ch1_idx, torch.int32), on_dev(ch1_valid), lab_t_dev, src_vox_d, tgt_vox_d,
             num_min_quality=num_min_quality, thres_dist_diff=thres_dd,
             thres_inlier_ratio=thres_ir, num_min_fine=num_min_fine, icp_threshold=icp_thr,
-            icp_max_iter=icp_iter, fine_max_matches=fine_cap, **fine_kw,
+            icp_max_iter=icp_iter, icp_type=icp_type, fine_max_matches=fine_cap, **fine_kw,
         )
         fR = fine.R[:n_pairs].cpu().numpy()
         ft = fine.t[:n_pairs].cpu().numpy()
@@ -734,6 +771,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         take = (pt_label >= 0) & lab_ok[np.clip(pt_label, 0, None)] & ~merged_valid
         lbl = np.clip(pt_label, 0, None)[take]
         merged_R[take], merged_t[take], merged_rmse[take] = lab_R[lbl], lab_t_arr[lbl], lab_rmse[lbl]
+        merged_level[take] = li
         merged_valid |= take
 
         if out_tgt2src:
@@ -748,6 +786,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
             ttake = (tp_label >= 0) & tlab_ok[np.clip(tp_label, 0, None)] & ~t2s_valid
             tl = np.clip(tp_label, 0, None)[ttake]
             t2s_R[ttake], t2s_t[ttake] = tlab_R[tl], tlab_t[tl]
+            t2s_level[ttake] = li
             t2s_valid |= ttake
         per_level_stats.append((level, n_s, int(fvalid.sum())))
         log("tile %s level %s: %d src spts, %d matched pairs, %d fine-valid",
@@ -759,8 +798,21 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     # re-association runs, and joined before returning.
     writer = ThreadPoolExecutor(max_workers=1)
     write_futs = []
+    # With superpoint tables over several levels the reference dedups each
+    # output table across levels by priority with a distance threshold
+    # (coarse_to_fine_matching.py:282-287).
+    merge_thr = float(cfg.get("merge_distance_threshold", 1e-3))
+
+    def level_merge(rows: np.ndarray, row_level: np.ndarray) -> np.ndarray:
+        if not (use_spt and len(levels) > 1):
+            return rows
+        return merge_correspondences_by_priority(
+            [rows[row_level == li] for li in range(len(levels))],
+            distance_threshold=merge_thr, device=dev)
+
     moved = np.einsum("nij,nj->ni", merged_R, s) + merged_t
-    dvfs_dense = np.hstack([src_core[merged_valid], moved[merged_valid] + center])
+    dvfs_dense = level_merge(np.hstack([src_core[merged_valid], moved[merged_valid] + center]),
+                             merged_level[merged_valid])
     dvfms = np.hstack([dvfs_dense[:, :3], dvf_magnitudes(dvfs_dense)[:, None]])
 
     def write_dense():
@@ -789,7 +841,8 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         d = np.sqrt(d2[:nq, 0].cpu().numpy())
         ok = np.isfinite(d) & (d < adaptive)
         nn_idx = nn_idx[:nq, 0].cpu().numpy()
-        dvfs_sparse = np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center])
+        dvfs_sparse = level_merge(np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center]),
+                                  merged_level[merged_valid][ok])
         sparse_ms = np.hstack([dvfs_sparse[:, :3], dvf_magnitudes(dvfs_sparse)[:, None]])
         write_futs.append(writer.submit(
             save_txt,
@@ -800,7 +853,8 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     if out_tgt2src and t2s_valid.any():
         src_est = np.einsum("nij,nj->ni", t2s_R[t2s_valid], t[t2s_valid]) + t2s_t[t2s_valid]
-        dvfs_t2s = np.hstack([src_est + center, tgt_core[t2s_valid]])
+        dvfs_t2s = level_merge(np.hstack([src_est + center, tgt_core[t2s_valid]]),
+                               t2s_level[t2s_valid])
         save_txt(osp.join(results_dir, f"c2f_dvfms_tgt2src_tile_{tile_id}.txt"),
                  np.hstack([dvfs_t2s[:, 3:6], dvf_magnitudes(dvfs_t2s)[:, None]]))
 

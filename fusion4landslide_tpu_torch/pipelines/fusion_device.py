@@ -23,9 +23,14 @@ member_cap)``, 2D-vote pairs that no 3D pair proposed go to a per-level
 extras table of ``extra_pair_cap`` rows, and what falls past them is
 counted in ``n_dropped``.
 
-Not ported yet (raise ``NotImplementedError``): precomputed partition
-inputs (``sp_lab_*``), ICP types other than point2point, and bf16
-descriptors.
+Precomputed partition inputs (``sp_lab_src`` / ``sp_lab_tgt``, the
+reference's ``partition_type: superpoint``) replace the supervoxel levels:
+each voxel takes its first point's label, with the flat ``sv_cap`` at
+every level. ``icp_type`` selects the fine stage's solver
+(``ops/registration.py::icp_by_type``).
+
+Not ported yet (raise ``NotImplementedError``): bf16 descriptors and
+patch sizes that are not a multiple of 128.
 """
 
 from __future__ import annotations
@@ -258,8 +263,13 @@ class Fusion3DTileResult(NamedTuple):
     overflow_by_source: dict | None = None  # overflow split: {"sampler", "grid_knn"}
 
 
-def _per_level_caps(cap, n_levels: int):
+def _per_level_caps(cap, n_levels: int, flat: bool = False):
+    """Per-level superpoint caps: each supervoxel level doubles the radius,
+    so an int cap shrinks 4x a level down to 256; partition inputs carry
+    no such guarantee and keep it flat (``flat``)."""
     if isinstance(cap, int):
+        if flat:
+            return (cap,) * n_levels
         floor = min(256, cap)
         return tuple(max(cap >> (2 * li), floor) for li in range(n_levels))
     return tuple(cap)
@@ -334,19 +344,20 @@ def fusion3d_tile_step(
     differing 2D-vote pair, the 3D pair wins and the 2D pair claims only
     points the 3D pair left unassigned, as in the JAX step.
 
+    ``sp_lab_src`` / ``sp_lab_tgt`` ((L, N) / (L, M) per-point labels of
+    the ``levels``, -1 for none) replace the supervoxel levels;
+    ``icp_type`` is the fine stage's solver (``ops/registration.py``).
+
     The JAX step takes a PRNG key; on the accelerator branch this port
     follows, the key feeds nothing (the patch sampler runs with seed 0),
     so the port takes none. ``timings`` (optional dict) accumulates
     per-stage seconds, synchronising the device at each stage boundary.
     """
-    if sp_lab_src is not None or sp_lab_tgt is not None:
-        raise NotImplementedError("precomputed partition inputs are not ported yet")
-    if icp_type != "point2point":
-        raise NotImplementedError(f"icp_type {icp_type!r} is not ported yet")
     if feat_dtype not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported")
+        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
     if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128")
+        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
+                                  "ROADMAP.md queue 1 item 10)")
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
@@ -438,12 +449,25 @@ def fusion3d_tile_step(
         stages.mark("rgb_2d")
 
     base_svl = torch.clamp(radius, min=float(voxel_size_init))
-    gi_s, gm_s, ov_s = supervoxel_graph(s_cent, base_svl, vvalid_s, k_neighbors=k_neighbors)
-    nrm_s = pca_normals(s_cent, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s)
-    gi_t, gm_t, ov_t = supervoxel_graph(t_cent, base_svl, vvalid_t, k_neighbors=k_neighbors)
-    ov_sampler = ov_sampler + ov_s + ov_t
-    nrm_t = pca_normals(t_cent, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t)
-    stages.mark("graph_normals")
+    use_partition_inputs = sp_lab_src is not None
+    if use_partition_inputs:
+        # Per-point partition labels (L, N) / (L, M), -1 for none: each
+        # voxel takes its first member point's label, as the host tile.
+        sp_lab_src = torch.as_tensor(sp_lab_src, device=dev).to(torch.int32)
+        sp_lab_tgt = torch.as_tensor(sp_lab_tgt, device=dev).to(torch.int32)
+        first_s = torch.full((N,), N, dtype=torch.int64, device=dev).scatter_reduce(
+            0, s_p2v.long(), torch.arange(N, device=dev), reduce="amin")
+        first_t = torch.full((M,), M, dtype=torch.int64, device=dev).scatter_reduce(
+            0, t_p2v.long(), torch.arange(M, device=dev), reduce="amin")
+    else:
+        gi_s, gm_s, ov_s = supervoxel_graph(s_cent, base_svl, vvalid_s,
+                                            k_neighbors=k_neighbors)
+        nrm_s = pca_normals(s_cent, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s)
+        gi_t, gm_t, ov_t = supervoxel_graph(t_cent, base_svl, vvalid_t,
+                                            k_neighbors=k_neighbors)
+        ov_sampler = ov_sampler + ov_s + ov_t
+        nrm_t = pca_normals(t_cent, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t)
+        stages.mark("graph_normals")
 
     eye = torch.eye(3, dtype=f32, device=dev)
     merged_R = eye.repeat(N, 1, 1)
@@ -455,14 +479,20 @@ def fusion3d_tile_step(
     t2s_valid = torch.zeros((M,), dtype=torch.bool, device=dev)
     n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
 
-    sv_caps = _per_level_caps(sv_cap, len(levels))
-    sv_caps_t = sv_caps if sv_cap_tgt is None else _per_level_caps(sv_cap_tgt, len(levels))
+    sv_caps = _per_level_caps(sv_cap, len(levels), use_partition_inputs)
+    sv_caps_t = (sv_caps if sv_cap_tgt is None
+                 else _per_level_caps(sv_cap_tgt, len(levels), use_partition_inputs))
 
     lab_s_prev = lab_t_prev = n_s_prev = n_t_prev = None
     for li, level in enumerate(levels):
         sv_cap_l, sv_cap_tl = sv_caps[li], sv_caps_t[li]
         svl_radius = base_svl * (2.0 ** (int(level) - 1))
-        if li == 0:
+        if use_partition_inputs:
+            raw_s = torch.where(vvalid_s & (first_s < N),
+                                sp_lab_src[li][torch.clamp(first_s, max=N - 1)], -1)
+            raw_t = torch.where(vvalid_t & (first_t < M),
+                                sp_lab_tgt[li][torch.clamp(first_t, max=M - 1)], -1)
+        elif li == 0:
             raw_s = supervoxel_segmentation(
                 s_cent, svl_radius, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s,
                 normals=nrm_s,

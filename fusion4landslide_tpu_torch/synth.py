@@ -26,6 +26,7 @@ __all__ = [
     "synth_image_channel",
     "synth_overlap_tile",
     "synth_rgb_tile",
+    "synth_rough_split_tile",
     "synth_small_rgb_tile",
     "synth_split_tile",
     "synth_textured_images",
@@ -110,6 +111,28 @@ def synth_split_tile(n_core: int, src_margin: float, tgt_margin: float,
     ks = crop(src_margin)
     kt = crop(tgt_margin)
     return src[ks], tgt[kt], core[ks], moving[ks]
+
+
+def synth_rough_split_tile(n_core: int = 1000, density: float = 100.0, seed: int = 0):
+    """A small split tile (``synth_split_tile``'s margins, 1.0 m source
+    and 1.5 m target) on a surface with relief at the metre scale, whose
+    half x > side / 2 moves by ``PLANTED_SHIFT``. The shipped slope is
+    nearly planar at a small tile's scale (periods of 20-37 m), where the
+    point-to-plane and generalized ICP solves are ill-posed. Returns
+    (src, tgt) float32."""
+    rng = np.random.default_rng(seed)
+    side = float(np.sqrt(n_core / density)) + 3.0
+    xy = rng.uniform(0, side, size=(int(density * side * side), 2))
+    z = (0.4 * np.sin(2.1 * xy[:, 0]) + 0.4 * np.cos(1.7 * xy[:, 1])
+         + 0.3 * np.sin(1.3 * (xy[:, 0] + xy[:, 1])) + rng.normal(scale=0.02, size=len(xy)))
+    src = np.column_stack([xy, z]).astype(np.float32)
+    tgt = src.copy()
+    tgt[src[:, 0] > side / 2] += PLANTED_SHIFT
+
+    def inner(m):
+        return ((xy >= 1.5 - m) & (xy < side - 1.5 + m)).all(1)
+
+    return src[inner(1.0)], tgt[inner(1.5)]
 
 
 def synth_image_channel(src: np.ndarray, tgt: np.ndarray, n_matches: int,

@@ -7,6 +7,7 @@ module outputs through Flax and through the port within 1e-5."""
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models.convert import (
     CHECKPOINT_NAMES,

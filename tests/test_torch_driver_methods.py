@@ -17,6 +17,7 @@ within 1e-4 px); flows that differ by ~1e-5 px flip near-tie pixel chains
 fit, so the rgb_guided comparison feeds the JAX matcher's matches to the
 port's driver; the HDBSCAN run keeps the port's own matcher."""
 
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 import os
 import sys
 from pathlib import Path

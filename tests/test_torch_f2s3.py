@@ -7,12 +7,12 @@ versions. Same numpy inputs and the same (bridged) weights on both sides.
 """
 
 import functools
-import os.path as osp
 
 import jax
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models import dips as tdips
 from fusion4landslide_tpu_torch.models.convert import filter_from_flax, state_dict_from_flax
@@ -253,48 +253,6 @@ def test_f2s3_tile_step_matches_emulated_jax(tile, params, port_out, tpu_branch)
     cj, ct = jo.c2c[:n].astype(np.float64), to.c2c[:n].numpy().astype(np.float64)
     assert (np.abs(cj - ct) <= 1e-5).mean() >= 0.995
     np.testing.assert_allclose(cj**2, ct**2, atol=8e-6)
-
-
-def test_f2s3_runner_writes_the_step_tables(tile, params, port_out, tmp_path):
-    from fusion4landslide_tpu_torch.parallel.pipeline import f2s3_statics, run_f2s3_tiles
-
-    _, _, td, tf = params
-    cfg = {
-        "output_dir": str(tmp_path), "output_folder": "run", "voxel_size": VOXEL,
-        "max_disp_magnitude": MAX_DISP, "filter_median_magnitude": True,
-        "fill_gaps_c2c": True, "refine_results": True, "n_normals": 30,
-        "feat_patch_points": 128, "feat_chunk": 512, "member_cap": 256,
-    }
-    src, tgt = tile["src"], tile["tgt"]
-    res = run_f2s3_tiles(cfg, td, tf, [(3, src, tgt)], device="cpu")
-    N, M = tile["sb"].shape[0], tile["tb"].shape[0]
-    statics = f2s3_statics(cfg, N, M)
-    assert statics == {**STATICS, "feat_dtype": None}
-    out = port_out
-    n, c = tile["n"], src.mean(0)
-    keep = out.keep[:n].numpy()
-    s = tile["sb"][:n]
-    results = osp.join(tmp_path, "run", "results")
-
-    def load(name, cols):
-        return np.loadtxt(osp.join(results, name)).reshape(-1, cols)
-
-    want = np.hstack([s[keep] + c, out.new_tgt[:n].numpy()[keep] + c])
-    np.testing.assert_allclose(load("f2s3_dvfs_of_tile_3.txt", 6), want, atol=2e-6)
-    np.testing.assert_array_equal(res[3]["keep"], keep)
-    mags = out.mag[:n].numpy()[keep]
-    np.testing.assert_allclose(load("f2s3_dvfms_of_tile_3.txt", 4)[:, 3], mags, atol=2e-6)
-    mag0 = np.linalg.norm(out.nn_tgt[:n].numpy() - s, axis=1)
-    np.testing.assert_allclose(load("f2s3_dvfms_without_pruning_of_tile_3.txt", 4)[:, 3], mag0, atol=2e-6)
-    c2c = out.c2c[:n].numpy().copy()
-    c2c[keep] = mags
-    np.testing.assert_allclose(
-        load(osp.join("combined_with_c2c", "f2s3_dvfms_combined_with_c2c_of_tile_3.txt"), 4)[:, 3],
-        c2c, atol=2e-6,
-    )
-    for name in ("f2s3_dvfms_of_tile_3_visualize_0_5.txt",
-                 osp.join("filtered_by_magnitude", "f2s3_dvfms_filtered_by_median_mag_of_tile_3.txt")):
-        assert osp.exists(osp.join(results, name)), name
 
 
 def test_unported_f2s3_options_raise(tile, params):

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models import dips as tdips
 from fusion4landslide_tpu_torch.models.convert import filter_from_flax, state_dict_from_flax

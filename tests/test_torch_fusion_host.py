@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models import aggregation as tagg
 from fusion4landslide_tpu_torch.models import dips as tdips
@@ -327,14 +328,10 @@ def test_merge_by_priority_matches_jax():
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"partition_type": "superpoint"}, "item 2"),
     ({"feat_dtype": "bfloat16"}, "item 3"),
-    ({"icp_type": "point2plane"}, "item 4"),
     ({"feat_patch_points": 100}, "item 10"),
     ({"visualize_patch": True}, "item 14"),
     ({"use_2d_matches": True, "save_img_matching_visualization": True}, "item 14"),
-    ({"use_2d_matches": True, "no_matches": True, "img_matching_type": "loftr",
-      "image_size": [64, 64]}, "item 9"),
 ])
 def test_unported_host_options_raise(tmp_path, extra, item):
     from fusion4landslide_tpu_torch.models.convert import seeded_models

@@ -12,6 +12,7 @@ matcher, so the comparison sees the tile's own stages (flows ~1e-5 px
 apart would flip near-tie pixel chains, see
 ``tests/test_torch_driver_methods.py``)."""
 
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 import sys
 from pathlib import Path
 

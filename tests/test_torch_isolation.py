@@ -1,11 +1,14 @@
 """The port and ``chip_smoke.py`` import neither JAX nor the JAX package:
 every module of the port (the drivers ``main_fusion``, ``main_f2s3``,
 ``main_rgb_guided`` and ``main_piecewise_icp`` and the learned image
-matchers among them)."""
+matchers, the superpoint partition, the registration solvers and classic
+LoFTR among them)."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -22,7 +25,8 @@ for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.image
              "ops.merge", "utils.logging", "main_rgb_guided", "main_piecewise_icp",
              "image.matching", "ops.clustering", "pipelines.rgb_guided",
              "pipelines.rgb_guided_device", "pipelines.piecewise_icp", "image.eloftr",
-             "image.roma", "image.crop", "image.flax_bridge"):
+             "image.roma", "image.crop", "image.flax_bridge", "ops.superpoint",
+             "ops.partition_io", "ops.registration", "image.loftr", "image.loftr_classic"):
     assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu.ops import hashgrid as jhg
 from fusion4landslide_tpu.ops import hashgrid_pallas as jhp

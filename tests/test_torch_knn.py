@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu.ops.knn_pallas import knn_pallas
 from fusion4landslide_tpu_torch.checks import knn_agreement

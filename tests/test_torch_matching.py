@@ -15,6 +15,7 @@ import pytest
 
 from fusion4landslide_tpu.image import matching as jm
 from fusion4landslide_tpu_torch.image import matching as tm
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 H, W = 240, 320
 FLOW_TOL_PX = 1e-4
@@ -100,10 +101,11 @@ def test_learned_matchers_fall_back_or_raise(tmp_path, monkeypatch, caplog):
     """Where the weights resolve (here the repository's
     ``weights/eloftr_tiny.npz``) E-LoFTR runs over the crops and returns
     JAX's matches (the same (u0, v0) cells, the flows within 1e-3 px:
-    ``tests/test_torch_eloftr.py``'s tolerance); classic LoFTR still raises,
-    naming ROADMAP item 9. Without provisioned weights a learned matcher
-    falls back to ZNCC with a warning, as in the JAX package, and RoMa
-    with ``allow_random`` refuses to run without weights, as JAX's does."""
+    ``tests/test_torch_eloftr.py``'s tolerance); ``loftr`` hands the same
+    file to ``torch.load`` and raises JAX's ``RuntimeError``. Without
+    provisioned weights a learned matcher falls back to ZNCC with a
+    warning, as in the JAX package, and RoMa with ``allow_random`` refuses
+    to run without weights, as JAX's does."""
     rng = np.random.default_rng(3)
     img0 = textured_image(rng)
     img1 = np.roll(img0, 1, axis=0)
@@ -116,8 +118,9 @@ def test_learned_matchers_fall_back_or_raise(tmp_path, monkeypatch, caplog):
     assert got.shape == ref.shape and len(got) > 100 and got[:, 0].max() > 160
     np.testing.assert_array_equal(got[:, :2], ref[:, :2])
     np.testing.assert_allclose(got[:, 2:], ref[:, 2:], atol=1e-3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tm.match_epoch_images(img0, img1, matcher="loftr", device="cpu", **kw)
+    for fn, dev in ((tm.match_epoch_images, {"device": "cpu"}), (jm.match_epoch_images, {})):
+        with pytest.raises(RuntimeError, match="hasRecord"):
+            fn(img0, img1, matcher="loftr", **dev, **kw)
     with pytest.raises(FileNotFoundError):
         tm.resolve_learned_weights(str(tmp_path / "missing.npz"))
     with pytest.raises(NotImplementedError, match="not available"):

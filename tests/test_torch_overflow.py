@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.ops import hashgrid as th
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu.pipelines import piecewise_icp as jp
 from fusion4landslide_tpu_torch.pipelines import piecewise_icp as tp

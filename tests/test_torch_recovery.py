@@ -82,6 +82,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models.convert import (
     params_from_flax,

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.pipelines import rgb_guided as tr
 from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT, synth_epoch_pair, synth_textured_images
@@ -26,10 +27,12 @@ K = np.array([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]])
 R_TOL, XYZ_TOL = 2e-5, 2e-6
 
 
-def refine_inputs(rng, S, P, fill, n_pts):
+def refine_inputs(rng, S, P, fill, n_pts, curved: bool = False, outliers: float = 0.5):
     """Member tables of S segments (``fill`` members each, the rest
-    masked) over n_pts points: planar patches moved by a per-segment rigid
-    motion, with noise and 0-50% gross outliers; 85% of points matched."""
+    masked) over n_pts points: planar patches (``curved``: curved in both
+    directions, so a point-to-plane fit is well posed) moved by a
+    per-segment rigid motion, with noise and gross outliers (a share
+    uniform in [0, ``outliers``]); 85% of points matched."""
     pts = np.zeros((n_pts, 3), np.float32)
     tgt = np.zeros((n_pts, 3), np.float32)
     members = np.zeros((S, P), np.int32)
@@ -38,11 +41,15 @@ def refine_inputs(rng, S, P, fill, n_pts):
     for s in range(S):
         rows = perm[s * fill:(s + 1) * fill]
         xy = rng.uniform(-1, 1, (fill, 2))
-        p = np.column_stack([xy, 0.1 * np.sin(3 * xy[:, 0])]) + rng.normal(0, 5, 3)
+        z = 0.1 * np.sin(3 * xy[:, 0])
+        if curved:
+            z = (0.3 * np.sin(3 * xy[:, 0]) + 0.3 * np.cos(2.5 * xy[:, 1])
+                 + 0.2 * xy[:, 0] * xy[:, 1])
+        p = np.column_stack([xy, z]) + rng.normal(0, 5, 3)
         a = rng.normal(0, 0.02, 3)
         Rm = np.array([[1, -a[2], a[1]], [a[2], 1, -a[0]], [-a[1], a[0], 1]])
         q = p @ Rm.T + rng.normal(0, 0.05, 3) + rng.normal(0, 0.003, p.shape)
-        out = rng.random(fill) < rng.uniform(0.0, 0.5)
+        out = rng.random(fill) < rng.uniform(0.0, outliers)
         q[out] += rng.normal(0, 0.5, (int(out.sum()), 3))
         pts[rows], tgt[rows] = p, q
         members[s, :fill] = rows
@@ -82,6 +89,62 @@ def test_refine_supervoxels_rigid_matches_jax(S, P, fill, icp_iter):
     t = t_refine(*inputs, **kw)
     assert_refine_equal(j_refine(*inputs, **kw), t)
     assert 0 < int(t.quality.sum()) < S or S == 3
+
+
+@pytest.mark.parametrize("icp_type", ["point2plane", "generalized_icp"])
+def test_refine_icp_types_match_jax(icp_type):
+    """The refinement with the other ICP solvers (``icp_type``), against
+    the JAX function on the same member tables. The patches are curved
+    both ways and free of gross outliers: with outliers the inlier set
+    within the ICP threshold can hinge on one rounding, and the
+    point-to-plane normal equations of a contaminated patch (world
+    coordinates, few inliers) are so ill-conditioned that the float32
+    solves of the two packages part."""
+    rng = np.random.default_rng(40)
+    inputs = refine_inputs(rng, 40, 64, 50, 40 * 50 + 17, curved=True, outliers=0.0)
+    kw = dict(icp_threshold=0.1, icp_max_iter=30, icp_type=icp_type)
+    t = t_refine(*inputs, **kw)
+    assert_refine_equal(j_refine(*inputs, **kw), t)
+    assert int(t.quality.sum()) > 0
+
+
+def test_icp_type_reaches_the_refinement_of_the_tile_and_the_step(tmp_path, monkeypatch):
+    """``icp_type`` from the config (host tile) and the step's argument
+    reach ``refine_supervoxels_rigid``, and a recorded call replayed gives
+    the same answer. Parity with JAX is held on well-posed patches
+    (``test_refine_icp_types_match_jax``): on this scene's small, nearly
+    planar supervoxels the undamped point-to-plane and generalized steps
+    of both packages wander tens of degrees from the Kabsch seed, where
+    float32 rounding decides the path (a property of the reference's
+    solvers, not of the port)."""
+    from fusion4landslide_tpu_torch.pipelines import rgb_guided_device as td
+
+    calls = []
+    orig = tr.refine_supervoxels_rigid
+
+    def record(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    monkeypatch.setattr(tr, "refine_supervoxels_rigid", record)
+    monkeypatch.setattr(td, "refine_supervoxels_rigid", record)
+    args, (src, tgt, corres, Kc, Ec, _) = padded_step_inputs()
+    cfg = {"image_size": [H, W], "pixel_thres": 4, "max_magnitude": 5.0, "icp_threshold": 0.1,
+           "n_normals": 15, "voxel_size": 0.0, "dataset": "brienz_tls", "output_folder": "run",
+           "output_dir": str(tmp_path), "icp_type": "point2plane"}
+    img = np.zeros((H, W), np.float32)
+    tr.run_rgb_guided_tile(cfg, src, tgt, img, img, Kc, Ec, Ec, corres_2d=corres, device="cpu")
+    td.rgb_guided_tile_step(*args, 5.0, 5.0, 0.1, 0.0, image_size=(H, W), v_flip=True,
+                            k_neighbors=15, sv_cap=256, member_cap=256,
+                            icp_type="generalized", device="cpu")
+    assert [k["icp_type"] for _, k, _ in calls] == ["point2plane", "generalized"]
+    for a, k, out in calls:
+        again = orig(*a, **k)
+        for x, y in zip(again, out):
+            assert torch.equal(x, y)
+        assert int(out.quality.sum()) > 0
+        assert not torch.equal(out.R, orig(*a, **{**k, "icp_type": "point2point"}).R)
 
 
 def test_refine_is_independent_of_the_icp_chunk(monkeypatch):
@@ -298,15 +361,11 @@ def test_run_rgb_guided_tiles_writes_the_steps_tables(tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"icp_type": "point2plane"}, "item 4"),
     ({"save_img_matching_visualization": True}, "item 14"),
-    ({"img_matching_type": "loftr"}, "item 9"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     """What the port does not run yet raises, naming its ROADMAP item:
-    point-to-plane ICP, the matching figures, classic LoFTR where its
-    weights resolve (it probes ``WEIGHT_SEARCH_PATHS``, and the repository
-    ships ``weights/eloftr_tiny.npz``)."""
+    the matching figures."""
     rng = np.random.default_rng(1)
     src, tgt, img0, img1, E = textured_scene(rng, n=1500)
     cfg = {"image_size": [H, W], "pixel_thres": 4, "max_magnitude": 2.0, "n_normals": 15,

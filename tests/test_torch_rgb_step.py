@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models import aggregation as tagg
 from fusion4landslide_tpu_torch.models import dips as tdips
@@ -115,10 +116,17 @@ def _emulated_jax_step(tile, params, monkeypatch, **kw):
 
 @pytest.mark.parametrize("lifting,coarse_2d_mode", [
     ("nn_search", "fusion"),
-    ("interpolation", "fusion"),
     ("nn_search", "only_2d"),
 ])
 def test_rgb_tile_step_matches_emulated_jax(tile, params, monkeypatch, lifting, coarse_2d_mode):
+    """The ``interpolation`` lifting's case is in
+    ``tests/test_torch_rgb_step_interp.py``."""
+    check_rgb_step(tile, params, monkeypatch, lifting, coarse_2d_mode)
+
+
+def check_rgb_step(tile, params, monkeypatch, lifting, coarse_2d_mode):
+    """The port's step against the emulated JAX step on ``tile``, scored
+    as ``tools/parity_check.py`` scores two paths."""
     kw = dict(lifting=lifting, coarse_2d_mode=coarse_2d_mode)
     jo = _emulated_jax_step(tile, params, monkeypatch, **kw)
     _, _, td, ta = params

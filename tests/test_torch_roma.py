@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 from flax.traverse_util import flatten_dict
 
 from fusion4landslide_tpu.image import matching as jmm
