@@ -124,6 +124,26 @@ Phases (j)-(m): (j) the superpoint generator
    CPU on 256 x 320) and ``main_rgb_guided`` with ``icp_type:
    point2plane`` (recovery against ``RECOVERY_RGB_GUIDED``), inside the
    rgb_guided phases;
+Phases (n)-(r): (n) the F2S3 feature cache: phase 11 runs with
+   ``save_interim: true``; tile 0's tables are deleted and ``main_f2s3``
+   reruns it with ``feat_compute: false`` (no ``dips_features`` stage,
+   kernel 3 launched once, kernel 1 only for the supervoxel graph; tile
+   seconds beside the computing run's, the largest gap between the two
+   runs' ``f2s3_*`` tables); (o) E57: ``RGB_EPOCH``'s two epochs written
+   with ``io.e57.write_e57`` and read back through ``read_point_cloud``,
+   bit-equal to the PLY arrays (seconds per million points), and phase
+   (c) reads its epoch from the ``.e57`` files; (p) the native tiler
+   (``tiling/native.py``: ``g++`` build of ``cpp/tiler.cpp``) on phase
+   9's epoch files against the numpy tiler without voxel filter (tile
+   count, each tile's core source points; seconds of both); (q) two tile
+   streams on the one card (``devices=["cuda:0", "cuda:0"]``): the F2S3
+   runner over two quarter-size tiles and ``run_piecewise_tiles`` over
+   phase 16's tiles, tables and results equal to the one-stream run's and
+   the launches summing to its counts; (r) the fusion step with
+   ``nested_levels=False`` (levels 1-3) on phase 5's small tile, card vs
+   CPU (equal assigned sets, the DVF gap reported). Phases 9, 11 and 16
+   run on ``CLI_EPOCH``, ``DRIVER_EPOCH`` at half its height, cut into two
+   tiles by ``max_pts_per_tile: CLI_TILE_PTS``;
 17. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
    (and per path), time, the time before the kernel's redesign
    (``ms_before``), plain-version time, the least time the card could
@@ -181,32 +201,41 @@ RECOVERY_F2S3 = {"kept": 0.0015, "static_err_m": 3.0, "moving_err_m": 1.0e-2}
 #: assigned, and the median error on either half stays under
 #: ``2 mm + 0.7 m_per_px`` (the pixel-space chaining tolerance).
 RECOVERY_RGB = {"core_assigned": 0.9, "err_floor_m": 2e-3, "err_per_m_per_px": 0.7}
-#: Floors of the 3D-only driver's tiles (``DRIVER_EPOCH`` through
+#: Floors of the 3D-only driver's tiles (``CLI_EPOCH`` through
 #: ``main_fusion`` with ``fusion_3d_brienz.yaml`` and ``seeded_models(0)``
 #: checkpoints), per tile on its core. On an H100 80GB HBM3 (700 W) the
-#: sound tiles read 13.9% / 6.9% of the static core assigned, 14.2 mm /
-#: 204 mm median static and 155 mm / 276 mm median moving error; with the
+#: sound tiles read 18.9% / 11.1% of the static core assigned, 12.9 mm /
+#: 128 mm median static and 126 mm / 298 mm median moving error; with the
 #: target descriptors permuted (``tests/test_torch_recovery.py --pipeline
-#: fusion_host``, run ``port:tgt_shuffle``) 0.59% / 0.11%, 3.27 m / 4.86 m
-#: and 4.15 m / 3.39 m. The witness's other broken runs (``port:no_icp``,
-#: ``port:tgt_seed``) read within the sound tiles' spread: with random
-#: weights the host tile's pairs are mostly false, in the JAX reference
-#: too. Each floor lies between the sound and the permuted readings.
+#: fusion_host --epoch 145 50 --max-pts 400000``, run
+#: ``port:tgt_shuffle``) 0.36% / 0.54%, 3.75 m / 3.47 m and 3.07 m /
+#: 1.85 m. (On the whole ``DRIVER_EPOCH``, before the cut: 13.9% /
+#: 6.9%, 14.2 / 204 mm, 155 / 276 mm sound; 0.59% / 0.11%, 3.27 / 4.86 m,
+#: 4.15 / 3.39 m permuted.) The witness's other broken runs
+#: (``port:no_icp``, ``port:tgt_seed``) read within the sound tiles'
+#: spread: with random weights the host tile's pairs are mostly false, in
+#: the JAX reference too. Each floor lies between the sound and the
+#: permuted readings.
 RECOVERY_CLI = {"static_assigned": 0.02, "static_err_m": 1.0, "moving_err_m": 1.0}
 #: Floors of the F2S3 driver's tiles (the same epoch through ``main_f2s3``
 #: with ``f2s3_brienz.yaml``, ``seeded_models(0)`` and ``seeded_filter(0)``
 #: checkpoints): the core fraction written (kept by the filter and the
 #: magnitude gate) and the median errors, between the sound and the broken
-#: readings of ``tests/test_torch_recovery.py --pipeline f2s3_host``. The
-#: voxel filter leaves no exact cross-epoch duplicates, so the step's
-#: ``RECOVERY_F2S3`` (exact moving matches) does not carry over. On an
-#: H100 80GB HBM3 (700 W) the sound tiles keep 0.121% / 0.166% of their
-#: core at 1.49 m / 1.79 m median static and 2.75 m / 2.68 m moving error;
-#: with the target descriptors permuted (run ``port:tgt_shuffle``) 0.063% /
-#: 0.064% at 3.35 m / 3.46 m and 3.43 m / 3.46 m; ``refine_results: false``
-#: (run ``port:no_refine``) reads as the sound run. A regression alarm for
-#: these weights, not a quality bound.
-RECOVERY_CLI_F2S3 = {"kept": 0.0009, "static_err_m": 2.5, "moving_err_m": 3.1}
+#: readings of ``tests/test_torch_recovery.py --pipeline f2s3_host --epoch
+#: 145 50 --max-pts 400000``. The voxel filter leaves no exact cross-epoch
+#: duplicates, so the step's ``RECOVERY_F2S3`` (exact moving matches) does
+#: not carry over. On an H100 80GB HBM3 (700 W) the sound tiles keep
+#: 0.192% / 0.263% of their core at 2.48 m / 2.60 m median static and
+#: 2.53 m / 2.66 m moving error; with the target descriptors permuted (run
+#: ``port:tgt_shuffle``) 0.091% / 0.121% at 3.15 m / 3.57 m and 3.69 m /
+#: 3.46 m; ``refine_results: false`` (run ``port:no_refine``) reads as the
+#: sound run. With the epoch cut to ``CLI_EPOCH`` the floors were placed
+#: again between these readings (on the whole ``DRIVER_EPOCH`` the sound
+#: tiles read 0.121% / 0.166% kept at 1.49 / 1.79 m static and 2.75 / 2.68
+#: m moving error, the permuted 0.063% / 0.064% at 3.35 / 3.46 m and 3.43
+#: / 3.46 m, and the floors were 0.0009 kept and 2.5 m static). A
+#: regression alarm for these weights, not a quality bound.
+RECOVERY_CLI_F2S3 = {"kept": 0.0015, "static_err_m": 2.9, "moving_err_m": 3.1}
 #: Floors of ``main_fusion`` 3D-only with ``partition_type: superpoint``
 #: on ``RGB_EPOCH`` (one tile, phase (k), ``seeded_models(0)``
 #: checkpoints), on its core. On an H100 80GB HBM3 (700 W) the sound run
@@ -344,10 +373,13 @@ def image_inputs(src: np.ndarray, pix: np.ndarray, K: np.ndarray, E: np.ndarray)
     )
 
 
-def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None) -> dict:
+def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None,
+                        **step_kw) -> dict:
     """The fusion step on a small tile, card vs the port's CPU path; the
     card run's kernel launches are read just after it. With ``lifting``
-    the step runs the RGB channel on ``synth_small_rgb_tile``."""
+    the step runs the RGB channel on ``synth_small_rgb_tile``;
+    ``step_kw`` overrides the step's statics (phase (r):
+    ``nested_levels=False``, where the assigned sets must be equal)."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
     from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
     from fusion4landslide_tpu_torch.synth import SMALL_IMG_SIZE, synth_small_rgb_tile
@@ -363,6 +395,7 @@ def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None) -> 
         sb, sm, tb, tm, ns, _ = padded(src, tgt)
         images = image_inputs(src, pix, K, E)
         small.update(image_size=SMALL_IMG_SIZE, lifting=lifting)
+    small.update(step_kw)
     outs = []
     for d in (dev, torch.device("cpu")):
         dm, am = seeded_models(0, d)
@@ -392,8 +425,11 @@ def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None) -> 
         "n_c2d": [int(g.n_c2d), int(c.n_c2d)],
         "launches": launches,
     }
+    parity["assigned_equal"] = bool((vg == vc).all())
     log(f"# phase small-tile fusion parity (global_gated={global_gated}, lifting={lifting}, "
-        f"card vs CPU path, {ns} pts): {json.dumps(parity)}")
+        f"{json.dumps(step_kw)}, card vs CPU path, {ns} pts): {json.dumps(parity)}")
+    if step_kw:
+        check(parity["assigned_equal"], parity)
     nv = parity["n_vox"]
     check(nv[0] == nv[1] and nv[2] == nv[3] and g.overflow == 0, parity)
     check(parity["n_c2d"][0] == parity["n_c2d"][1], parity)
@@ -767,6 +803,17 @@ DRIVER_CONFIGS = {
     "cli_rgb_guided": "rgb_guided_brienz.yaml",
     "cli_piecewise": "piecewise_icp_brienz.yaml",
 }
+#: The two-tile epoch of the driver phases 9, 11 and 16 (and (n), (p),
+#: (q)): ``DRIVER_EPOCH`` (145 m x 100 m, 1.45 M points per epoch) cut to
+#: half its height, 0.725 M points per epoch, ~0.52 M after the shipped
+#: configs' 0.1 m voxel filter; ``max_pts_per_tile`` (the shipped 1 000 000
+#: would keep it whole) cuts it into two tiles along x, each holding both
+#: halves of the planted shift. It was cut from the whole epoch to give
+#: the run's time to phases (n)-(r).
+CLI_EPOCH_HEIGHT = 50.0
+CLI_TILE_PTS = 400_000
+#: The shipped configs' ``min_pts_per_tile`` (phase (p) tiles with it).
+CLI_TILE_MIN_PTS = 5000
 #: The RGB driver phase's one-tile epoch (m): ~353 k points after the
 #: voxel filter, near ``bench.py``'s RGB tile; zero offset, since the
 #: camera projects world coordinates in float32.
@@ -890,15 +937,16 @@ def driver_phases(dips, agg, filt) -> dict:
         write_reference_checkpoints(weights, dips=dips, agg=agg, filt=filt)
         data = os.path.join(tmp, "epoch")
         t0 = time.perf_counter()
-        src, _, moving_y = write_epoch(data, DRIVER_EPOCH["width"], DRIVER_EPOCH["height"],
+        src, _, moving_y = write_epoch(data, DRIVER_EPOCH["width"], CLI_EPOCH_HEIGHT,
                                        DRIVER_EPOCH["offset"])
         log(f"# driver epoch: {len(src)} points per epoch over {DRIVER_EPOCH['width']:g} x "
-            f"{DRIVER_EPOCH['height']:g} m, written in {time.perf_counter() - t0:.2f} s; "
-            f"checkpoints {sorted(os.listdir(weights))}")
+            f"{CLI_EPOCH_HEIGHT:g} m, written in {time.perf_counter() - t0:.2f} s, "
+            f"max_pts_per_tile {CLI_TILE_PTS}; checkpoints {sorted(os.listdir(weights))}")
 
         # ---- 9. main_fusion, 3D-only, use_mesh unset ---------------------
         changes = {"input_root": data, "output_dir": os.path.join(tmp, "fusion3d"),
-                   "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply"}
+                   "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply",
+                   "max_pts_per_tile": CLI_TILE_PTS}
         cfg = driver_config(DRIVER_CONFIGS["cli_fusion3d"], os.path.join(tmp, "fusion3d.yaml"),
                             changes)
         log(f"# phase main_fusion 3D-only: {DRIVER_CONFIGS['cli_fusion3d']} with "
@@ -928,6 +976,11 @@ def driver_phases(dips, agg, filt) -> dict:
         log(f"# main_fusion second run: {again['wall_s']:.2f} s, tiles run {sorted(again['tile_s'])}, "
             f"{out.count('already complete; skipping')} skipped")
         check(not again["tile_s"] and out.count("already complete; skipping") == 2, again)
+
+        # ---- (p) the native tiler on the same epoch files -----------------
+        t_new = time.perf_counter()
+        native_tiler_phase(tmp, data, summary.get("tiling_s"))
+        PHASES_N_R_S[0] += time.perf_counter() - t_new
 
         # ---- 10. main_fusion, RGB+3D, one tile ----------------------------
         rgb_data = os.path.join(tmp, "rgb_epoch")
@@ -986,7 +1039,8 @@ def driver_phases(dips, agg, filt) -> dict:
 
         # ---- 11. main_f2s3, use_mesh unset -------------------------------
         changes = {"data_dir": data, "output_dir": os.path.join(tmp, "f2s3"),
-                   "weight_dir": weights, "src_name": "epoch1.ply", "tgt_name": "epoch2.ply"}
+                   "weight_dir": weights, "src_name": "epoch1.ply", "tgt_name": "epoch2.ply",
+                   "max_pts_per_tile": CLI_TILE_PTS, "save_interim": True}
         cfg = driver_config(DRIVER_CONFIGS["cli_f2s3"], os.path.join(tmp, "f2s3.yaml"), changes)
         log(f"# phase main_f2s3: {DRIVER_CONFIGS['cli_f2s3']} with {sorted(changes)} changed")
         summary, _ = run_driver("main_f2s3", cfg)
@@ -1013,6 +1067,11 @@ def driver_phases(dips, agg, filt) -> dict:
                   and rec["static_err_m"] < RECOVERY_CLI_F2S3["static_err_m"], rec)
             check(rec["moving_err_m"] is not None
                   and rec["moving_err_m"] < RECOVERY_CLI_F2S3["moving_err_m"], rec)
+
+        # ---- (n) the F2S3 feature cache: tile 0 again, from its cache -----
+        t_new = time.perf_counter()
+        by_path["cli_f2s3_cache"] = f2s3_cache_phase(tmp, changes, summary)
+        PHASES_N_R_S[0] += time.perf_counter() - t_new
 
         # ---- 13.-16. (b)-(e): rgb_guided and piecewise ICP ----------------
         by_path.update(rgb_guided_phases(tmp))
@@ -1387,7 +1446,8 @@ def rgb_guided_phases(tmp: str) -> dict:
     """(b)-(d) and (f)-(i): the rendered image pair's matcher checks (ZNCC,
     E-LoFTR shipped and at the upstream width, RoMa), then
     ``main_rgb_guided`` on ``RGB_EPOCH`` with ZNCC and ``use_mesh: auto``
-    (host tile) and ``true`` (runner; the tiles copied from the first run),
+    (host tile, reading the epoch's E57 copies written by (o)) and
+    ``true`` (runner; the tiles copied from the first run),
     and with the shipped ``eloftr`` matcher and ``use_mesh: auto``. Returns
     the launches by path."""
     import re
@@ -1399,6 +1459,9 @@ def rgb_guided_phases(tmp: str) -> dict:
     log(f"# rgb_guided epoch: {RGB_EPOCH[0]:g} x {RGB_EPOCH[1]:g} m, images "
         f"{RGB_GUIDED_IMAGE[0]}x{RGB_GUIDED_IMAGE[1]} at {m_per_px:.5f} m per pixel, rendered in "
         f"{render_s:.2f} s")
+    t_new = time.perf_counter()
+    e57_phase(data)
+    PHASES_N_R_S[0] += time.perf_counter() - t_new
     zncc_phase(dev, img0, img1)
     t_new = time.perf_counter()
     eloftr_phase(dev, img0, img1)
@@ -1421,8 +1484,10 @@ def rgb_guided_phases(tmp: str) -> dict:
         if use_mesh is True:
             shutil.copytree(os.path.join(tmp, "cli_rgb_guided", "demo_run", "tiled_data"),
                             os.path.join(out, "demo_run", "tiled_data"))
-        changes = {"input_root": data, "output_dir": out, "src_pcd": "epoch1.ply",
-                   "tgt_pcd": "epoch2.ply", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
+        # (o): the host tile of (c) reads its epoch from the E57 files.
+        ext = "e57" if phase == "c" else "ply"
+        changes = {"input_root": data, "output_dir": out, "src_pcd": f"epoch1.{ext}",
+                   "tgt_pcd": f"epoch2.{ext}", "src_image": "epoch1.png", "tgt_image": "epoch2.png",
                    **matcher, "use_mesh": use_mesh}
         cfg = driver_config(DRIVER_CONFIGS["cli_rgb_guided"], os.path.join(tmp, f"{path}.yaml"),
                             changes)
@@ -1502,10 +1567,11 @@ def eloftr_broken_run() -> dict:
 
 
 def piecewise_phases(tmp: str, data: str, moving_y: float, tiles_dir: str) -> dict:
-    """(e) ``main_piecewise_icp`` on ``DRIVER_EPOCH`` (the tiles of phase
+    """(e) ``main_piecewise_icp`` on ``CLI_EPOCH`` (the tiles of phase
     9, copied) with ``use_mesh: auto`` and ``true``: tables, the stable
     and unstable fractions of each half's core, seconds per tile; no
-    kernel launches. Returns the launches by path."""
+    kernel launches; then (q)'s two streams over the same tiles. Returns
+    the launches by path."""
     import shutil
 
     from fusion4landslide_tpu_torch.io.ply import read_ply
@@ -1545,6 +1611,9 @@ def piecewise_phases(tmp: str, data: str, moving_y: float, tiles_dir: str) -> di
                               "unstable": float((~stable & sel).sum()) / n_half}
             log(f"# main_piecewise_icp use_mesh {use_mesh} tile {tid}: tables {tables}, "
                 f"{len(rows)} rows, core halves {json.dumps(frac)}")
+    t_new = time.perf_counter()
+    by_path.update(piecewise_streams_phase(tmp, tiles_dir))
+    PHASES_N_R_S[0] += time.perf_counter() - t_new
     return by_path
 
 
@@ -1772,6 +1841,210 @@ def classic_loftr_phase(dev, img0: np.ndarray, img1: np.ndarray) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases (n)-(r): the F2S3 feature cache, E57, the native tiler, tile
+# streams, nested_levels=False.
+# ---------------------------------------------------------------------------
+
+#: Seconds of phases (n)-(r), wherever they run.
+PHASES_N_R_S = [0.0]
+
+
+def tree_bytes(root: str) -> dict:
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def f2s3_cache_phase(tmp: str, changes: dict, first: dict) -> dict:
+    """(n): phase 11 wrote ``features/features_tile_*.npz`` (``save_interim:
+    true``); tile 0's tables are deleted and ``main_f2s3`` reruns it with
+    ``feat_compute: false``. Checks: the cache files, no ``dips_features``
+    stage, kernel 3 launched once, kernel 1 only for the supervoxel graph
+    (the DIPs sampler's launches gone), the same tables; reports the tile
+    seconds beside the computing run's and the largest gap between the two
+    runs' tables. Returns the rerun's launches."""
+    out_root = os.path.join(tmp, "f2s3", "demo_run")
+    cached = sorted(os.listdir(os.path.join(out_root, "features")))
+    check(cached == ["features_tile_0.npz", "features_tile_1.npz"], cached)
+    results = os.path.join(out_root, "results")
+    names = tile_tables(out_root, "0", "f2s3_")
+    before = {n: np.loadtxt(os.path.join(results, n), ndmin=2) for n in names}
+    for n in names:
+        os.remove(os.path.join(results, n))
+    cfg = driver_config(DRIVER_CONFIGS["cli_f2s3"], os.path.join(tmp, "f2s3_cache.yaml"),
+                        {**changes, "feat_compute": False})
+    summary, _ = run_driver("main_f2s3", cfg)
+    log_driver("main_f2s3 (n) feature cache", summary)
+    check(list(summary["tile_s"]) == ["0"], summary["tile_s"])
+    after = {n: np.loadtxt(os.path.join(results, n), ndmin=2) for n in tile_tables(out_root, "0", "f2s3_")}
+    check(sorted(after) == sorted(before), (sorted(after), sorted(before)))
+    check(all(after[n].shape == before[n].shape for n in names),
+          {n: (after[n].shape, before[n].shape) for n in names})
+    gap = max(float(np.abs(after[n] - before[n]).max()) if after[n].size else 0.0 for n in names)
+    stages = summary["stages_s"]["0"]
+    launches = summary["launches"]
+    rec = {"tile_s_cached": summary["tile_s"]["0"], "tile_s_computed": first["tile_s"]["0"],
+           "dips_features_s_computed": first["stages_s"]["0"].get("dips_features"),
+           "feature_cache_s_computed": first["stages_s"]["0"].get("feature_cache"),
+           "feature_cache_s": stages.get("feature_cache"), "tables": len(names),
+           "max_abs_table_gap": gap, "launches": launches,
+           "launches_computing_run": first["launches"]}
+    log(f"# phase (n) F2S3 feature cache ({card()}): {json.dumps(rec)}")
+    check("dips_features" not in stages and "feature_cache" in stages, stages)
+    check(launches["knn"] == 1, launches)
+    check(launches["radius_sample"] < first["launches"]["radius_sample"] // 4, launches)
+    return launches
+
+
+def native_tiler_phase(tmp: str, data: str, driver_tiling_s) -> None:
+    """(p): ``tiling.native`` builds ``cpp/tiler.cpp`` into ``_build/`` and
+    tiles phase 9's epoch files; the numpy tiler tiles them without its
+    voxel filter (as the native core), with the same ``max_pts``,
+    ``min_pts`` and 20 m halo. Equal tile counts and equal core source
+    point sets per tile; the halo sets are compared and reported."""
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+    from fusion4landslide_tpu_torch.tiling import tile_point_clouds
+    from fusion4landslide_tpu_torch.tiling.native import build_native, tile_point_clouds_native
+
+    src, tgt = (os.path.join(data, "raw_pcd", f"epoch{i}.ply") for i in (1, 2))
+    t0 = time.perf_counter()
+    check(build_native(), "g++ build of cpp/tiler.cpp")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_cc = tile_point_clouds_native(src, tgt, CLI_TILE_PTS, CLI_TILE_MIN_PTS,
+                                    os.path.join(tmp, "native"))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_py = tile_point_clouds(src, tgt, CLI_TILE_PTS, CLI_TILE_MIN_PTS, False, 0.0, 0.0, -1,
+                             os.path.join(tmp, "numpy"))
+    numpy_s = time.perf_counter() - t0
+
+    def tile_sets(root: str, kind: str, name: str) -> list:
+        sets = []
+        for i in range(n_py):
+            pts = read_ply(os.path.join(root, kind, name.format(i=i))).points
+            sets.append(np.sort(np.ascontiguousarray(pts).view("f8,f8,f8")[:, 0]))
+        return sorted(sets, key=lambda a: (len(a), a[0].tolist() if len(a) else ()))
+
+    same = {}
+    for kind, name in (("non_overlap", "source_tile_{i}.ply"), ("non_overlap", "target_tile_{i}.ply"),
+                       ("overlap", "source_tile_{i}_overlap.ply")):
+        a = tile_sets(os.path.join(tmp, "native"), kind, name)
+        b = tile_sets(os.path.join(tmp, "numpy"), kind, name)
+        same[name] = all(len(x) == len(y) and bool((x == y).all()) for x, y in zip(a, b))
+    rec = {"tiles": [n_cc, n_py], "build_s": build_s, "native_s": native_s, "numpy_s": numpy_s,
+           "numpy_with_voxel_filter_in_phase_9_s": driver_tiling_s, "equal_point_sets": same}
+    log(f"# phase (p) native tiler ({card()}): {json.dumps(rec)}")
+    check(n_cc == n_py == 2, rec)
+    check(same["source_tile_{i}.ply"] and same["target_tile_{i}.ply"], rec)
+
+
+def e57_phase(root: str) -> None:
+    """(o): each epoch's PLY arrays written as E57 (``io.e57.write_e57``)
+    beside it and read back through ``read_point_cloud``, bit-equal;
+    seconds per million points."""
+    from fusion4landslide_tpu_torch.io import read_point_cloud
+    from fusion4landslide_tpu_torch.io.e57 import write_e57
+
+    rec = {}
+    for name in ("epoch1", "epoch2"):
+        ply = read_point_cloud(os.path.join(root, "raw_pcd", f"{name}.ply"))
+        path = os.path.join(root, "raw_pcd", f"{name}.e57")
+        t0 = time.perf_counter()
+        write_e57(path, ply.points, ply.colors)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_point_cloud(path)
+        read_s = time.perf_counter() - t0
+        mpts = len(ply.points) / 1e6
+        rec[name] = {"points": len(ply.points), "mib": os.path.getsize(path) / 2**20,
+                     "write_s_per_mpts": write_s / mpts, "read_s_per_mpts": read_s / mpts,
+                     "colors": ply.colors is not None}
+        check(back.points.dtype == np.float64
+              and np.array_equal(back.points, ply.points.astype(np.float64)), f"{name} xyz")
+        check((back.colors is None) == (ply.colors is None)
+              and (ply.colors is None or np.array_equal(back.colors, ply.colors)), f"{name} rgb")
+    log(f"# phase (o) E57 round trip, bit-equal to the PLY arrays: {json.dumps(rec)}")
+
+
+def f2s3_streams_phase(dev, dips, filt, n_core: int, margin: float, halo: float,
+                       density: float) -> dict:
+    """(q) on the F2S3 runner: two quarter-size tiles through one stream
+    and through two on the card (``devices=[dev, dev]``: two threads, each
+    with its model copies and stream); results, tables and launches equal.
+    Returns both runs' launches by path."""
+    from fusion4landslide_tpu_torch.parallel.pipeline import run_f2s3_tiles
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
+
+    tiles = []
+    for i in range(2):
+        src, tgt, _, _ = synth_split_tile(n_core, margin, margin, halo=halo, density=density,
+                                          seed=i)
+        tiles.append((str(i), src + [500.0 * i, 0.0, 0.0], tgt + [500.0 * i, 0.0, 0.0]))
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs, launches, seconds, written = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        for label, kw in (("one", dict(device=dev)), ("two", dict(devices=[dev, dev]))):
+            cfg = dict(F2S3_CFG, output_dir=os.path.join(tmp, label), output_folder="smoke")
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label] = run_f2s3_tiles(cfg, dips, filt, tiles, **kw)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            launches[label] = read_launches()
+            written[label] = tree_bytes(os.path.join(tmp, label))
+    equal = list(runs["one"]) == list(runs["two"]) == ["0", "1"] and all(
+        np.array_equal(runs["one"][t][k], runs["two"][t][k])
+        for t in runs["one"] for k in ("dvfs", "magnitudes", "keep"))
+    rec = {"points": [len(t[1]) for t in tiles], "seconds": seconds, "launches": launches,
+           "results_equal": equal, "tables_equal": written["one"] == written["two"],
+           "tables": len(written["one"])}
+    log(f"# phase (q) F2S3 runner, one stream vs two on one card ({card()}): {json.dumps(rec)}")
+    check(equal and rec["tables_equal"] and rec["tables"] == 12, rec)
+    check(launches["one"] == launches["two"] and min(launches["one"].values()) > 0, rec)
+    return {"f2s3_streams_one": launches["one"], "f2s3_streams_two": launches["two"]}
+
+
+def piecewise_streams_phase(tmp: str, tiles_dir: str, dev=torch.device("cuda")) -> dict:
+    """(q) on ``run_piecewise_tiles``: phase 16's tiles (the halo clouds
+    the driver reads) through one stream and two on the card; results and
+    tables equal, no kernel launched."""
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+    from fusion4landslide_tpu_torch.parallel.pipeline import run_piecewise_tiles
+
+    tiles = [(str(i), *(read_ply(os.path.join(tiles_dir, "overlap",
+                                              f"{side}_tile_{i}_overlap.ply")).points
+                        for side in ("source", "target"))) for i in range(2)]
+    cfg = {"smax": 5.0, "number_points_min": 10, "dataset": "brienz_tls", "output_folder": "run"}
+    runs, seconds, written, launches = {}, {}, {}, {}
+    for label, kw in (("one", dict(device=dev)), ("two", dict(devices=[dev, dev]))):
+        out = os.path.join(tmp, f"piecewise_streams_{label}")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = run_piecewise_tiles(dict(cfg, output_dir=out), tiles, **kw)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        launches[label] = read_launches()
+        written[label] = tree_bytes(out)
+    equal = list(runs["one"]) == list(runs["two"]) == ["0", "1"] and all(
+        np.array_equal(runs["one"][t]["dvfs"], runs["two"][t]["dvfs"]) for t in runs["one"])
+    rec = {"points": [[len(t[1]), len(t[2])] for t in tiles], "seconds": seconds,
+           "results_equal": equal, "tables_equal": written["one"] == written["two"],
+           "tables": len(written["one"]), "launches": launches}
+    log(f"# phase (q) piecewise runner, one stream vs two on one card ({card()}): "
+        f"{json.dumps(rec)}")
+    check(equal and rec["tables_equal"] and rec["tables"] == 6, rec)
+    check(sum(launches["one"].values()) == sum(launches["two"].values()) == 0, rec)
+    return {"piecewise_streams_one": launches["one"], "piecewise_streams_two": launches["two"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1963,6 +2236,12 @@ def main() -> int:
     }
     check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
     by_path["nn1_spatial_f1"] = f1_launches
+
+    # ---- (r) nested_levels=False on the small tile -------------------------
+    t_new = time.perf_counter()
+    by_path["fusion3d_flat_levels_small"] = fusion_small_parity(
+        dev, global_gated=True, nested_levels=False, levels=(1, 2, 3))
+    PHASES_N_R_S[0] += time.perf_counter() - t_new
 
     # ---- (j) the superpoint generator; (l) the ICP types on small tiles --
     t_new = time.perf_counter()
@@ -2159,9 +2438,15 @@ def main() -> int:
     check(keep.any() and np.isfinite(out["dvfs"]).all() and np.isfinite(out["magnitudes"]).all(),
           "host F2S3 outputs empty or not finite")
 
+    # ---- (q) two tile streams on the one card: the F2S3 runner -------------
+    t_new = time.perf_counter()
+    by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 4, margin, halo, density))
+    PHASES_N_R_S[0] += time.perf_counter() - t_new
+
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))
     log(f"# phases (j)-(m) in the main script: {new_phase_s + NEW_PHASE_S[0]:.1f} s ({card()})")
+    log(f"# phases (n)-(r): {PHASES_N_R_S[0]:.1f} s ({card()})")
 
     # ---- 17. kernels line + 18. result line ------------------------------
     log(f"# chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernel build "

@@ -7,8 +7,9 @@ The JAX package stays the reference; this package mirrors its layout
 
 Ported so far: all four methods, each with a driver (``main_fusion``,
 ``main_f2s3``, ``main_rgb_guided``, ``main_piecewise_icp``: YAML config,
-tiling, checkpoints, resume), host tiles and single-GPU runners
-(``parallel.pipeline``): the fusion tile step, 3D-only or RGB+3D
+PLY / LAS / E57 epochs, tiling, checkpoints, resume, the F2S3 feature
+cache, the figure writers), host tiles and runners with one tile stream
+per GPU (``parallel.pipeline``): the fusion tile step, 3D-only or RGB+3D
 (``pipelines.fusion_device.fusion3d_tile_step``), the F2S3 tile step
 (``pipelines.f2s3_device.f2s3_tile_step``), the RGB-guided tile step
 (``pipelines.rgb_guided_device.rgb_guided_tile_step``) and piecewise ICP

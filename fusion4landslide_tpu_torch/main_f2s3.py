@@ -8,9 +8,9 @@ repository's ``main_f2s3.py``).
 Checkpoints under ``weight_dir``: ``local_feature_descriptor_best.pth``
 (DIPs) and ``outlier_classifier_best.pt``, in the reference's format.
 ``use_mesh: auto`` (the default) takes the host tile ``run_f2s3_tile`` on
-one GPU; ``use_mesh: true`` the single-GPU runner ``run_f2s3_tiles``, which
-also runs where ``auto`` would pick the multi-device path (one tile stream
-per GPU is ROADMAP.md queue 1 item 13). Tiles whose
+one GPU, and the runner ``run_f2s3_tiles`` with one tile stream per GPU
+where the JAX driver takes its mesh (several GPUs, several tiles);
+``use_mesh: true`` always takes the runner, over every GPU. Tiles whose
 ``f2s3_dvfms_of_tile_*.txt`` exists are skipped. The driver logs one
 ``run summary:`` JSON line at the end.
 """
@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import os.path as osp
 
-import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.models.convert import (
@@ -37,6 +36,7 @@ from fusion4landslide_tpu_torch.pipelines.driver import (
     log_config,
     setup_run,
     skip_completed_tiles,
+    stream_devices,
     tile_size_buckets,
 )
 from fusion4landslide_tpu_torch.pipelines.run_summary import RunSummary
@@ -87,22 +87,24 @@ def main(argv: list[str] | None = None) -> dict:
         logger.info("Core/halo query split: src margin %.1f m, tgt margin %.1f m",
                     split[0], split[1])
 
+    devices = stream_devices(dev)
     use_mesh = cfg.get("use_mesh", "auto")
     if not tiles:
         use_mesh = False
     elif use_mesh == "auto":
-        use_mesh = torch.cuda.device_count() > 1 and len(tiles) > 1
+        use_mesh = len(devices) > 1 and len(tiles) > 1
     if use_mesh:
         from fusion4landslide_tpu_torch.parallel.pipeline import run_f2s3_tiles
 
-        logger.info("Running %d tiles through the single-GPU runner on %s", len(tiles), dev)
+        logger.info("Running %d tiles through the runner, one tile stream per device: %s",
+                    len(tiles), [str(d) for d in devices])
         n_bucket, m_bucket = tile_size_buckets(tiles, split=split,
                                                halo=float(cfg.get("tile_halo", 20.0)))
         clouds = ((tid, s.points, t.points) for tid, s, t in summary.timed_reads(
             iter_tile_clouds(tiles, split=split, budgets=(n_bucket, m_bucket), logger=logger)))
         timings: dict = {}
         with summary.phase("runner_s"):
-            res = run_f2s3_tiles(cfg, dips, filt, clouds, device=dev, logger=logger,
+            res = run_f2s3_tiles(cfg, dips, filt, clouds, devices=devices, logger=logger,
                                  timings=timings, n_bucket=n_bucket, m_bucket=m_bucket)
         summary.add_overflow(*res.values())
         summary.stages["runner"] = timings

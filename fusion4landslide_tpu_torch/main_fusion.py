@@ -10,10 +10,10 @@ unless tiles exist, skips tiles whose ``c2f_dvfms_src2tgt_tile_*.txt``
 exists, loads the reference-format checkpoints under ``weight_dir``
 (``local_feature_descriptor_best.pth`` and the aggregation checkpoint) and
 runs each tile. ``use_mesh: auto`` (the default) takes the host tile
-(``run_fusion3d_tile`` / ``run_fusion_tile``) on one GPU; ``use_mesh: true``
-takes the single-GPU runner ``run_fusion3d_tiles``. Where ``auto`` would
-pick the multi-device path (several GPUs, several tiles), the runner runs
-on the first GPU (one tile stream per GPU is ROADMAP.md queue 1 item 13).
+(``run_fusion3d_tile`` / ``run_fusion_tile``) on one GPU, and the runner
+``run_fusion3d_tiles`` with one tile stream per GPU where the JAX driver
+takes its mesh (several GPUs, several tiles, no depth-map lifting);
+``use_mesh: true`` always takes the runner, over every GPU.
 
 The RGB+3D method (``use_2d_matches: true``) takes the fixed image pair
 (``src_image`` / ``tgt_image``) with precomputed pixel matches
@@ -35,7 +35,6 @@ import glob
 import os.path as osp
 
 import numpy as np
-import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.models.convert import (
@@ -52,6 +51,7 @@ from fusion4landslide_tpu_torch.pipelines.driver import (
     log_config,
     setup_run,
     skip_completed_tiles,
+    stream_devices,
     tile_size_buckets,
 )
 from fusion4landslide_tpu_torch.pipelines.run_summary import RunSummary
@@ -191,20 +191,22 @@ def main(argv: list[str] | None = None) -> dict:
                                                      f"{side}_images", name))
         return images[side, name]
 
+    devices = stream_devices(dev)
     use_mesh = cfg.get("use_mesh", "auto")
     if not tiles:
         use_mesh = False  # nothing to run (empty epoch, or every tile done)
     elif use_mesh == "auto":
         # The multi-device path of the JAX driver; depth-map lifting is
         # host-only there.
-        use_mesh = (torch.cuda.device_count() > 1 and len(tiles) > 1
+        use_mesh = (len(devices) > 1 and len(tiles) > 1
                     and not (has_rgb and str(cfg.get("lifting_type", "nn_search"))
                              == "interpolation"))
     if use_mesh:
         from fusion4landslide_tpu_torch.ops.segments import bucket_size
         from fusion4landslide_tpu_torch.parallel.pipeline import run_fusion3d_tiles
 
-        logger.info("Running %d tiles through the single-GPU runner on %s", len(tiles), dev)
+        logger.info("Running %d tiles through the runner, one tile stream per device: %s",
+                    len(tiles), [str(d) for d in devices])
         image_kit_fn = pix_cap = None
         n_ip = 1
         if has_rgb:
@@ -258,7 +260,7 @@ def main(argv: list[str] | None = None) -> dict:
             iter_tile_clouds(tiles, split=split, budgets=(n_bucket, m_bucket), logger=logger)))
         timings: dict = {}
         with summary.phase("runner_s"):
-            res = run_fusion3d_tiles(cfg, dips, agg, clouds, device=dev, logger=logger,
+            res = run_fusion3d_tiles(cfg, dips, agg, clouds, devices=devices, logger=logger,
                                      timings=timings, n_bucket=n_bucket, m_bucket=m_bucket,
                                      image_kit_fn=image_kit_fn, pix_cap=pix_cap,
                                      n_image_pairs=n_ip)

@@ -7,9 +7,10 @@ stable/unstable split (port of the repository's ``main_piecewise_icp.py``).
 Tiles the epoch pair unless tiles exist, skips tiles whose
 ``piecewise_icp_dvfms_of_tile_*.txt`` exists and writes the
 ``piecewise_*`` tables. ``use_mesh: auto`` (the default) runs
-``run_piecewise_icp`` per tile on one GPU; ``use_mesh: true`` the
-single-GPU runner ``run_piecewise_tiles``, which also runs where ``auto``
-would pick the multi-device path. No kernel runs in this method. The
+``run_piecewise_icp`` per tile on one GPU, and the runner
+``run_piecewise_tiles`` with one tile stream per GPU where the JAX driver
+takes its mesh (several GPUs, several tiles); ``use_mesh: true`` always
+takes the runner, over every GPU. No kernel runs in this method. The
 driver logs one ``run summary:`` JSON line at the end.
 """
 
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.pipelines.driver import (
@@ -27,6 +27,7 @@ from fusion4landslide_tpu_torch.pipelines.driver import (
     log_config,
     setup_run,
     skip_completed_tiles,
+    stream_devices,
 )
 from fusion4landslide_tpu_torch.pipelines.piecewise_icp import run_piecewise_icp
 from fusion4landslide_tpu_torch.pipelines.run_summary import RunSummary
@@ -53,19 +54,21 @@ def main(argv: list[str] | None = None) -> dict:
     tiles = skip_completed_tiles(cfg, tiles, "piecewise_icp_dvfms_of_tile_{tile}.txt", logger)
     logger.info("Num. of tile(s): %d", len(tiles))
 
+    devices = stream_devices(dev)
     use_mesh = cfg.get("use_mesh", "auto")
     if not tiles:
         use_mesh = False
     elif use_mesh == "auto":
-        use_mesh = torch.cuda.device_count() > 1 and len(tiles) > 1
+        use_mesh = len(devices) > 1 and len(tiles) > 1
     if use_mesh:
         from fusion4landslide_tpu_torch.parallel.pipeline import run_piecewise_tiles
 
-        logger.info("Running %d tiles through the single-GPU runner on %s", len(tiles), dev)
+        logger.info("Running %d tiles through the runner, one tile stream per device: %s",
+                    len(tiles), [str(d) for d in devices])
         loaded = [(tid, s.points, t.points)
                   for tid, s, t in summary.timed_reads(iter_tile_clouds(tiles))]
         with summary.phase("runner_s"):
-            run_piecewise_tiles(cfg, loaded, device=dev, logger=logger)
+            run_piecewise_tiles(cfg, loaded, devices=devices, logger=logger)
         tiles = []
 
     for tile_id, src, tgt in summary.timed_reads(iter_tile_clouds(tiles)):

@@ -11,11 +11,11 @@ unless tiles exist, skips tiles whose
 cameras (``image/camera_intrinsic.txt`` or ``camera_intrinsic_{src,tgt}.txt``,
 ``image/transformations``) and the two images (``image/raw_images``).
 ``use_mesh: auto`` (the default) runs the host tile ``run_rgb_guided_tile``
-per tile on one GPU; ``use_mesh: true`` the single-GPU runner
-``run_rgb_guided_tiles``, which matches the image pair once; where
-``auto`` would pick the multi-device path (several GPUs, several tiles),
-the runner runs on the first GPU. ``clustering_type: hdbscan`` always takes
-the host tiles. The image matcher is ``img_matching_type``: the shipped
+per tile on one GPU, and the runner ``run_rgb_guided_tiles`` (which
+matches the image pair once) with one tile stream per GPU where the JAX
+driver takes its mesh (several GPUs, several tiles); ``use_mesh: true``
+always takes the runner, over every GPU. ``clustering_type: hdbscan``
+always takes the host tiles. The image matcher is ``img_matching_type``: the shipped
 ``eloftr`` (``weights/eloftr_tiny.npz``), ``roma``, ``zncc`` or ``loftr``
 (an upstream LoFTR checkpoint given as ``img_matcher_weights``; with none,
 the E-LoFTR paths are probed as in the JAX package); a learned matcher
@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import os.path as osp
 
-import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.image.cameras import load_extrinsics, load_intrinsic_pair
@@ -41,6 +40,7 @@ from fusion4landslide_tpu_torch.pipelines.driver import (
     log_config,
     setup_run,
     skip_completed_tiles,
+    stream_devices,
     tile_size_buckets,
 )
 from fusion4landslide_tpu_torch.pipelines.run_summary import RunSummary
@@ -85,11 +85,12 @@ def main(argv: list[str] | None = None) -> dict:
                     split[0], split[1])
 
     hdbscan = str(cfg.get("clustering_type", "supervoxel")) == "hdbscan"
+    devices = stream_devices(dev)
     use_mesh = cfg.get("use_mesh", "auto")
     if not tiles:
         use_mesh = False
     elif use_mesh == "auto":
-        use_mesh = torch.cuda.device_count() > 1 and len(tiles) > 1 and not hdbscan
+        use_mesh = len(devices) > 1 and len(tiles) > 1 and not hdbscan
     if use_mesh and hdbscan:
         logger.warning("clustering_type=hdbscan is host-side; falling back to the serial "
                        "per-tile path")
@@ -97,7 +98,8 @@ def main(argv: list[str] | None = None) -> dict:
     if use_mesh:
         from fusion4landslide_tpu_torch.parallel.pipeline import run_rgb_guided_tiles
 
-        logger.info("Running %d tiles through the single-GPU runner on %s", len(tiles), dev)
+        logger.info("Running %d tiles through the runner, one tile stream per device: %s",
+                    len(tiles), [str(d) for d in devices])
         n_bucket, m_bucket = tile_size_buckets(tiles, split=split,
                                                halo=float(cfg.get("tile_halo", 20.0)))
         clouds = ((tid, s.points, t.points) for tid, s, t in summary.timed_reads(
@@ -105,7 +107,7 @@ def main(argv: list[str] | None = None) -> dict:
         timings: dict = {}
         with summary.phase("runner_s"):
             res = run_rgb_guided_tiles(cfg, clouds, src_img, tgt_img, intrinsic, src_ext,
-                                       tgt_ext, tgt_intrinsic=tgt_intrinsic, device=dev,
+                                       tgt_ext, tgt_intrinsic=tgt_intrinsic, devices=devices,
                                        logger=logger, timings=timings, n_bucket=n_bucket,
                                        m_bucket=m_bucket)
         summary.add_overflow(*res.values())

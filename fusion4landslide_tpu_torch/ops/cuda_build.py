@@ -7,8 +7,9 @@ so a build takes seconds. Libraries go to ``_build/`` beside the package
 headers it includes and the compiler flags, so an edited kernel, header or
 flag is rebuilt. ``build_all`` starts one ``nvcc`` per source, all at
 once; ``load`` builds a single library at first use. ``LAUNCHES`` counts
-each kernel's launches (its wrapper adds one per launch; calls of the
-plain versions are not counted).
+each kernel's launches (its wrapper calls ``count_launch`` once per
+launch, under a lock, since tile streams launch from several threads;
+calls of the plain versions are not counted).
 
 Arithmetic is compiled with ``-fmad=false``: no product and sum is fused
 unless the source says so (``__fmaf_rn``), so each operation rounds as in
@@ -22,9 +23,10 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["LAUNCHES", "SOURCES", "build_all", "count_launch", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -37,6 +39,13 @@ _FLAGS = (
 )
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def nvcc_path() -> str:
@@ -91,9 +100,10 @@ def build_all() -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LIBS[name] = lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
     return lib

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.ops import cuda_build
-from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
+from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES, count_launch
 
 __all__ = [
     "LAUNCHES",
@@ -240,7 +240,7 @@ def _grid_knn_cuda(win: Window, k: int, *, chunk: int, exclude_self: bool):
         torch.cuda.current_stream(win.qpos.device).cuda_stream,
     )
     _raise_on(err, "grid_knn")
-    LAUNCHES["grid_knn"] += 1
+    count_launch("grid_knn")
     return out_d, out_i
 
 
@@ -398,7 +398,7 @@ def _radius_sample_cuda(win: Window, cen, r2, num_points: int, seed: int,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "radius_sample")
-    LAUNCHES["radius_sample"] += 1
+    count_launch("radius_sample")
     return out_i, out_v.bool(), out_x
 
 

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.ops import cuda_build
-from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
+from fusion4landslide_tpu_torch.ops.cuda_build import count_launch
 
 __all__ = [
     "MARGIN_EPS", "MARGIN_EPS_RAW", "MAX_K", "RESCORED", "FilterTerms",
@@ -59,7 +59,8 @@ MARGIN_EPS_RAW = 2.0 ** -16
 #: ``filter_terms`` centres on the mean ref when |mean|^2 reaches this
 #: fraction of the mean |r|^2, i.e. the centred energy is at most 1/16.
 _CENTRE_FRACTION = 15.0 / 16.0
-#: The last launch's count of rescored candidates, a () int64 tensor on the
+#: The last launch's count of rescored candidates (of whichever tile stream
+#: launched last), a () int64 tensor on the
 #: card (read it with ``.item()`` off the main path).
 RESCORED: list = [None]
 #: Plain version: query rows and ref columns per score slab.
@@ -260,7 +261,7 @@ def _knn_cuda(query, ref, k: int, q2, r2, *, exclude_self: bool):
     )
     if err != 0:
         raise RuntimeError(f"knn CUDA launch failed (cudaError {err})")
-    LAUNCHES["knn"] += 1
+    count_launch("knn")
     RESCORED[0] = rescored
     zero = (ft.row_p[:n] < 0)[:, None]
     zd, zi = _zero_rows(n, k, r2, exclude_self=exclude_self)

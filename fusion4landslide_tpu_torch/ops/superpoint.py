@@ -24,7 +24,7 @@ from fusion4landslide_tpu_torch.ops.eig3 import eigvals_sym3x3
 from fusion4landslide_tpu_torch.ops.knn import knn, median_nn_distance
 from fusion4landslide_tpu_torch.ops.normals import neighborhood_covariance
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "geometric_features",

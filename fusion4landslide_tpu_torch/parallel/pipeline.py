@@ -1,20 +1,31 @@
-"""Single-GPU tile runners for the fusion step (3D-only or RGB+3D), the
-F2S3 step, the RGB-guided step and piecewise ICP.
+"""Tile runners for the fusion step (3D-only or RGB+3D), the F2S3 step,
+the RGB-guided step and piecewise ICP: one tile stream per device entry.
 
 Port of ``fusion4landslide_tpu.parallel.pipeline``'s
 ``run_fusion3d_tiles_sharded``, ``run_f2s3_tiles_sharded``,
-``run_rgb_guided_tiles_sharded`` and ``run_piecewise_tiles_sharded`` for
-one device: the JAX mesh runs tiles with no collectives, so the multi-GPU
-form is one such tile stream per GPU. Statics are derived from the config exactly as the JAX runners derive
-them; each tile is centred on its source mean, padded to its bucket, run
-through the tile step, and its result tables (``c2f_*`` / ``f2s3_*``) are
-written.
+``run_rgb_guided_tiles_sharded`` and ``run_piecewise_tiles_sharded``. The
+JAX mesh runs tiles with no collectives, so the multi-GPU form is one
+tile stream per GPU: ``devices=["cuda:0", "cuda:1", ...]`` runs one
+worker thread per entry, each with its own copy of the models on its
+device and its own ``torch.cuda.Stream`` (an entry may repeat: two
+streams on one card). Tiles go out in order and results come back in tile
+order; one entry (or ``device=``) runs the tiles inline, on the calling
+thread. Statics and the padded buckets are derived once per run from the
+config and the largest tiles, exactly as the JAX runners derive them, so a
+tile's result does not depend on how many streams ran. Each tile is
+centred on its source mean, padded to its bucket, run through its tile
+step, and its result tables (``c2f_*`` / ``f2s3_*`` / ...) are written by
+its stream.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import os.path as osp
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -27,9 +38,10 @@ from fusion4landslide_tpu_torch.io.results import (
     save_txt,
     visual_clamp_magnitude,
 )
+from fusion4landslide_tpu_torch.ops import cuda_build
 from fusion4landslide_tpu_torch.ops.partition_io import load_or_generate_partition_labels
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer, is_rockfall, write_f2s3_outputs
+from fusion4landslide_tpu_torch.pipelines.f2s3 import is_rockfall, write_f2s3_outputs
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
 from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
 from fusion4landslide_tpu_torch.pipelines.piecewise_icp import (
@@ -39,10 +51,12 @@ from fusion4landslide_tpu_torch.pipelines.piecewise_icp import (
 )
 from fusion4landslide_tpu_torch.pipelines.rgb_guided import write_rgb_guided_tables
 from fusion4landslide_tpu_torch.pipelines.rgb_guided_device import rgb_guided_tile_step
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "f2s3_statics",
     "fusion3d_statics",
+    "resolve_devices",
     "run_f2s3_tiles",
     "run_fusion3d_tiles",
     "run_piecewise_tiles",
@@ -77,6 +91,95 @@ def _tiles_and_buckets(tiles, n_bucket: int | None, m_bucket: int | None):
         return tiles, (0, 0)
     return tiles, (bucket_size(max(t[1].shape[0] for t in tiles)),
                    bucket_size(max(t[2].shape[0] for t in tiles)))
+
+
+def resolve_devices(devices=None, device=None) -> list[torch.device]:
+    """The tile streams' devices: one per entry of ``devices`` (entries may
+    repeat), else the one ``device`` (default ``cuda``). A CUDA entry
+    without an index is the current card; one past the card count
+    raises."""
+    if devices is None:
+        devices = [device]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices= names no device")
+    out = []
+    for d in devs:
+        if d.type == "cuda":
+            index = torch.cuda.current_device() if d.index is None else d.index
+            if index >= torch.cuda.device_count():
+                raise ValueError(f"{d}: this machine has {torch.cuda.device_count()} CUDA "
+                                 "device(s)")
+            d = torch.device("cuda", index)
+        out.append(d)
+    return out
+
+
+def _run_streams(tiles, devs: list[torch.device], make_state, run_tile,
+                 timings: dict | None) -> dict:
+    """{tile_id: run_tile(state, dev, tile, timings)} over ``tiles``
+    ((tile_id, src, tgt), possibly lazy) in tile order.
+
+    One device runs inline with ``make_state(dev, False)``. Several run one
+    worker thread each: the worker makes its device current, takes a
+    stream of its own (ordered after the caller's work on that device),
+    builds its state with ``make_state(dev, True)`` (its own model copies)
+    and pulls the next tile under a lock until none is left or a stream
+    failed; stage seconds are summed over the streams into ``timings``.
+    Kernels are built before the workers start."""
+    if len(devs) == 1:
+        state = make_state(devs[0], False)
+        return {tile[0]: run_tile(state, devs[0], tile, timings) for tile in tiles}
+    if any(d.type == "cuda" for d in devs):
+        cuda_build.build_all()
+        for name in cuda_build.SOURCES:
+            cuda_build.load(name)
+    caller = {d: torch.cuda.current_stream(d) for d in set(devs) if d.type == "cuda"}
+    source = enumerate(tiles)
+    lock, failed = threading.Lock(), threading.Event()
+    done: dict[int, tuple] = {}
+    per_stream = [None if timings is None else {} for _ in devs]
+
+    def worker(w: int, dev: torch.device) -> None:
+        stream = None
+        with contextlib.ExitStack() as ctx:
+            if dev.type == "cuda":
+                ctx.enter_context(torch.cuda.device(dev))
+                stream = torch.cuda.Stream(dev)
+                stream.wait_stream(caller[dev])
+                ctx.enter_context(torch.cuda.stream(stream))
+            try:
+                state = make_state(dev, True)
+                while not failed.is_set():
+                    with lock:
+                        item = next(source, None)
+                    if item is None:
+                        break
+                    i, tile = item
+                    done[i] = (tile[0], run_tile(state, dev, tile, per_stream[w]))
+            except BaseException:
+                failed.set()
+                raise
+            finally:
+                if stream is not None:
+                    stream.synchronize()
+
+    with ThreadPoolExecutor(max_workers=len(devs), thread_name_prefix="tile-stream") as pool:
+        futures = [pool.submit(worker, w, d) for w, d in enumerate(devs)]
+    errors = [f.exception() for f in futures if f.exception() is not None]
+    if errors:
+        raise errors[0]
+    if timings is not None:
+        for st in per_stream:
+            for k, v in st.items():
+                timings[k] = timings.get(k, 0.0) + v
+    return dict(done[i] for i in sorted(done))
+
+
+def _models_on(dev: torch.device, own: bool, *models):
+    """The models in eval mode on ``dev``: moved in place, or (``own``)
+    copies for one stream."""
+    return tuple((copy.deepcopy(m) if own else m).to(dev).eval() for m in models)
 
 
 def _image_statics(cfg: dict) -> dict:
@@ -164,14 +267,16 @@ def _image_inputs(kit: dict, n_image_pairs: int, pix_cap: int, center, cfg: dict
     )
 
 
-def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
+def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None,
                        logger=None, timings: dict | None = None,
                        image_kit_fn=None, pix_cap: int | None = None,
                        n_image_pairs: int = 1, n_bucket: int | None = None,
                        m_bucket: int | None = None) -> dict:
-    """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
-    on one device and write the ``c2f_*`` result tables under
-    ``<output_dir>/<output_folder>/results``.
+    """Process (tile_id, src (n, 3), tgt (m, 3)) tiles through the fusion
+    step, one tile stream per entry of ``devices`` (else on ``device``),
+    and write the ``c2f_*`` result tables under
+    ``<output_dir>/<output_folder>/results``. ``image_kit_fn`` is called
+    from the streams' threads.
 
     ``image_kit_fn`` enables the RGB+3D method (use_2d_matches=True): it
     is called per tile as ``image_kit_fn(tile_id, src, tgt)`` and returns
@@ -189,7 +294,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     "overflow", "n_c2d"}}. ``timings`` (optional dict) collects per-stage
     seconds of the step, synchronised at each stage boundary.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
     with_image = image_kit_fn is not None
     if with_image and pix_cap is None:
         raise ValueError("image_kit_fn requires pix_cap")
@@ -210,8 +315,6 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
     out_root = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")))
     results_dir = osp.join(out_root, "results")
     os.makedirs(results_dir, exist_ok=True)
-    dips = dips.to(dev).eval()
-    agg = agg.to(dev).eval()
     # partition_type: superpoint: per-point labels per level from each
     # tile's table, generated when absent (the host tile's loader);
     # sharded_partition_fallback: true keeps the supervoxel levels.
@@ -222,7 +325,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
         logger.warning("partition_type=superpoint: the step partitions with multi-level "
                        "supervoxels (sharded_partition_fallback: true)")
 
-    def partition_labels(tile_id, pts, which, size):
+    def partition_labels(tile_id, pts, which, size, dev, timings):
         labs = load_or_generate_partition_labels(out_root, "superpoint", tile_id, which, pts,
                                                  statics["levels"], logger=logger, device=dev,
                                                  timings=timings)
@@ -231,19 +334,19 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             lab[li, :pl.shape[0]] = pl
         return torch.from_numpy(lab).to(dev)
 
-    results: dict = {}
-    for tile_id, src, tgt in tiles:
+    def run_tile(models, dev, tile, timings):
+        tile_id, src, tgt = tile
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         images = {}
         if use_partition:
-            images = dict(sp_lab_src=partition_labels(tile_id, src, "src", N),
-                          sp_lab_tgt=partition_labels(tile_id, tgt, "tgt", M))
+            images = dict(sp_lab_src=partition_labels(tile_id, src, "src", N, dev, timings),
+                          sp_lab_tgt=partition_labels(tile_id, tgt, "tgt", M, dev, timings))
         if with_image:
             images |= _image_inputs(image_kit_fn(tile_id, src, tgt), n_image_pairs, pix_cap,
                                    center, cfg, tile_id, dev, logger)
         out = fusion3d_tile_step(
-            dips, agg, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,
+            *models, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,
             **images,
         )
         valid = out.valid[:n].cpu().numpy()
@@ -289,7 +392,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
                 tile_id, 100.0 * float(valid.mean()) if n else 0.0, int(out.n_vox_src), n,
                 out.overflow_by_source,
             )
-        results[tile_id] = {
+        return {
             "dvfs": dvfs_dense,
             "valid": valid,
             "assigned_fraction": float(valid.mean()) if n else 0.0,
@@ -298,7 +401,9 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None,
             "overflow_by_source": out.overflow_by_source,
             "n_c2d": int(out.n_c2d),
         }
-    return results
+
+    return _run_streams(tiles, devs, lambda dev, own: _models_on(dev, own, dips, agg),
+                        run_tile, timings)
 
 
 def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
@@ -321,11 +426,12 @@ def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
     )
 
 
-def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
+def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None, devices=None,
                    logger=None, timings: dict | None = None,
                    n_bucket: int | None = None, m_bucket: int | None = None) -> dict:
-    """Process (tile_id, src (n, 3), tgt (m, 3)) tiles one after another
-    on one device through ``f2s3_tile_step`` and write the ``f2s3_*``
+    """Process (tile_id, src (n, 3), tgt (m, 3)) tiles through
+    ``f2s3_tile_step``, one tile stream per entry of ``devices`` (else on
+    ``device``), and write the ``f2s3_*``
     result tables (the pre-pruning ``f2s3_dvfms_without_pruning_of_tile_*``
     included) under ``<output_dir>/<output_folder>/results``.
 
@@ -336,7 +442,7 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
     "overflow"}}. ``timings`` (optional dict) collects per-stage seconds
     of the step, synchronised at each stage boundary.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
     tiles, (N, M) = _tiles_and_buckets(tiles, n_bucket, m_bucket)
     if N == 0:
         return {}
@@ -345,15 +451,13 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
     voxel_size = float(cfg.get("voxel_size", 0.0) or 0.0)
     results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")), "results")
     os.makedirs(results_dir, exist_ok=True)
-    dips = dips.to(dev).eval()
-    filt = filt.to(dev).eval()
 
-    results: dict = {}
-    for tile_id, src, tgt in tiles:
+    def run_tile(models, dev, tile, timings):
+        tile_id, src, tgt = tile
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         out = f2s3_tile_step(
-            dips, filt, sb, sm, tb, tm, max_disp, voxel_size,
+            *models, sb, sm, tb, tm, max_disp, voxel_size,
             timings=timings, device=dev, **statics,
         )
         n_dropped = int(out.n_dropped)
@@ -379,22 +483,25 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None,
         if logger:
             logger.info("tile %s (f2s3): %d kept correspondences, window overflow %s",
                         tile_id, int(keep.sum()), out.overflow_by_source)
-        results[tile_id] = {
+        return {
             **written,
             "keep": keep,
             "n_dropped": n_dropped,
             "overflow": out.overflow,
             "overflow_by_source": out.overflow_by_source,
         }
-    return results
+
+    return _run_streams(tiles, devs, lambda dev, own: _models_on(dev, own, dips, filt),
+                        run_tile, timings)
 
 
 def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_extrinsic,
                          tgt_extrinsic, *, tgt_intrinsic=None, corres_2d=None, device=None,
-                         logger=None, timings: dict | None = None, n_bucket: int | None = None,
-                         m_bucket: int | None = None) -> dict:
-    """RGB-guided estimation over (tile_id, src (n, 3), tgt (m, 3)) tiles
-    on one device: the image pair is matched once (``image.matching``,
+                         devices=None, logger=None, timings: dict | None = None,
+                         n_bucket: int | None = None, m_bucket: int | None = None) -> dict:
+    """RGB-guided estimation over (tile_id, src (n, 3), tgt (m, 3)) tiles,
+    one tile stream per entry of ``devices`` (else on ``device``): the
+    image pair is matched once on the first device (``image.matching``,
     unless ``corres_2d`` is given), its matches padded to
     ``max(bucket(M), 64)`` rows, then each tile runs through
     ``rgb_guided_tile_step`` (``sv_cap`` = ``bucket(N / 16)``, at least 64,
@@ -404,7 +511,8 @@ def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_
     "n_dropped", "overflow_by_source"}}. ``timings`` (optional
     dict) collects the matcher's and the step's per-stage seconds."""
 
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
+    dev = devs[0]
     tiles, (N, M) = _tiles_and_buckets(tiles, n_bucket, m_bucket)
     if N == 0:
         return {}
@@ -445,12 +553,12 @@ def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_
                            "results")
     os.makedirs(results_dir, exist_ok=True)
 
-    results: dict = {}
-    for tile_id, src, tgt in tiles:
+    def run_tile(matches, dev, tile, timings):
+        tile_id, src, tgt = tile
         n = src.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         out = rgb_guided_tile_step(
-            sb, sm, tb, tm, center.astype(np.float32), c2, cmask, **cams, **scalars,
+            sb, sm, tb, tm, center.astype(np.float32), *matches, **cams, **scalars,
             **statics, timings=timings, device=dev,
         )
         matched = out.matched[:n].cpu().numpy()
@@ -468,7 +576,7 @@ def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_
         if logger:
             logger.info("tile %s (rgb_guided): %d matched, %d assigned, window overflow %s",
                         tile_id, int(matched.sum()), int(valid.sum()), out.overflow_by_source)
-        results[tile_id] = {
+        return {
             "dvfs": dvfs,
             "valid": valid,
             "matched": matched,
@@ -476,16 +584,19 @@ def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_
             "n_dropped": n_dropped,
             "overflow_by_source": out.overflow_by_source,
         }
-    return results
+
+    return _run_streams(tiles, devs, lambda d, own: (c2.to(d), cmask.to(d)), run_tile,
+                        timings)
 
 
-def run_piecewise_tiles(cfg: dict, tiles, *, device=None, logger=None) -> dict:
-    """Piecewise ICP over (tile_id, src (n, 3), tgt (m, 3)) tiles on one
-    device, padded to the buckets of the largest tiles with one static cell
-    bound from the largest source extent; writes the same tables as
+def run_piecewise_tiles(cfg: dict, tiles, *, device=None, devices=None, logger=None) -> dict:
+    """Piecewise ICP over (tile_id, src (n, 3), tgt (m, 3)) tiles, one tile
+    stream per entry of ``devices`` (else on ``device``), padded to the
+    buckets of the largest tiles with one static cell bound from the
+    largest source extent; writes the same tables as
     ``pipelines.piecewise_icp.run_piecewise_icp``. Returns {tile_id:
     {"dvfs"}}."""
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
     smax = float(cfg.get("smax", 5.0))
     n_min = int(cfg.get("number_points_min", 10))
     tiles, (N, M) = _tiles_and_buckets(tiles, None, None)
@@ -496,18 +607,19 @@ def run_piecewise_tiles(cfg: dict, tiles, *, device=None, logger=None) -> dict:
     results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
                            "results")
     os.makedirs(results_dir, exist_ok=True)
-    results: dict = {}
-    with torch.inference_mode():
-        for tile_id, src, tgt in tiles:
-            n = src.shape[0]
-            _, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
-            out = piecewise_icp_core(sb, tb, sm, tm, smax, n_min, max_cells=max_cells)
-            keep = out.out_mask[:n].cpu().numpy()
-            src_kept = src[keep]
-            dvfs = np.hstack([src_kept, src_kept + out.displacement[:n].cpu().numpy()[keep]])
-            write_piecewise_tables(results_dir, tile_id, dvfs, cfg.get("dataset"))
-            if logger:
-                logger.info("tile %s (piecewise): %d kept, %d cells", tile_id, int(keep.sum()),
-                            int(out.n_cells_src))
-            results[tile_id] = {"dvfs": dvfs}
-    return results
+    @torch.inference_mode()
+    def run_tile(_, dev, tile, timings):
+        tile_id, src, tgt = tile
+        n = src.shape[0]
+        _, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
+        out = piecewise_icp_core(sb, tb, sm, tm, smax, n_min, max_cells=max_cells)
+        keep = out.out_mask[:n].cpu().numpy()
+        src_kept = src[keep]
+        dvfs = np.hstack([src_kept, src_kept + out.displacement[:n].cpu().numpy()[keep]])
+        write_piecewise_tables(results_dir, tile_id, dvfs, cfg.get("dataset"))
+        if logger:
+            logger.info("tile %s (piecewise): %d kept, %d cells", tile_id, int(keep.sum()),
+                        int(out.n_cells_src))
+        return {"dvfs": dvfs}
+
+    return _run_streams(tiles, devs, lambda dev, own: None, run_tile, None)

@@ -15,6 +15,8 @@ import os.path as osp
 import re
 import time
 
+import torch
+
 from fusion4landslide_tpu_torch.config import Config, load_yaml
 from fusion4landslide_tpu_torch.utils.logging import get_logger
 
@@ -28,8 +30,18 @@ __all__ = [
     "halo_split_spec",
     "crop_cloud_to_core",
     "iter_tile_clouds",
+    "stream_devices",
     "tile_size_buckets",
 ]
+
+
+def stream_devices(dev: torch.device) -> list[torch.device]:
+    """The runners' tile streams for a driver run on ``dev``: one per GPU
+    for ``cuda`` without an index (the JAX drivers shard tiles over every
+    device), else ``dev`` alone."""
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def setup_run(config_path: str, method: str, keep_sub_directory: bool = False):

@@ -22,15 +22,18 @@ Port of ``fusion4landslide_tpu.pipelines.f2s3`` (reference
   ``run_f2s3_tile``: the host tile (``main_f2s3.py`` on one device) and
   the result tables shared with ``parallel.pipeline.run_f2s3_tiles``.
 
-The host tile's feature cache (``feat_compute: false``) and interim dumps
-(``save_interim``) are not ported and raise ``NotImplementedError``.
+The host tile keeps the reference's feature cache (f2s3.py:97-101,
+139-149): ``save_interim: true`` writes each tile's descriptors to
+``<output_dir>/<output_folder>/features/features_tile_<id>.npz`` (keys
+``src_feat`` / ``tgt_feat``, the JAX package's file), and ``feat_compute:
+false`` loads that file where it exists instead of running DIPs. It is not
+the fusion host tile's cache (``pipelines/driver.py``, under ``interim/``).
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
-import time
 
 import numpy as np
 import torch
@@ -48,9 +51,9 @@ from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
 from fusion4landslide_tpu_torch.ops.lrf import lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
-    "StageTimer",
     "compute_dips_features",
     "drop_small_and_compact",
     "filter_supervoxel_buckets",
@@ -59,27 +62,6 @@ __all__ = [
     "run_f2s3_tile",
     "write_f2s3_outputs",
 ]
-
-class StageTimer:
-    """Per-stage wall seconds, synchronised with the device at each mark
-    (only when the caller passes a ``timings`` dict)."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings, self.device = timings, device
-        self.last = self._now() if timings is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.timings is None:
-            return
-        now = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
-        self.last = now
-
 
 #: Query blocks per sampler launch (65536 queries at block 512).
 _SAMPLE_BLOCKS = 128
@@ -327,12 +309,12 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     feature 1-NN (kernel 3), the pre-pruning table, learned pruning and
     the result tables. ``cfg`` keys as in ``configs/landslide/f2s3_brienz.yaml``.
     Runs on ``device`` (default ``cuda``); ``timings`` (optional dict)
-    collects per-stage seconds, synchronised at each stage boundary."""
-    if not cfg.get("feat_compute", True):
-        raise NotImplementedError("the feature cache (feat_compute: false) is not ported "
-                                  "(ROADMAP.md queue 1 item 6)")
-    if cfg.get("save_interim", False):
-        raise NotImplementedError("save_interim is not ported (ROADMAP.md queue 1 item 6)")
+    collects per-stage seconds, synchronised at each stage boundary.
+
+    ``feat_compute: false`` loads the tile's descriptors from its cache
+    file where it exists (stage ``feature_cache`` in place of
+    ``dips_features``; the sampler does not run); ``save_interim: true``
+    writes them there after computing them."""
     if cfg.get("feat_dtype") not in (None, "float32"):
         raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
     dev = resolve_device(device)
@@ -354,10 +336,27 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     if logger:
         logger.info("tile %s: median_res=%.4f, patch radius=%.4f", tile_id, median_res, radius)
 
-    # 2. DIPs descriptors, patches from the halo clouds (f2s3.py:111-114).
-    src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius)
-    tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius)
-    timer.mark("dips_features")
+    # 2. DIPs descriptors, patches from the halo clouds (f2s3.py:111-114),
+    # or the tile's cached ones (f2s3.py:97-101, 139-149).
+    out_root = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")))
+    feat_cache = osp.join(out_root, "features", f"features_tile_{tile_id}.npz")
+    if not cfg.get("feat_compute", True) and osp.exists(feat_cache):
+        with np.load(feat_cache) as cached:
+            src_feat, tgt_feat = (torch.from_numpy(np.asarray(cached[k], np.float32)).to(dev)
+                                  for k in ("src_feat", "tgt_feat"))
+        ov_s = ov_t = 0
+        timer.mark("feature_cache")
+        if logger:
+            logger.info("tile %s: features loaded from %s", tile_id, feat_cache)
+    else:
+        src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius)
+        tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius)
+        timer.mark("dips_features")
+        if cfg.get("save_interim", False):
+            os.makedirs(osp.dirname(feat_cache), exist_ok=True)
+            np.savez_compressed(feat_cache, src_feat=src_feat.cpu().numpy(),
+                                tgt_feat=tgt_feat.cpu().numpy())
+            timer.mark("feature_cache")
 
     # 3. Supervoxels of the source, small patches removed, labels compacted
     # (f2s3.py:183-225).
@@ -380,7 +379,7 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     timer.mark("feature_nn1")
 
     # Pre-pruning table (f2s3.py:286-294).
-    results_dir = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")), "results")
+    results_dir = osp.join(out_root, "results")
     mag0 = np.linalg.norm(correspondences[:, 3:6] - correspondences[:, :3], axis=1)
     save_txt(
         osp.join(results_dir, f"f2s3_dvfms_without_pruning_of_tile_{tile_id}.txt"),

@@ -6,8 +6,7 @@ feature-space 1-NN -> learned per-supervoxel pruning -> magnitude gate ->
 C2C spatial 1-NN) on padded, centred tile tensors, following the JAX
 step's accelerator branch; ``dips_features_device``,
 ``masked_median`` (also used by the fusion step), and
-``drop_small_and_compact`` and ``StageTimer`` (both defined in
-``pipelines.f2s3``).
+``drop_small_and_compact`` (defined in ``pipelines.f2s3``).
 
 Fixed-shape conventions as in the JAX step: supervoxel buckets use static
 caps ``(sv_cap, member_cap)``; supervoxels past the cap, or members past
@@ -33,15 +32,14 @@ from fusion4landslide_tpu_torch.ops.supervoxel import (
     supervoxel_segmentation,
 )
 from fusion4landslide_tpu_torch.pipelines.f2s3 import (
-    StageTimer,
     compute_dips_features,
     drop_small_and_compact,
     filter_supervoxel_buckets,
 )
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "F2S3TileResult",
-    "StageTimer",
     "dips_features_device",
     "drop_small_and_compact",
     "f2s3_tile_step",

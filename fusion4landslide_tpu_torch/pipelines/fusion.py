@@ -24,9 +24,14 @@ label and dedups the per-level output tables with the reference's
 distance threshold (``ops/merge.py``). ``icp_type`` selects the fine
 stage's solver (``ops/registration.py::icp_by_type``).
 
+The reference's figures (``visualize_patch``,
+``visualize_matches_within_patch``, ``save_img_matching_visualization``)
+are written by ``utils/visualization.py`` where the JAX host tile writes
+them; a tile that asks for them without matplotlib raises ``ImportError``
+before any work.
+
 Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-bf16 descriptors, patch sizes that are not a multiple of 128 and the
-figure writers.
+bf16 descriptors and patch sizes that are not a multiple of 128.
 """
 
 from __future__ import annotations
@@ -60,7 +65,16 @@ from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_graph, supervoxel_segmentation
 from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
 from fusion4landslide_tpu_torch.pipelines.driver import load_or_compute_features
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer, compute_dips_features
+from fusion4landslide_tpu_torch.pipelines.f2s3 import compute_dips_features
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
+from fusion4landslide_tpu_torch.utils.visualization import (
+    FIGURE_KEYS,
+    patch_visualization_requests,
+    require_matplotlib,
+    save_matches_within_patch_figure,
+    save_matching_figure,
+    save_patch_match_figure,
+)
 
 __all__ = [
     "FinePairResult",
@@ -335,19 +349,45 @@ def _not_ported(what: str, item: int):
 
 
 def _check_ported(cfg, image_data) -> None:
-    """Raise for the options the host tile does not run yet."""
+    """Raise for the options the host tile does not run yet, and for
+    figures without matplotlib."""
     if cfg.get("feat_dtype") not in (None, "float32"):
         raise _not_ported(f"feat_dtype: {cfg.get('feat_dtype')}", 3)
     if int(cfg.get("feat_patch_points", 256)) % 128:
         raise _not_ported("feat_patch_points not a multiple of 128 (the CPU DIPs branch)", 10)
-    if bool(cfg.get("visualize_patch", False)):
-        raise _not_ported("visualize_patch (patch figures)", 14)
+    require_matplotlib(cfg, ("visualize_patch",) if image_data is None else FIGURE_KEYS)
     if image_data is None:
         return
-    if bool(cfg.get("save_img_matching_visualization", False)):
-        raise _not_ported("save_img_matching_visualization (matching figures)", 14)
     if not cfg.get("image_size") and image_data.get("src_image") is None:
         raise ValueError("image_size is not in the config and no source image was given")
+
+
+def _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s, lab_t,
+                   pair_src, pair_tgt, ch1_idx, ch1_valid) -> None:
+    """The reference's ``visualize_patch`` / ``visualize_matches_within_patch``
+    figures of one level's coarse pairs (base:3159-3231, :4279-4403) under
+    ``<run>/visualization``, as the JAX host tile writes them."""
+    vis_idx = patch_visualization_requests(cfg, len(pair_src), seed=0)
+    if not len(vis_idx):
+        return
+    vis_dir = osp.join(out_root, "visualization")
+    off = tuple(cfg.get("offset") or (75.0, 75.0, 75.0))
+    small = cfg.get("small_region")
+    within = bool(cfg.get("visualize_matches_within_patch", False))
+    ch1_idx, ch1_valid = np.asarray(ch1_idx), np.asarray(ch1_valid)
+    for k in vis_idx:
+        ps, pt = int(pair_src[k]), int(pair_tgt[k])
+        p_s = src_vox[lab_s == ps] + center
+        p_t = tgt_vox[lab_t == pt] + center
+        save_patch_match_figure(
+            src_vox + center, tgt_vox + center, p_s, p_t,
+            osp.join(vis_dir, f"patch_match_tile_{tile_id}_l{level}_{k}.png"), offset=off,
+            small_region=float(small) if small is not None else None)
+        if within:
+            sel = (lab_s == ps) & ch1_valid & (lab_t[np.clip(ch1_idx, 0, None)] == pt)
+            save_matches_within_patch_figure(
+                p_s, p_t, src_vox[sel] + center, tgt_vox[ch1_idx[sel]] + center,
+                osp.join(vis_dir, f"matches_within_patch_tile_{tile_id}_l{level}_{k}.png"))
 
 
 def run_fusion3d_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
@@ -559,6 +599,13 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
                     corres_2d = match_epoch_images(
                         simg, timg, **matcher_options(cfg), logger=logger,
                         weights=cfg.get("img_matcher_weights"), device=dev)
+                if bool(cfg.get("save_img_matching_visualization", False)) and len(corres_2d):
+                    # Reference base:1213-1224 (make_matching_figure JPG).
+                    save_matching_figure(
+                        simg, timg, np.asarray(corres_2d),
+                        osp.join(out_root, "img_matching_results", "visualization",
+                                 f"src_{a}_tgt_{b}_tile_{tile_id}.jpg"),
+                        text=f"tile {tile_id} src img {a} x tgt img {b}")
                 corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
                 n_px_total += len(corres_2d)
                 if not len(corres_2d):
@@ -765,6 +812,8 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         lab_ok = np.zeros(n_s, bool)
         lab_R[pair_src], lab_t_arr[pair_src] = fR, ft
         lab_rmse[pair_src], lab_ok[pair_src] = frmse, fvalid
+        _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s, lab_t,
+                       pair_src, pair_tgt, ch1_idx, ch1_valid)
 
         # 7. Dense per-point assignment, merged by level priority.
         pt_label = np.where(s_p2v < s_nv, lab_s[np.clip(s_p2v, 0, max(s_nv - 1, 0))], -1)

@@ -5,7 +5,8 @@ Port of ``fusion4landslide_tpu.pipelines.fusion_device.fusion3d_tile_step``
 src/coarse_to_fine_matching.py:201-290): median resolution -> adaptive
 voxel subsampling on one shared origin -> DIPs descriptors -> gated global
 3D matches -> (with image inputs) 3D matches lifted from 2D pixel matches
--> multi-level supervoxel partition (nested levels) -> attention
+-> multi-level supervoxel partition (nested levels, or each level afresh
+with ``nested_levels=False``) -> attention
 aggregation -> coarse mutual matching, fused with 2D majority votes ->
 fine per-pair SVD + ICP on one or two correspondence channels -> priority
 merge -> dense / sparse / tgt2src outputs.
@@ -59,7 +60,6 @@ from fusion4landslide_tpu_torch.ops.supervoxel import (
 )
 from fusion4landslide_tpu_torch.ops.voxel import segment_sum, voxel_downsample
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import (
-    StageTimer,
     dips_features_device,
     drop_small_and_compact,
 )
@@ -69,6 +69,7 @@ from fusion4landslide_tpu_torch.pipelines.fusion import (
     fine_match_pairs,
     global_matches_3d,
 )
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "Fusion3DTileResult",
@@ -303,6 +304,7 @@ def fusion3d_tile_step(
     icp_max_iter: int = 30,
     icp_type: str = "point2point",
     fine_max_matches: int = 256,
+    nested_levels: bool = True,
     coarse_mutual: bool = True,
     global_gated: bool = True,
     with_sparse: bool = True,
@@ -347,6 +349,11 @@ def fusion3d_tile_step(
     ``sp_lab_src`` / ``sp_lab_tgt`` ((L, N) / (L, M) per-point labels of
     the ``levels``, -1 for none) replace the supervoxel levels;
     ``icp_type`` is the fine stage's solver (``ops/registration.py``).
+    ``nested_levels`` (default True) segments each level above the first
+    from the level below's supervoxel centroids; False segments the voxel
+    cloud afresh at each level's radius, on the first level's graph and
+    normals, as the JAX step does. The per-level caps shrink either way
+    (JAX's ``_per_level_caps`` does not read the option).
 
     The JAX step takes a PRNG key; on the accelerator branch this port
     follows, the key feeds nothing (the patch sampler runs with seed 0),
@@ -492,7 +499,7 @@ def fusion3d_tile_step(
                                 sp_lab_src[li][torch.clamp(first_s, max=N - 1)], -1)
             raw_t = torch.where(vvalid_t & (first_t < M),
                                 sp_lab_tgt[li][torch.clamp(first_t, max=M - 1)], -1)
-        elif li == 0:
+        elif li == 0 or not nested_levels:
             raw_s = supervoxel_segmentation(
                 s_cent, svl_radius, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s,
                 normals=nrm_s,

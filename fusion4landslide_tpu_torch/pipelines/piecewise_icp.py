@@ -30,7 +30,7 @@ from fusion4landslide_tpu_torch.io.results import (
 )
 from fusion4landslide_tpu_torch.ops.knn import nn1_xla_rounded
 from fusion4landslide_tpu_torch.ops.voxel import grid_cells, group_by_cells, segment_sum
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "PiecewiseResult",

@@ -36,7 +36,8 @@ from fusion4landslide_tpu_torch.ops.knn import median_nn_distance
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
+from fusion4landslide_tpu_torch.utils.visualization import require_matplotlib, save_matching_figure
 
 __all__ = ["SupervoxelRefineResult", "refine_supervoxels_rigid", "run_rgb_guided_tile"]
 
@@ -120,9 +121,7 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
 
     Returns {"dvfs", "n_matches", "n_supervoxels", "corres_2d", "matched",
     "quality", "overflow_by_source"}."""
-    if bool(cfg.get("save_img_matching_visualization", False)):
-        raise NotImplementedError("save_img_matching_visualization (matching figures) is not "
-                                  "ported yet (ROADMAP.md queue 1 item 14)")
+    require_matplotlib(cfg, ("save_img_matching_visualization",))
     dev = resolve_device(device)
     timer = StageTimer(timings, dev)
     image_size = tuple(int(v) for v in (cfg.get("image_size") or src_image.shape[:2]))
@@ -148,10 +147,18 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
     if corres_2d is None:
         corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg), logger=logger,
                                        weights=cfg.get("img_matcher_weights"), device=dev)
-    corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
     timer.mark("match_2d")
     if logger:
         logger.info("tile %s: %d 2D matches", tile_id, len(corres_2d))
+    if bool(cfg.get("save_img_matching_visualization", False)) and len(corres_2d):
+        # Reference rgb_guided.py:2269-2279 (make_matching_figure JPG).
+        save_matching_figure(
+            src_image, tgt_image, np.asarray(corres_2d),
+            osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
+                     "img_matching_results", "visualization", f"tile_{tile_id}.jpg"),
+            text=f"tile {tile_id}")
+        timer.mark("figures")
+    corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
 
     center = src_core.mean(axis=0)
     s = (src_core - center).astype(np.float32)

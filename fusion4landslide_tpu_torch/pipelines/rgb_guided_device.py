@@ -22,7 +22,7 @@ from fusion4landslide_tpu_torch.image.geometry import chain_2d_matches_to_3d, pr
 from fusion4landslide_tpu_torch.ops.knn import nn1_xla_rounded
 from fusion4landslide_tpu_torch.ops.segments import label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
-from fusion4landslide_tpu_torch.pipelines.f2s3 import StageTimer
+from fusion4landslide_tpu_torch.utils.timing import StageTimer
 from fusion4landslide_tpu_torch.pipelines.f2s3_device import masked_median
 from fusion4landslide_tpu_torch.pipelines.rgb_guided import refine_supervoxels_rigid
 

@@ -1,5 +1,6 @@
 """Spatial tiling of epoch pairs (the port's own copy of
-``fusion4landslide_tpu.tiling``; the native C++ tiler is not ported)."""
+``fusion4landslide_tpu.tiling``): the numpy tiler the drivers run, and
+the native C++ tiler in ``tiling.native`` (built from ``cpp/tiler.cpp``)."""
 
 from fusion4landslide_tpu_torch.tiling.bsp import TilePair, tile_epoch_pair, tile_point_clouds
 

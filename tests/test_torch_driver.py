@@ -75,8 +75,13 @@ def test_ply_and_las_io_match_jax(tmp_path, rng):
     (tmp_path / "bad.ply").write_bytes(b"not a ply\n")
     with pytest.raises(ValueError, match="not a PLY"):
         read_point_cloud(str(tmp_path / "bad.ply"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        read_point_cloud(str(tmp_path / "epoch.e57"))
+    # E57 epochs read as the JAX package reads them (tests/test_torch_e57.py).
+    from fusion4landslide_tpu_torch.io.e57 import write_e57
+
+    write_e57(str(tmp_path / "epoch.e57"), pts, colors=rgb)
+    ej, et = j_read(str(tmp_path / "epoch.e57")), read_point_cloud(str(tmp_path / "epoch.e57"))
+    np.testing.assert_array_equal(ej.points, et.points)
+    np.testing.assert_array_equal(ej.colors, et.colors)
 
 
 def test_tiling_matches_jax(tmp_path):

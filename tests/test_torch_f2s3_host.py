@@ -115,7 +115,9 @@ def test_host_tile_options_not_ported_raise(tmp_path):
     dips, _ = seeded_models(0, "cpu")
     filt = seeded_filter(0, "cpu")
     src = np.zeros((10, 3), np.float32)
-    for extra in ({"feat_compute": False}, {"save_interim": True}, {"feat_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError):
+    # The feature cache (feat_compute, save_interim) is ported:
+    # tests/test_torch_f2s3_cache.py holds it.
+    for extra in ({"feat_dtype": "bfloat16"},):
+        with pytest.raises(NotImplementedError, match="item 3"):
             run_f2s3_tile({**CFG, "output_dir": str(tmp_path), **extra}, dips, filt, src, src,
                           device="cpu")

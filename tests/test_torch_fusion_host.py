@@ -330,8 +330,6 @@ def test_merge_by_priority_matches_jax():
 @pytest.mark.parametrize("extra, item", [
     ({"feat_dtype": "bfloat16"}, "item 3"),
     ({"feat_patch_points": 100}, "item 10"),
-    ({"visualize_patch": True}, "item 14"),
-    ({"use_2d_matches": True, "save_img_matching_visualization": True}, "item 14"),
 ])
 def test_unported_host_options_raise(tmp_path, extra, item):
     from fusion4landslide_tpu_torch.models.convert import seeded_models

@@ -268,3 +268,87 @@ def test_dips_features_match_jax(tpu_branch):
     err = np.abs(jf[:n_core] - tf[:n_core]).max(1)
     assert (err < 1e-4).mean() >= 0.99, (err >= 1e-4).sum()
     np.testing.assert_array_equal(tf[n_core:], 0.0)
+
+
+def test_metrics_match_jax():
+    """``utils/metrics.py`` on tensors against the JAX functions, within
+    1e-6: the inlier ratio with and without a mask, the median DVF error
+    for odd and even row counts (the mean of the two middle values)."""
+    from fusion4landslide_tpu.ops.kabsch import weighted_kabsch as jkabsch
+    from fusion4landslide_tpu.utils import metrics as jm
+    from fusion4landslide_tpu_torch.utils import metrics as tm
+
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-3, 3, (500, 3)).astype(np.float32)
+    tgt = (src + [0.2, -0.1, 0.05] + rng.normal(0, 0.08, (500, 3))).astype(np.float32)
+    R, t, _, _ = jkabsch(jnp.asarray(src), jnp.asarray(tgt))
+    R, t = np.asarray(R), np.asarray(t)
+    mask = rng.random(500) < 0.7
+    for thr in (0.05, 0.1, 0.2):
+        for m in (None, mask):
+            j = jm.compute_inlier_ratio(jnp.asarray(src), jnp.asarray(tgt), R, t, thr,
+                                        None if m is None else jnp.asarray(m))
+            p = tm.compute_inlier_ratio(_t(src), _t(tgt), _t(R), _t(t), thr,
+                                        None if m is None else _t(m))
+            assert abs(float(j) - float(p)) <= 1e-6 and 0 < float(p) < 1
+    for n in (499, 500):
+        a = np.hstack([src[:n], tgt[:n]])
+        b = a + np.hstack([np.zeros((n, 3)), rng.normal(0, 0.01, (n, 3))]).astype(np.float32)
+        j = jm.median_displacement_error(jnp.asarray(a), jnp.asarray(b))
+        p = tm.median_displacement_error(_t(a), _t(b))
+        assert abs(float(j) - float(p)) <= 1e-6 and float(p) > 0
+
+
+def test_nested_levels_false_segments_each_level_afresh(monkeypatch):
+    """``fusion3d_tile_step(nested_levels=False)`` segments both voxel
+    clouds afresh at each level's radius (base radius x 2^(level - 1)) on
+    the first level's graph and normals, as JAX ``fusion_device.py:776``
+    does; each level's partition equals JAX's ``supervoxel_segmentation``
+    on the same inputs up to relabelling. Nested (the default) segments
+    the voxel clouds at the first level only, then the centroids."""
+    from fusion4landslide_tpu.ops.supervoxel import supervoxel_segmentation as jseg
+    from fusion4landslide_tpu_torch.pipelines import fusion_device as fd
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
+
+    src, tgt, _, _ = synth_split_tile(600, 1.0, 1.0, halo=2.0)
+    n, m = len(src), len(tgt)
+    N, M = bucket_size(n), bucket_size(m)
+    sb = np.zeros((N, 3), np.float32)
+    sb[:n] = src - src.mean(0)
+    tb = np.zeros((M, 3), np.float32)
+    tb[:m] = tgt - src.mean(0)
+    td, ta = seeded_models(0, "cpu")
+    calls = []
+    real = fd.supervoxel_segmentation
+
+    def spy(points, resolution, mask=None, **kw):
+        out = real(points, resolution, mask, **kw)
+        calls.append((points, resolution, mask, kw, out.labels))
+        return out
+
+    monkeypatch.setattr(fd, "supervoxel_segmentation", spy)
+    kw = dict(levels=(1, 2, 3), patch_points=128, chunk=512, k_neighbors=8, sv_cap=256,
+              member_cap=128, agg_max_points=64, small_patch=3, icp_max_iter=4,
+              fine_max_matches=64, device="cpu")
+    args = (td, ta, _t(sb), _t(np.arange(N) < n), _t(tb), _t(np.arange(M) < m), 5.0, 0.1, 0.1)
+    out = fd.fusion3d_tile_step(*args, nested_levels=False, **kw)
+    assert len(calls) == 6 and torch.isfinite(out.moved).all()
+    base = float(calls[0][1])
+    for i, (points, res, mask, skw, labels) in enumerate(calls):
+        assert float(res) == pytest.approx(base * 2.0 ** (i // 2), rel=1e-6)
+        js = jseg(points.numpy(), res.numpy(), mask.numpy(),
+                  **{k: v.numpy() for k, v in skw.items()})
+        jl, tl, v = np.asarray(js.labels), labels.numpy(), mask.numpy()
+        pairs = set(zip(jl[v].tolist(), tl[v].tolist()))
+        assert len(pairs) == len(set(jl[v].tolist())) == len(set(tl[v].tolist()))
+        np.testing.assert_array_equal(jl[~v], tl[~v])
+    counts = [int(c[4].max()) + 1 for c in calls[0::2]]  # source segments per level
+    assert counts[0] > counts[1] >= counts[2] >= 1
+    assert all(c[0].shape[0] == (N if i % 2 == 0 else M) and "normals" in c[3]
+               for i, c in enumerate(calls))
+    # Nested: levels 2 and 3 segment the level below's centroids.
+    calls.clear()
+    fd.fusion3d_tile_step(*args, **kw)
+    assert len(calls) == 6 and all(c[0].shape[0] < N and "normals" not in c[3]
+                                   for c in calls[2:])

@@ -60,15 +60,18 @@ Runs: ``jax``, ``port``, ``port:no_icp`` (``icp_refine: false``),
 descriptors permuted). ``--pipeline f2s3_host`` does the same for the
 host F2S3 tile (``f2s3_brienz.yaml``; runs ``port:no_refine``,
 ``port:tgt_shuffle``). On the CPU at a reduced epoch, and on a card at
-the driver phase's epoch (``DRIVER_EPOCH``), whose readings place
+the driver phases' epoch (``chip_smoke.py``'s ``CLI_EPOCH``: 145 m x 50 m
+cut by ``max_pts_per_tile`` 400 000), whose readings place
 ``chip_smoke.py``'s ``RECOVERY_CLI`` and ``RECOVERY_CLI_F2S3`` floors:
 
     PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_host \
         --epoch 40 25 --max-pts 50000 --runs jax port
     PYTHONPATH=. python tests/test_torch_recovery.py --pipeline fusion_host \
-        --device cuda --runs port port:no_icp port:tgt_seed port:tgt_shuffle
+        --device cuda --epoch 145 50 --max-pts 400000 \
+        --runs port port:no_icp port:tgt_seed port:tgt_shuffle
     PYTHONPATH=. python tests/test_torch_recovery.py --pipeline f2s3_host \
-        --device cuda --runs port port:no_refine port:tgt_shuffle
+        --device cuda --epoch 145 50 --max-pts 400000 \
+        --runs port port:no_refine port:tgt_shuffle
 """
 
 from __future__ import annotations
