@@ -143,7 +143,28 @@ Phases (n)-(r): (n) the F2S3 feature cache: phase 11 runs with
    ``nested_levels=False`` (levels 1-3) on phase 5's small tile, card vs
    CPU (equal assigned sets, the DVF gap reported). Phases 9, 11 and 16
    run on ``CLI_EPOCH``, ``DRIVER_EPOCH`` at half its height, cut into two
-   tiles by ``max_pts_per_tile: CLI_TILE_PTS``;
+   tiles by ``max_pts_per_tile: CLI_TILE_PTS``; (q) runs an eighth-size
+   tile pair;
+Phases (s)-(v): (s) the DIPs grid branches at ``feat_patch_points`` 96:
+   the small fusion and F2S3 steps, each with ``sample_priority``
+   ``'knn'`` and ``'random'`` (``feat_k_max`` ``SMALL_K_MAX``), card vs
+   the CPU path on the card's draws (assigned / kept sets and the DVF gap
+   as ``tools/parity_check.py`` scores them), and on the F2S3 tile both
+   branches' descriptors (max error, 1-NN agreement), run after phase (r);
+   (t) the production tile of phase 6 through ``run_fusion3d_tiles`` at
+   ``feat_patch_points: 192``, ``feat_k_max: 512`` ('knn'), and (u) with
+   ``feat_dtype: bfloat16``: tile and ``dips_features`` seconds beside
+   phase 6's, peak memory, overflow, launches, recovery against
+   ``RECOVERY``; (u) also the F2S3 tile of phase 8 in bf16 (against
+   ``RECOVERY_F2S3``, beside phase 8's seconds) and bf16 descriptors on a
+   small tile, card vs CPU; (v) matcher training on the card: E-LoFTR at
+   ``tests/test_eloftr_train.py``'s TINY for 60 steps and RoMa at
+   ``tests/test_roma.py``'s TINY for 120 steps from
+   ``flax_bridge.flax_default_init``: steps per second, the loss history,
+   the JAX tests' checks (coarse CE < 0.7x, EPE < 0.6x the first), the
+   first step's loss and gradients card vs CPU (cuDNN's deterministic
+   algorithms; a second card run gives the spread from run to run),
+   checkpoints written to a temporary directory and read back;
 17. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
    (and per path), time, the time before the kernel's redesign
    (``ms_before``), plain-version time, the least time the card could
@@ -163,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2045,6 +2067,336 @@ def piecewise_streams_phase(tmp: str, tiles_dir: str, dev=torch.device("cuda")) 
     return {"piecewise_streams_one": launches["one"], "piecewise_streams_two": launches["two"]}
 
 
+# ---- Phases (s) DIPs branches, (t) 'knn' at full width, (u) bf16,
+# (v) matcher training --------------------------------------------------
+
+#: Seconds spent in phases (s)-(v).
+PHASES_S_V_S = [0.0]
+
+
+#: ``feat_k_max`` of phase (s)'s small tiles: the card-vs-CPU comparison
+#: of the grid branches at a quarter of the production neighbour table
+#: (the CPU path's time), the same ``cap`` (48) as at 512.
+SMALL_K_MAX = 128
+
+
+def card_draws(dev, priority: str, rows: int, k_max: int = SMALL_K_MAX, chunk: int = 512,
+               gen=None):
+    """The DIPs grid branch's draws for one padded cloud of ``rows`` rows,
+    drawn on the card (the same tensors then feed the CPU path): 'knn'
+    (rows rounded up to whole chunks, k_max) uniform priorities, 'random'
+    a support permutation and a hash seed."""
+    from fusion4landslide_tpu_torch.pipelines.f2s3 import DipsDraws
+
+    if priority == "knn":
+        n_rows = -(-rows // min(chunk, rows)) * min(chunk, rows)
+        return DipsDraws(priorities=torch.rand((n_rows, k_max), generator=gen, device=dev))
+    return DipsDraws(perm=torch.randperm(rows, generator=gen, device=dev),
+                     seed=int(torch.randint(0, 2**31 - 1, (), generator=gen, device=dev)))
+
+
+def draws_on(draws, d):
+    from fusion4landslide_tpu_torch.pipelines.f2s3 import DipsDraws
+
+    return tuple(None if x is None else DipsDraws(*(v.to(d) if torch.is_tensor(v) else v
+                                                    for v in x)) for x in draws)
+
+
+def dips_descriptor_parity(dev, priority: str, sb, sm, tb, tm, ns: int, nt: int, radius: float,
+                           dtype=None, draws=None) -> dict:
+    """The DIPs descriptors of a small tile's two clouds (query = support,
+    as in the F2S3 step) at patch 96 on the card and on the CPU path with
+    the same draws (or, at patch 128, kernel 1's fixed seed): max abs
+    error and the source -> target 1-NN agreement."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_models
+    from fusion4landslide_tpu_torch.ops.knn import knn
+    from fusion4landslide_tpu_torch.pipelines.f2s3_device import dips_features_device
+
+    kw = dict(patch_points=96 if draws is not None else 128, chunk=512, sample_priority=priority,
+              dtype=dtype, k_max=SMALL_K_MAX)
+    feats = []
+    for d in (dev, torch.device("cpu")):
+        dm, _ = seeded_models(0, d)
+        dr = draws_on(draws, d) if draws is not None else (None, None)
+        pair = []
+        for x, m, nv, dw in ((sb, sm, ns, dr[0]), (tb, tm, nt, dr[1])):
+            xt = torch.from_numpy(x).to(d)
+            f, _ = dips_features_device(dm, xt, xt, torch.from_numpy(m).to(d),
+                                        torch.tensor(radius, device=d), query_count=nv,
+                                        draws=dw, **kw)
+            pair.append(f.cpu())
+        feats.append(pair)
+    (gs, gt), (cs, ct) = feats
+    err = float((gs[:ns] - cs[:ns]).abs().max())
+    _, nn_g = knn(gs[:ns], gt[:nt], 1)
+    _, nn_c = knn(cs[:ns], ct[:nt], 1)
+    return {"feat_max_abs_err": err, "nn1_equal_frac": float((nn_g == nn_c).double().mean())}
+
+
+def dips_branch_small_parity(dev, pipeline: str, priority: str,
+                             descriptors: bool = False) -> dict:
+    """Phase (s): the small fusion or F2S3 step at ``feat_patch_points``
+    96 with ``sample_priority`` ``priority`` (k_max ``SMALL_K_MAX``), the
+    card against the port's CPU path on the card's draws; scored as
+    ``tools/parity_check.py`` scores two paths (F2S3: as
+    ``f2s3_small_parity``; with ``descriptors``, also both branches'
+    descriptors of its tile)."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
+    from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
+    from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
+
+    fusion = pipeline == "fusion"
+    sb, sm, tb, tm, ns, nt = padded_small_tile(1.0, 1.5) if fusion else padded_small_tile(1.5, 1.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = (card_draws(dev, priority, len(sb), gen=gen), card_draws(dev, priority, len(tb), gen=gen))
+    kw = dict(patch_points=96, chunk=512, sample_priority=priority, k_max=SMALL_K_MAX)
+    if fusion:
+        kw.update(levels=(1, 2), k_neighbors=8, sv_cap=256, member_cap=128, agg_max_points=64,
+                  small_patch=3, icp_max_iter=8, fine_max_matches=64)
+    else:
+        kw.update(k_neighbors=30, sv_cap=256, member_cap=256)
+    outs, secs = [], []
+    for d in (dev, torch.device("cpu")):
+        dm, am = seeded_models(0, d)
+        args = [torch.from_numpy(x).to(d) for x in (sb, sm, tb, tm)]
+        reset_launches()
+        t0 = time.perf_counter()
+        if fusion:
+            o = fusion3d_tile_step(dm, am, *args, 5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
+                                   dips_draws=draws_on(draws, d), **kw)
+        else:
+            o = f2s3_tile_step(dm, seeded_filter(0, d), *args, 5.0, 0.1, device=d,
+                               dips_draws=draws_on(draws, d), **kw)
+        if d is dev:
+            torch.cuda.synchronize()
+            launches = read_launches()
+        secs.append(time.perf_counter() - t0)
+        outs.append(o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)}))
+    g, c = outs
+    radius = float(np.sqrt(3.0) * 10.0 * float(c.median_res))
+    parity = dict(points=ns, card_s=secs[0], cpu_s=secs[1], launches=launches,
+                  overflow=[g.overflow_by_source, c.overflow_by_source],
+                  median_res_rel=abs(float(g.median_res) - float(c.median_res)) / float(c.median_res))
+    if fusion:
+        vg, vc = g.valid[:ns].numpy(), c.valid[:ns].numpy()
+        common = vg & vc
+        gap = np.linalg.norm((g.moved[:ns] - c.moved[:ns]).numpy()[common], axis=1)
+        parity.update(n_vox=[int(g.n_vox_src), int(c.n_vox_src), int(g.n_vox_tgt), int(c.n_vox_tgt)],
+                      assigned=[int(vg.sum()), int(vc.sum())])
+        finite = bool(torch.isfinite(g.moved).all())
+    else:
+        # As in f2s3_small_parity: supervoxels with a near-tie 1-NN swap
+        # are left out. Besides, a supervoxel's robust re-fit test
+        # (>= 5 inliers under the residual median) can fall the other way
+        # on the two devices' float32 sums, and then all its members
+        # change together: such supervoxels are counted, and left out.
+        lab = c.labels[:ns].numpy()
+        nn_same = (g.nn_tgt[:ns] == c.nn_tgt[:ns]).all(1).numpy()
+        same = ~np.isin(lab, lab[~nn_same & (lab >= 0)])
+        kg, kc_ = g.keep[:ns].numpy(), c.keep[:ns].numpy()
+        flipped = np.unique(lab[same & (kg != kc_) & (lab >= 0)])
+        same &= ~np.isin(lab, flipped)
+        vg, vc = kg & same, kc_ & same
+        common = vg & vc
+        gap = np.linalg.norm((g.new_tgt[:ns] - c.new_tgt[:ns]).numpy()[common], axis=1)
+        parity.update(labels_equal_frac=float((g.labels[:ns] == c.labels[:ns]).double().mean()),
+                      nn_equal_frac=float(nn_same.mean()), kept_all=[int(kg.sum()), int(kc_.sum())],
+                      flipped_supervoxels=int(flipped.size),
+                      flipped_points=int(np.isin(lab, flipped).sum()),
+                      kept=[int(vg.sum()), int(vc.sum())])
+        finite = bool(torch.isfinite(g.new_tgt).all())
+        for prio in ("knn", "random") if descriptors else ():
+            parity[prio] = dips_descriptor_parity(dev, prio, sb, sm, tb, tm, ns, nt, radius,
+                                                  draws=draws if prio == priority else
+                                                  (card_draws(dev, prio, len(sb), gen=gen),
+                                                   card_draws(dev, prio, len(tb), gen=gen)))
+    parity.update(overlap_frac=float(common.sum()) / max(int(vg.sum()), int(vc.sum()), 1),
+                  median_delta_m=float(np.median(gap)) if gap.size else None,
+                  frac_gt_10mm=float((gap > 0.01).mean()) if gap.size else None)
+    log(f"# phase (s) small-tile {pipeline} step, patch 96 '{priority}', card vs CPU path on the "
+        f"card's draws ({card()}): {json.dumps(parity)}")
+    check(finite and parity["median_res_rel"] <= 1e-6 and vg.sum() > 0.01 * ns, parity)
+    check(parity["overlap_frac"] >= 0.99 and parity["median_delta_m"] < 1e-4, parity)
+    check(parity["frac_gt_10mm"] <= 0.01, parity)
+    if fusion:
+        check(parity["n_vox"][0] == parity["n_vox"][1], parity)
+    else:
+        check(parity["labels_equal_frac"] >= 0.99 and parity["nn_equal_frac"] >= 0.99, parity)
+        check(parity["flipped_supervoxels"] <= 2, parity)
+        for prio in ("knn", "random") if descriptors else ():
+            check(parity[prio]["feat_max_abs_err"] <= 1e-3, parity)
+            check(parity[prio]["nn1_equal_frac"] >= 0.99, parity)
+    return launches
+
+
+def production_recovery(out: dict, n: int, core, moving, static, label: str,
+                        floors: dict, kept_key: str = "valid") -> dict:
+    """Recovery of the planted shift on a production tile's core, held to
+    ``floors`` (``RECOVERY`` for the fusion runner, ``RECOVERY_F2S3`` for
+    the F2S3 runner)."""
+    from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT
+
+    ok = out[kept_key]
+    disp = np.zeros((n, 3))
+    disp[ok] = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
+    err_mov = np.linalg.norm(disp[core & moving & ok] - PLANTED_SHIFT, axis=1)
+    err_sta = np.linalg.norm(disp[static & ok], axis=1)
+    rec = {"static_assigned": float(ok[static].mean()), "core_assigned": float(ok[core].mean()),
+           "kept": float(ok.mean()),
+           "moving_err_m": float(np.median(err_mov)) if err_mov.size else float("inf"),
+           "static_err_m": float(np.median(err_sta)) if err_sta.size else float("inf")}
+    log(f"# {label} recovery: {json.dumps(rec)} (floors {json.dumps(floors)})")
+    check(np.isfinite(disp).all(), f"{label}: non-finite displacements")
+    for key, floor in floors.items():
+        if key in ("static_assigned", "kept"):
+            check(rec[key] > floor, (label, key, rec))
+        else:
+            check(rec[key] < floor, (label, key, rec))
+    return rec
+
+
+def production_tile_run(runner, cfg: dict, models, tile, dev, here: str) -> tuple:
+    """One production tile through ``runner`` (``run_fusion3d_tiles`` or
+    ``run_f2s3_tiles``): (result, seconds, stage seconds, launches, peak
+    GiB, the result tables written, relative to the results folder)."""
+    timings: dict = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runner(dict(cfg, output_dir=tmp, output_folder="smoke"), *models, [(0, *tile)],
+                     device=dev, timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results = os.path.join(tmp, "smoke", "results")
+        written = sorted(os.path.relpath(os.path.join(d, f), results)
+                         for d, _, fs in os.walk(results) for f in fs)
+    return res[0], secs, timings, launches, peak, written
+
+
+def bf16_small_parity(dev) -> dict:
+    """Phase (u) on a small tile: bf16 descriptors (kernel 1, patch 128)
+    on the card against the CPU path (descriptor error, source -> target
+    1-NN agreement)."""
+    sb, sm, tb, tm, ns, nt = padded_small_tile(1.5, 1.5)
+    from fusion4landslide_tpu_torch.ops.hashgrid import median_nn_distance_traced
+
+    med, _ = median_nn_distance_traced(torch.from_numpy(sb), torch.from_numpy(sm))
+    radius = float(np.sqrt(3.0) * 10.0 * float(med))
+    rows = {"bfloat16": dips_descriptor_parity(dev, "knn", sb, sm, tb, tm, ns, nt, radius,
+                                               dtype="bfloat16")}
+    log(f"# phase (u) small-tile DIPs descriptors, card vs CPU path ({card()}): "
+        f"{json.dumps(rows)}")
+    check(rows["bfloat16"]["feat_max_abs_err"] <= 1e-2, rows)
+    check(rows["bfloat16"]["nn1_equal_frac"] >= 0.9, rows)
+    return rows
+
+
+def training_phase(dev, tmp: str) -> dict:
+    """Phase (v): E-LoFTR at ``tests/test_eloftr_train.py``'s TINY size for
+    60 steps and RoMa at ``tests/test_roma.py``'s TINY for 120 steps, on
+    the card from ``flax_default_init`` (seed 0): steps per second, the
+    loss history, the JAX tests' checks (coarse CE < 0.7x, EPE < 0.6x the
+    first), the first step's loss and gradient norms on the card against
+    the CPU path, and the checkpoints (written under ``tmp``) read back
+    through the port's loaders."""
+    from fusion4landslide_tpu_torch.image import eloftr as te
+    from fusion4landslide_tpu_torch.image import eloftr_train as tet
+    from fusion4landslide_tpu_torch.image import roma as tr
+    from fusion4landslide_tpu_torch.image import roma_train as trt
+    from fusion4landslide_tpu_torch.image.flax_bridge import (
+        flat_grads_from_module,
+        flax_default_init,
+    )
+
+    runs = {
+        "eloftr": dict(
+            cfg=te.ELoFTRConfig(stage_num_blocks=(1, 1, 1, 1), out_features=(8, 8, 16, 32),
+                                hidden_size=32, num_attention_layers=1, fine_matching_slice_dim=4),
+            settings=trt.TrainSettings(size=64, steps=60, lr=3e-3, batch=2, max_rot=0.05,
+                                       max_shift=0.15),
+            module=te.EfficientLoFTR, is_norm=te._is_norm, train=tet.train_eloftr,
+            loss=tet.eloftr_batch_loss, save=te.save_eloftr_weights, load=te.load_eloftr_weights,
+            to_flax=te.eloftr_to_flax, ratio=0.7, log_every=15),
+        "roma": dict(
+            cfg=tr.RoMaConfig(enc_channels=(8, 16, 24), gp_dim=32, coord_freqs=4, anchors=8,
+                              decoder_channels=32, decoder_blocks=2, refine_channels=(16, 12)),
+            settings=trt.TrainSettings(size=48, steps=120, lr=3e-3, max_rot=0.05),
+            module=tr.RoMaMatcher, is_norm=tr._is_norm, train=trt.train_roma,
+            loss=lambda m, b: trt.roma_batch_loss(m, b, 3.0 * 2.0 / 48),
+            save=tr.save_roma_weights, load=tr.load_roma_weights, to_flax=tr.roma_to_flax,
+            ratio=0.6, log_every=20),
+    }
+    def leaf_err(ga: dict, gb: dict) -> tuple:
+        """(worst leaf's |a - b| / |b|, floored at 1e-4 of the largest
+        leaf norm; that leaf's name)."""
+        gnorm = max(np.linalg.norm(v) for v in gb.values())
+        errs = {k: float(np.linalg.norm(ga[k] - gb[k]) / max(np.linalg.norm(gb[k]), 1e-4 * gnorm))
+                for k in gb}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    out = {}
+    for name, r in runs.items():
+        # The first step on the card twice and on the CPU: the same init,
+        # the same batch. The card's runs use cuDNN's deterministic
+        # algorithms; the ops with no deterministic CUDA backward are
+        # named by torch's warnings, and the two card runs' gap is their
+        # spread from run to run.
+        first = []
+        det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for d in (dev, dev, torch.device("cpu")):
+                    model = flax_default_init(r["module"](r["cfg"]), 0, r["is_norm"]).to(d).train()
+                    rng = np.random.default_rng(0)
+                    trt.make_pair(rng, r["settings"])
+                    loss, aux = r["loss"](model, trt.sample_batch(rng, r["settings"], d))
+                    loss.backward()
+                    grads = flat_grads_from_module(model, r["is_norm"])
+                    first.append((float(loss.detach()), [float(a.detach()) for a in aux], grads))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        nondeterministic = sorted({str(w.message).split(" does not have a deterministic")[0][:120]
+                                   for w in caught if "deterministic" in str(w.message)})
+        (lg, ag, gg), (_, _, gg2), (lc, ac, gc) = first
+        grad_err, grad_worst = leaf_err(gg, gc)
+        spread, spread_worst = leaf_err(gg2, gg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _, hist = r["train"](r["settings"], r["cfg"], seed=0, log_every=r["log_every"],
+                                    device=dev, logger=None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        path = os.path.join(tmp, f"{name}_tiny.npz")
+        r["save"](path, model)
+        back = r["load"](path, device=dev)
+        same = all(np.array_equal(v, r["to_flax"](model)[k]) for k, v in r["to_flax"](back).items())
+        curve = [h[0] if isinstance(h, tuple) else h for h in hist]
+        out[name] = {
+            "steps": r["settings"].steps, "steps_per_s": r["settings"].steps / secs,
+            "history": curve, "ratio": curve[-1] / curve[0], "ratio_bound": r["ratio"],
+            "first_loss": [lg, lc], "first_parts": [ag, ac],
+            "first_loss_rel_err": abs(lg - lc) / abs(lc), "first_grad_rel_err": grad_err,
+            "first_grad_worst_leaf": grad_worst, "first_grad_card_spread": spread,
+            "first_grad_card_spread_worst_leaf": spread_worst,
+            "nondeterministic_ops": nondeterministic,
+            "checkpoint_reloads_equal": same,
+        }
+        log(f"# phase (v) {name} training ({card()}): {json.dumps(out[name])}")
+        check(np.isfinite(curve).all() and out[name]["ratio"] < r["ratio"], out[name])
+        check(out[name]["first_loss_rel_err"] <= 1e-3 and grad_err <= 1e-2, out[name])
+        check(same and not os.path.abspath(path).startswith(os.path.abspath("weights")), out[name])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2243,6 +2595,15 @@ def main() -> int:
         dev, global_gated=True, nested_levels=False, levels=(1, 2, 3))
     PHASES_N_R_S[0] += time.perf_counter() - t_new
 
+    # ---- (s) the DIPs grid branches at patch 96; (u) bf16 on a small tile --
+    t_new = time.perf_counter()
+    for pipeline in ("fusion", "f2s3"):
+        for priority in ("knn", "random"):
+            by_path[f"{pipeline}_patch96_{priority}_small"] = dips_branch_small_parity(
+                dev, pipeline, priority, descriptors=(pipeline, priority) == ("f2s3", "random"))
+    bf16_small_parity(dev)
+    PHASES_S_V_S[0] += time.perf_counter() - t_new
+
     # ---- (j) the superpoint generator; (l) the ICP types on small tiles --
     t_new = time.perf_counter()
     by_path.update(superpoint_phase(dev))
@@ -2278,21 +2639,10 @@ def main() -> int:
         "global_matching_gated": True,
     }
     dips, agg = seeded_models(0, dev)
-    timings: dict = {}
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
-        cfg.update(output_dir=tmp, output_folder="smoke")
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_fusion3d_tiles(cfg, dips, agg, [(0, src, tgt)], device=dev, timings=timings)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        launches = read_launches()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        written = sorted(os.listdir(os.path.join(tmp, "smoke", "results")))
-    out = res[0]
+    static = core & ~moving
+    out, step_s, timings, launches, peak, written = production_tile_run(
+        run_fusion3d_tiles, cfg, (dips, agg), (src, tgt), dev, here)
     by_path["fusion3d"] = launches
     log(f"# tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
@@ -2300,50 +2650,46 @@ def main() -> int:
     log(f"# tables: {written}")
     check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
     check("c2f_dvfs_src2tgt_tile_0.txt" in written, written)
-
+    production_recovery(out, n, core, moving, static, "phase 6 production fusion tile",
+                        RECOVERY)
     ok = out["valid"]
-    disp = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
-    disp_all = np.zeros((n, 3))
-    disp_all[ok] = disp
-    check(np.isfinite(disp).all(), "non-finite displacements")
-    static = core & ~moving
-    err_mov = np.linalg.norm(disp_all[core & moving & ok] - PLANTED_SHIFT, axis=1)
-    err_sta = np.linalg.norm(disp_all[static & ok], axis=1)
-    log(f"# recovery: static core assigned {ok[static].mean():.4f}, core assigned "
-        f"{ok[core].mean():.4f}, median err moving {np.median(err_mov):.3e} m, "
-        f"static {np.median(err_sta):.3e} m (floors {json.dumps(RECOVERY)})")
-    check(float(ok[static].mean()) > RECOVERY["static_assigned"], "static core assignment")
-    check(float(np.median(err_sta)) < RECOVERY["static_err_m"], "static displacement error")
-    check(err_mov.size and float(np.median(err_mov)) < RECOVERY["moving_err_m"], "moving displacement error")
 
     # ---- (l) the same tile with icp_type: generalized ----------------------
     t_new = time.perf_counter()
-    g_timings: dict = {}
-    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g_res = run_fusion3d_tiles(dict(cfg, output_dir=tmp, output_folder="smoke",
-                                        icp_type="generalized"),
-                                   dips, agg, [(0, src, tgt)], device=dev, timings=g_timings)
-        torch.cuda.synchronize()
-        g_step_s = time.perf_counter() - t0
-        by_path["fusion3d_generalized"] = read_launches()
-    g_ok = g_res[0]["valid"]
-    g_disp = np.zeros((n, 3))
-    g_disp[g_ok] = g_res[0]["dvfs"][:, 3:6] - g_res[0]["dvfs"][:, :3]
-    g_rec = {"tile_s": g_step_s, "fine_s": g_timings.get("fine"),
-             "point2point_tile_s": step_s, "point2point_fine_s": timings.get("fine"),
-             "static_assigned": float(g_ok[static].mean()),
-             "static_err_m": float(np.median(np.linalg.norm(g_disp[static & g_ok], axis=1))),
-             "moving_err_m": float(np.median(np.linalg.norm(
-                 g_disp[core & moving & g_ok] - PLANTED_SHIFT, axis=1)))}
+    g_out, g_s, g_t, g_l, _, _ = production_tile_run(
+        run_fusion3d_tiles, dict(cfg, icp_type="generalized"), (dips, agg), (src, tgt), dev,
+        here)
+    by_path["fusion3d_generalized"] = g_l
+    g_rec = {"tile_s": g_s, "fine_s": g_t.get("fine"), "point2point_tile_s": step_s,
+             "point2point_fine_s": timings.get("fine"), "launches": g_l}
     log(f"# phase (l) production tile, icp_type generalized ({card()}): {json.dumps(g_rec)}; "
-        "stages (s): " + json.dumps({k: round(v, 3) for k, v in g_timings.items()}))
+        "stages (s): " + json.dumps({k: round(v, 3) for k, v in g_t.items()}))
     # The fine pairs' validity is decided before ICP: the same points are
     # assigned whatever the ICP type.
-    check(bool((g_ok == ok).all()) and np.isfinite(g_disp).all(), g_rec)
+    check(bool((g_out["valid"] == ok).all()), g_rec)
+    # Reported, not held to RECOVERY: generalized ICP moves the errors
+    # (16.0 / 34.2 mm static / moving on an H100 80GB HBM3 at 700 W).
+    production_recovery(g_out, n, core, moving, static, "phase (l) generalized", {})
     new_phase_s += time.perf_counter() - t_new
+
+    # ---- (t) the DIPs 'knn' branch at full width; (u) bf16 descriptors ---
+    t_new = time.perf_counter()
+    tile = (src, tgt)
+    for label, changes in (("(t) patch 192 'knn', k_max 512",
+                            {"feat_patch_points": 192, "feat_k_max": 512}),
+                           ("(u) feat_dtype bfloat16", {"feat_dtype": "bfloat16"})):
+        v_out, v_s, v_t, v_l, v_peak, _ = production_tile_run(
+            run_fusion3d_tiles, dict(cfg, **changes), (dips, agg), tile, dev, here)
+        row = {"tile_s": v_s, "dips_features_s": v_t.get("dips_features"),
+               "float32_256_tile_s": step_s, "float32_256_dips_features_s":
+               timings.get("dips_features"), "peak_gib": v_peak, "float32_256_peak_gib": peak,
+               "overflow": v_out["overflow_by_source"], "launches": v_l}
+        log(f"# phase {label}, production fusion tile ({card()}): {json.dumps(row)}; stages "
+            "(s): " + json.dumps({k: round(v, 3) for k, v in v_t.items()}))
+        check(v_l["radius_sample"] > 0 and v_l["grid_knn"] > 0, v_l)
+        production_recovery(v_out, n, core, moving, static, f"phase {label}", RECOVERY)
+        by_path["fusion3d_patch192_knn" if "192" in label else "fusion3d_bf16"] = v_l
+    PHASES_S_V_S[0] += time.perf_counter() - t_new
 
     # ---- 7. bench.py's RGB tile through the fusion runner ----------------
     by_path["fusion_rgb"] = fusion_rgb_tile(
@@ -2354,25 +2700,9 @@ def main() -> int:
 
     # ---- 8. the production tile through the F2S3 runner -----------------
     filt = seeded_filter(0, dev)
-    f_timings: dict = {}
-    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
-        f_cfg = dict(F2S3_CFG, output_dir=tmp, output_folder="smoke")
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_f2s3_tiles(f_cfg, dips, filt, [(0, src, tgt)], device=dev, timings=f_timings)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        launches = read_launches()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        results = os.path.join(tmp, "smoke", "results")
-        written = sorted(
-            os.path.relpath(os.path.join(d, f), results)
-            for d, _, fs in os.walk(results) for f in fs
-        )
+    out, step_s, f_timings, launches, peak, written = production_tile_run(
+        run_f2s3_tiles, F2S3_CFG, (dips, filt), (src, tgt), dev, here)
     by_path["f2s3"] = launches
-    out = res[0]
     log(f"# F2S3 tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}, "
         f"kernel 3 rescored {int(kc.RESCORED[0]) / N:.2f} candidates per row")
@@ -2385,24 +2715,28 @@ def main() -> int:
                  os.path.join("filtered_by_magnitude", "f2s3_dvfms_filtered_by_median_mag_of_tile_0.txt"),
                  os.path.join("combined_with_c2c", "f2s3_dvfms_combined_with_c2c_of_tile_0.txt")):
         check(name in written, (name, written))
-    keep = out["keep"]
-    disp = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
-    check(keep.any() and np.isfinite(disp).all() and np.isfinite(out["magnitudes"]).all(),
+    check(out["keep"].any() and np.isfinite(out["magnitudes"]).all(),
           "F2S3 outputs empty or not finite")
-    disp_all = np.zeros((n, 3))
-    disp_all[keep] = disp
-    err_mov = np.linalg.norm(disp_all[core & moving & keep] - PLANTED_SHIFT, axis=1)
-    err_sta = np.linalg.norm(disp_all[static & keep], axis=1)
-    log(f"# F2S3 recovery: kept {keep.mean():.6f} of the tile, static core kept "
-        f"{keep[static].mean():.6f}, moving core kept {keep[core & moving].mean():.6f}, "
-        f"median err moving {np.median(err_mov) if err_mov.size else float('nan'):.3e} m, "
-        f"static {np.median(err_sta) if err_sta.size else float('nan'):.3e} m "
-        f"(floors {json.dumps(RECOVERY_F2S3)})")
-    check(float(keep.mean()) > RECOVERY_F2S3["kept"], "F2S3 kept fraction")
-    check(err_sta.size and float(np.median(err_sta)) < RECOVERY_F2S3["static_err_m"],
-          "F2S3 static displacement error")
-    check(err_mov.size and float(np.median(err_mov)) < RECOVERY_F2S3["moving_err_m"],
-          "F2S3 moving displacement error")
+    production_recovery(out, n, core, moving, static, "phase 8 production F2S3 tile",
+                        RECOVERY_F2S3, kept_key="keep")
+
+    # ---- (u) the F2S3 tile with bf16 descriptors; (v) matcher training ---
+    t_new = time.perf_counter()
+    u_out, u_s, u_t, u_l, u_peak, _ = production_tile_run(
+        run_f2s3_tiles, dict(F2S3_CFG, feat_dtype="bfloat16"), (dips, filt), (src, tgt), dev, here)
+    row = {"tile_s": u_s, "dips_features_s": u_t.get("dips_features"), "float32_tile_s": step_s,
+           "float32_dips_features_s": f_timings.get("dips_features"), "peak_gib": u_peak,
+           "float32_peak_gib": peak, "launches": u_l,
+           "keep_equal_float32_frac": float((u_out["keep"] == out["keep"]).mean())}
+    log(f"# phase (u) feat_dtype bfloat16, production F2S3 tile ({card()}): {json.dumps(row)}; "
+        "stages (s): " + json.dumps({k: round(v, 3) for k, v in u_t.items()}))
+    check(min(u_l.values()) > 0, u_l)
+    production_recovery(u_out, n, core, moving, static, "phase (u) F2S3 bfloat16",
+                        RECOVERY_F2S3, kept_key="keep")
+    by_path["f2s3_bf16"] = u_l
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        training_phase(dev, tmp)
+    PHASES_S_V_S[0] += time.perf_counter() - t_new
 
     # A quarter-size tile through the host tile (main_f2s3 on one device:
     # unpadded clouds, uncapped supervoxel buckets); phase 11 runs it at
@@ -2440,13 +2774,14 @@ def main() -> int:
 
     # ---- (q) two tile streams on the one card: the F2S3 runner -------------
     t_new = time.perf_counter()
-    by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 4, margin, halo, density))
+    by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 8, margin, halo, density))
     PHASES_N_R_S[0] += time.perf_counter() - t_new
 
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))
     log(f"# phases (j)-(m) in the main script: {new_phase_s + NEW_PHASE_S[0]:.1f} s ({card()})")
     log(f"# phases (n)-(r): {PHASES_N_R_S[0]:.1f} s ({card()})")
+    log(f"# phases (s)-(v): {PHASES_S_V_S[0]:.1f} s ({card()})")
 
     # ---- 17. kernels line + 18. result line ------------------------------
     log(f"# chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernel build "

@@ -13,7 +13,9 @@ from (in, out) to ``Linear``'s (out, in), norm ``scale`` becomes
 
 ``flax_norm`` computes Flax's normalisation statistics (fast variance
 E[x^2] - E[x]^2, clipped at 0) and applies them as Flax does;
-``seeded_init`` draws numpy-seeded weights at trained-like scales.
+``seeded_init`` draws numpy-seeded weights at trained-like scales;
+``flax_default_init`` draws them from Flax's default initialisers (the
+start of a training run, as ``model.init`` starts the JAX trainers).
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ import torch
 
 __all__ = [
     "flat_from_tree",
+    "flax_default_init",
     "flax_norm",
     "seeded_init",
     "read_flat_npz",
     "state_dict_from_flat",
     "flat_from_module",
+    "flat_grads_from_module",
     "write_flat_npz",
 ]
 
@@ -68,22 +72,31 @@ def state_dict_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tens
     return sd
 
 
+def _flax_leaf(key: str, arr: np.ndarray, is_norm) -> tuple[str, np.ndarray]:
+    """The Flax path and layout of a torch parameter (or gradient)."""
+    parts = key.split(".")
+    name = parts[-1]
+    if name == "weight" and is_norm(key):
+        name = "scale"
+    elif name == "weight":
+        name = "kernel"
+        arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+    return "/".join(["params"] + parts[:-1] + [name]), np.ascontiguousarray(arr)
+
+
 def flat_from_module(module: torch.nn.Module, is_norm) -> dict[str, np.ndarray]:
     """The flat Flax tree (``params/...`` paths) of a port module;
     ``is_norm(torch key)`` names the norm weights that Flax calls
     ``scale``."""
-    flat = {}
-    for key, val in module.state_dict().items():
-        arr = val.detach().cpu().numpy().astype(np.float32)
-        parts = key.split(".")
-        name = parts[-1]
-        if name == "weight" and is_norm(key):
-            name = "scale"
-        elif name == "weight":
-            name = "kernel"
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        flat["/".join(["params"] + parts[:-1] + [name])] = np.ascontiguousarray(arr)
-    return flat
+    return dict(_flax_leaf(key, val.detach().cpu().numpy().astype(np.float32), is_norm)
+                for key, val in module.state_dict().items())
+
+
+def flat_grads_from_module(module: torch.nn.Module, is_norm) -> dict[str, np.ndarray]:
+    """The parameters' ``.grad`` as a flat Flax tree, in Flax's layouts
+    (the gradient ``jax.grad`` gives for the same leaf)."""
+    return dict(_flax_leaf(key, p.grad.detach().cpu().numpy().astype(np.float32), is_norm)
+                for key, p in module.named_parameters() if p.grad is not None)
 
 
 def read_flat_npz(path: str, tuple_keys) -> tuple[dict[str, np.ndarray], dict]:
@@ -130,4 +143,30 @@ def seeded_init(module: torch.nn.Module, seed: int, is_norm) -> torch.nn.Module:
             else:
                 mean, std = 0.0, float(np.sqrt(2.0 / int(np.prod(shape[1:]))))
             p.copy_(torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)))
+    return module
+
+
+def flax_default_init(module: torch.nn.Module, seed: int, is_norm) -> torch.nn.Module:
+    """Overwrite ``module``'s conv and dense kernels and biases and its norm
+    parameters (``is_norm(key)``) in ``named_parameters`` order with numpy
+    draws (``default_rng(seed)``) from Flax's defaults: kernels
+    ``lecun_normal`` (a normal truncated at 2 sigma, scaled to variance
+    1 / fan_in), biases 0, norm scales 1 and biases 0. Other parameters
+    keep their module initialisation."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for key, p in module.named_parameters():
+            shape = tuple(p.shape)
+            if is_norm(key):
+                val = np.full(shape, 1.0 if key.endswith("weight") else 0.0)
+            elif key.endswith("bias"):
+                val = np.zeros(shape)
+            elif key.endswith("weight") and len(shape) >= 2:
+                val = rng.standard_normal(shape)
+                while (out := np.abs(val) > 2.0).any():
+                    val[out] = rng.standard_normal(int(out.sum()))
+                val *= np.sqrt(1.0 / int(np.prod(shape[1:]))) / 0.87962566103423978
+            else:
+                continue
+            p.copy_(torch.from_numpy(val.astype(np.float32)))
     return module

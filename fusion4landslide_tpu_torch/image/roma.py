@@ -247,7 +247,7 @@ class _CoarseDecoder(nn.Module):
         k = cfg.anchors
         probs = torch.softmax(logits[..., :-1], dim=-1)
         anchor_xy = _coord_grid(k, k, fa.device).reshape(k * k, 2)
-        return torch.einsum("hwk,kc->hwc", probs, anchor_xy), logits[..., -1]
+        return torch.einsum("hwk,kc->hwc", probs, anchor_xy), logits[..., -1], logits[..., :-1]
 
 
 class _Refiner(nn.Module):
@@ -302,9 +302,10 @@ class RoMaMatcher(nn.Module):
     def forward(self, img0, img1, intermediates: dict | None = None):
         fa, fb = self.encoder(img0), self.encoder(img1)
         mu = self.gp(fa[-1], fb[-1])
-        warp, cert = self.decoder(fa[-1], mu)
+        warp, cert, anchor_logits = self.decoder(fa[-1], mu)
         if intermediates is not None:
-            intermediates.update(fa=fa, fb=fb, gp=mu, coarse_warp=warp, coarse_cert=cert)
+            intermediates.update(fa=fa, fb=fb, gp=mu, coarse_warp=warp, coarse_cert=cert,
+                                 anchor_logits=anchor_logits)
         for li in range(len(self.cfg.refine_channels)):
             fa_l, fb_l = fa[-2 - li], fb[-2 - li]
             h, w, _ = fa_l.shape

@@ -12,6 +12,14 @@ read back once. They keep a truncated window's result, as the JAX package's
 traced callers do. ``nn1_spatial`` is the JAX package's eager caller: a
 radius step whose kernel call reports overflow reruns every query through
 the exact gather join ``hash_grid_knn_join`` (the JAX ``_hash_grid_knn_xla``).
+A search for more than 32 neighbours takes that join too, as JAX's does:
+the DIPs 'knn' branch (k = ``feat_k_max``, 512 by default).
+
+``radius_sample_grid`` is the JAX package's traced patch sampler (the DIPs
+'random' branch): the same candidate table as the join, hash or distance
+priorities, and the ``num_samples`` smallest kept. Both select through a
+stable sort, so ties go to the lower candidate position as under
+``lax.top_k``.
 """
 
 from __future__ import annotations
@@ -21,7 +29,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fusion4landslide_tpu_torch.ops.hashgrid_cuda import hash_grid_knn_window, xla_sqnorm
+from fusion4landslide_tpu_torch.ops.hashgrid_cuda import (
+    hash_grid_knn_window,
+    hash_priority,
+    xla_sqnorm,
+)
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
 __all__ = [
@@ -32,6 +44,7 @@ __all__ = [
     "knn_grid_traced",
     "median_nn_distance_traced",
     "nn1_spatial",
+    "radius_sample_grid",
 ]
 
 #: Static bound on the dense cell table (int32 entries).
@@ -103,20 +116,24 @@ def build_hash_grid(ref: torch.Tensor, cell, ref_mask=None, *,
     )
 
 
-def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *,
-                  exclude_self: bool = False):
+def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 32,
+                  query_block: int = 8192, exclude_self: bool = False):
     """k nearest reference points within ``radius`` (grid.cell >= radius).
 
-    The query count is padded to ``bucket_size`` (padded queries ride
-    along in the kernel's blocks and are sliced off). Blocks whose window
-    overflowed are truncated, as under the JAX package's traced callers;
-    a caller that must stay exact reruns through ``hash_grid_knn_join``.
+    k <= 32 runs kernel 2: the query count is padded to ``bucket_size``
+    (padded queries ride along in the kernel's blocks and are sliced off).
+    Blocks whose window overflowed are truncated, as under the JAX
+    package's traced callers; a caller that must stay exact reruns through
+    ``hash_grid_knn_join``. k > 32 runs that join with ``cap`` and
+    ``query_block``, as the JAX function does.
 
     Returns ((n, k) squared distances, +inf past radius; (n, k) original
-    indices, 0 where invalid; () overflow count).
+    indices, 0 where invalid; () overflow count: truncated window blocks
+    for the kernel, truncated cell runs for the join).
     """
     if k > 32:
-        raise NotImplementedError("grid kNN kernel takes k <= 32")
+        return hash_grid_knn_join(query, grid, radius, k, cap=cap, query_block=query_block,
+                                  exclude_self=exclude_self)
     n = query.shape[0]
     nb = bucket_size(n)
     qp = query
@@ -126,6 +143,45 @@ def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *,
     return d[:n], i[:n], ov
 
 
+def _sorted_query_cells(query, grid: HashGrid, query_block: int):
+    """(qorder, (n_pad, 3) int64 cells in that order): queries sorted by
+    linear cell id (stable), as the JAX joins sort them, with zero cells
+    padding the last block of ``query_block`` rows (the JAX joins' padded
+    rows, which the overflow counts include)."""
+    dims = grid.dims.long()
+    qcell = torch.floor((query - grid.origin) / grid.cell).long()
+    qcell = torch.clamp(qcell, torch.zeros_like(dims), dims - 1)
+    qorder = torch.sort((qcell[:, 0] * dims[1] + qcell[:, 1]) * dims[2] + qcell[:, 2],
+                        stable=True).indices
+    n = query.shape[0]
+    pad = -(-n // query_block) * query_block - n
+    return qorder, torch.cat([qcell[qorder], qcell.new_zeros((pad, 3))])
+
+
+def _neighbour_runs(qcell, grid: HashGrid, cap: int):
+    """For (B, 3) query cells: the table positions of the first ``cap``
+    entries of each of the 27 neighbour cells' runs ((B, 27 cap), clamped
+    into the table), whether each lies inside its run, and the () count of
+    runs longer than ``cap``."""
+    dev = qcell.device
+    m = grid.points.shape[0]
+    r = torch.arange(-1, 2, device=dev)
+    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
+    dims = grid.dims.long()
+    B = qcell.shape[0]
+    nc = qcell[:, None, :] + offsets[None]
+    in_grid = ((nc >= 0) & (nc < dims)).all(-1)
+    ncl = torch.clamp(nc, torch.zeros_like(dims), dims - 1)
+    nlin = (ncl[..., 0] * dims[1] + ncl[..., 1]) * dims[2] + ncl[..., 2]
+    starts = grid.starts.long()
+    start = torch.where(in_grid, starts[nlin], 0)
+    end = torch.where(in_grid, starts[nlin + 1], 0)
+    overflow = (end - start > cap).sum()
+    pos = (start[..., None] + torch.arange(cap, device=dev)).reshape(B, 27 * cap)
+    in_run = pos < end[..., None].expand(B, 27, cap).reshape(B, 27 * cap)
+    return torch.clamp(pos, 0, m - 1), in_run, overflow
+
+
 def hash_grid_knn_join(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 32,
                        query_block: int = 8192, exclude_self: bool = False):
     """The exact gather join (JAX ``_hash_grid_knn_xla``): queries sorted
@@ -133,42 +189,27 @@ def hash_grid_knn_join(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 
     first ``cap`` points of each of its 27 neighbour cells' runs, with no
     window to overflow. Ties go to the lower candidate position. Returns
     ((n, k) squared distances, +inf past radius; (n, k) indices, 0 where
-    invalid; () count of the queries' neighbour-cell runs longer than
-    ``cap``)."""
-    n, m = query.shape[0], grid.points.shape[0]
+    invalid; () count of neighbour-cell runs longer than ``cap``, over
+    the queries and the zero-cell rows that pad the last block, as the JAX
+    function counts)."""
+    n = query.shape[0]
     dev = query.device
     radius = torch.as_tensor(radius, dtype=query.dtype, device=dev)
-    r = torch.arange(-1, 2, device=dev)
-    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
-    dims = grid.dims.long()
-    qcell = torch.floor((query - grid.origin) / grid.cell).long()
-    qcell = torch.clamp(qcell, torch.zeros_like(dims), dims - 1)
-    qorder = torch.sort((qcell[:, 0] * dims[1] + qcell[:, 1]) * dims[2] + qcell[:, 2],
-                        stable=True).indices
-    q_sorted, qc_sorted = query[qorder], qcell[qorder]
-    starts = grid.starts.long()
-    lane = torch.arange(cap, device=dev)
+    qorder, qc_sorted = _sorted_query_cells(query, grid, query_block)
     d_out = torch.zeros((n, k), dtype=query.dtype, device=dev)
     i_out = torch.zeros((n, k), dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for s0 in range(0, n, query_block):
-        q, qc = q_sorted[s0:s0 + query_block], qc_sorted[s0:s0 + query_block]
-        B = q.shape[0]
-        nc = qc[:, None, :] + offsets[None]
-        in_grid = ((nc >= 0) & (nc < dims)).all(-1)
-        ncl = torch.clamp(nc, torch.zeros_like(dims), dims - 1)
-        nlin = (ncl[..., 0] * dims[1] + ncl[..., 1]) * dims[2] + ncl[..., 2]
-        start = torch.where(in_grid, starts[nlin], 0)
-        end = torch.where(in_grid, starts[nlin + 1], 0)
-        overflow = overflow + (end - start > cap).sum()
-        pos = (start[..., None] + lane).reshape(B, 27 * cap)
-        valid = pos < end[..., None].expand(B, 27, cap).reshape(B, 27 * cap)
-        pos_c = torch.clamp(pos, 0, m - 1)
+        rows = qorder[s0:s0 + query_block]
+        q = query[rows]
+        pos_c, valid, ov = _neighbour_runs(qc_sorted[s0:s0 + query_block], grid, cap)
+        overflow = overflow + ov
+        pos_c, valid = pos_c[:rows.shape[0]], valid[:rows.shape[0]]
         d2 = xla_sqnorm(grid.points[pos_c] - q[:, None, :])
         cand = grid.index[pos_c]
         bad = ~valid | (d2 > radius * radius)
         if exclude_self:
-            bad = bad | (cand == qorder[s0:s0 + B, None].to(torch.int32))
+            bad = bad | (cand == rows[:, None].to(torch.int32))
         d2 = torch.where(bad, torch.inf, d2)
         if k == 1:
             sel = d2.argmin(dim=1, keepdim=True)
@@ -176,8 +217,8 @@ def hash_grid_knn_join(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 
             sel = torch.sort(d2, dim=1, stable=True).indices[:, :k]
         best_d = torch.gather(d2, 1, sel)
         best_i = torch.where(torch.isfinite(best_d), torch.gather(cand, 1, sel), 0)
-        d_out[qorder[s0:s0 + B]] = best_d
-        i_out[qorder[s0:s0 + B]] = best_i.to(torch.int32)
+        d_out[rows] = best_d
+        i_out[rows] = best_i.to(torch.int32)
     return d_out, i_out, overflow.to(torch.int32)
 
 
@@ -202,13 +243,14 @@ def _density_radius(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def knn_grid_traced(query, ref, k: int, r0=None, ref_mask=None,
-                    query_mask=None, *, r_max=None, exclude_self: bool = False,
-                    max_doublings: int = 8):
+                    query_mask=None, *, r_max=None, cap: int = 48, query_block: int = 4096,
+                    exclude_self: bool = False, max_doublings: int = 8):
     """Radius-growing grid kNN: doubles the radius from ``r0`` (default:
     the bounding-box density estimate) until every unmasked query has k
     in-radius neighbours, the radius exceeds ``r_max``, or
     ``max_doublings`` attempts ran. Queries finished in an earlier attempt
-    keep that attempt's result.
+    keep that attempt's result. ``cap`` and ``query_block`` reach the
+    gather join (k > 32) only.
 
     Returns (sqdist (n, k), idx (n, k), () window overflow count summed
     over the attempts); unfound slots are +inf / 0.
@@ -241,10 +283,12 @@ def knn_grid_traced(query, ref, k: int, r0=None, ref_mask=None,
         if not bool(unfinished.any() & (radius <= rmax)):
             break
         grid = build_hash_grid(ref, radius, rv)
-        d, i, ov = hash_grid_knn(query, grid, radius, k, exclude_self=exclude_self)
-        done = torch.isfinite(best_d[:, k - 1])
-        best_d = torch.where(done[:, None], best_d, d)
-        best_i = torch.where(done[:, None], best_i, i)
+        d, i, ov = hash_grid_knn(query, grid, radius, k, cap=cap, query_block=query_block,
+                                 exclude_self=exclude_self)
+        todo = ~torch.isfinite(best_d[:, k - 1])
+        best_d[todo] = d[todo]
+        best_i[todo] = i[todo]
+        del d, i
         overflow = overflow + ov
         radius = radius * 2.0
         it += 1
@@ -279,6 +323,51 @@ def median_nn_distance_traced(points, mask=None, *, max_doublings: int = 8):
         radius = radius * 2.0
         it += 1
     return med, overflow
+
+
+def radius_sample_grid(query, grid: HashGrid, radius, seed: int, *, num_samples: int = 256,
+                       cap: int = 64, query_block: int = 2048, priority: str = "random"):
+    """In-radius sample per query (the JAX package's traced sampler,
+    ``ops/hashgrid.py::radius_sample_grid``). Each query scores the first
+    ``cap`` entries of each of its 27 neighbour cells' runs; a candidate is
+    kept when d^2 <= r^2 and d^2 > r^2 1e-6 (the query itself drops out),
+    with the priority ``'random'`` (the 24-bit hash of the candidate's
+    grid index and ``seed``, as kernel 1's) or ``'distance'`` (d^2); the
+    ``num_samples`` smallest priorities are kept, ties to the lower
+    candidate position. Queries are sorted by cell (stable) and run in
+    blocks of ``query_block``.
+
+    Returns ((n, num_samples, 3) coordinates, 0 where invalid; (n,
+    num_samples) valid; () count of neighbour-cell runs longer than
+    ``cap``, which were truncated, counted as ``hash_grid_knn_join``
+    counts them).
+    """
+    if priority not in ("random", "distance"):
+        raise ValueError(f"priority must be 'random' or 'distance', not {priority!r}")
+    n = query.shape[0]
+    dev = query.device
+    radius = torch.as_tensor(radius, dtype=query.dtype, device=dev)
+    r2 = radius * radius
+    qorder, qc_sorted = _sorted_query_cells(query, grid, query_block)
+    coords = torch.zeros((n, num_samples, 3), dtype=query.dtype, device=dev)
+    valid = torch.zeros((n, num_samples), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for s0 in range(0, n, query_block):
+        rows = qorder[s0:s0 + query_block]
+        pos, in_run, ov = _neighbour_runs(qc_sorted[s0:s0 + query_block], grid, cap)
+        overflow = overflow + ov
+        pos, in_run = pos[:rows.shape[0]], in_run[:rows.shape[0]]
+        pts = grid.points[pos]
+        d2 = xla_sqnorm(pts - query[rows][:, None, :])
+        pri = d2 if priority == "distance" else hash_priority(grid.index[pos], int(seed))
+        keyed = torch.where(in_run & (d2 <= r2) & (d2 > r2 * 1e-6), pri, torch.inf)
+        srt = torch.sort(keyed, dim=1, stable=True)
+        sel = srt.indices[:, :num_samples]
+        ok = torch.isfinite(srt.values[:, :num_samples])
+        picked = torch.gather(pts, 1, sel[..., None].expand(-1, -1, 3))
+        coords[rows] = torch.where(ok[..., None], picked, 0.0)
+        valid[rows] = ok
+    return coords, valid, overflow.to(torch.int32)
 
 
 #: Radius doublings ``nn1_spatial`` tries (a 4096-fold radius).

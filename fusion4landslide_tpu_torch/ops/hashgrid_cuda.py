@@ -37,6 +37,7 @@ __all__ = [
     "hash_grid_knn_window",
     "grid_knn_blocks",
     "grid_knn_plain",
+    "hash_priority",
     "radius_sample_window",
     "radius_sample_blocks",
     "radius_sample_plain",
@@ -286,7 +287,7 @@ def block_centres(win: Window) -> torch.Tensor:
     return win.qpos.view(win.nb, win.block, 3).mean(dim=1).contiguous()
 
 
-def _hash_priority(idx: torch.Tensor, seed: int) -> torch.Tensor:
+def hash_priority(idx: torch.Tensor, seed: int) -> torch.Tensor:
     """uint32 hash of (index, seed) in int64 masked to 32 bits; top 24
     bits scaled to [0, 1)."""
     mask = 0xFFFFFFFF
@@ -334,7 +335,7 @@ def radius_sample_plain(win: Window, cen, r2, num_points: int, seed: int = 0,
         if priority == "distance":
             pri = d2
         elif priority == "random":
-            pri = _hash_priority(ci, seed)[None].expand_as(d2)
+            pri = hash_priority(ci, seed)[None].expand_as(d2)
         else:
             raise ValueError(f"unknown priority {priority!r}")
         keyed = torch.where(ok, pri, torch.inf)

@@ -93,6 +93,13 @@ def _tiles_and_buckets(tiles, n_bucket: int | None, m_bucket: int | None):
                    bucket_size(max(t[2].shape[0] for t in tiles)))
 
 
+def _with_seeds(tiles, rng_seed: int):
+    """(tile_id, src, tgt, seed) per tile: the i-th tile in the order given
+    draws its DIPs randomness with seed ``rng_seed + i``, whichever stream
+    runs it (JAX splits a key made from ``rng_seed`` per batch of tiles)."""
+    return ((*tile, rng_seed + i) for i, tile in enumerate(tiles))
+
+
 def resolve_devices(devices=None, device=None) -> list[torch.device]:
     """The tile streams' devices: one per entry of ``devices`` (entries may
     repeat), else the one ``device`` (default ``cuda``). A CUDA entry
@@ -206,6 +213,19 @@ def _image_statics(cfg: dict) -> dict:
     )
 
 
+def _dips_statics(cfg: dict, N: int) -> dict:
+    """The DIPs step options of a flat config dict (JAX
+    ``parallel/pipeline.py:154-158,397-402``)."""
+    return dict(
+        k_max=int(cfg.get("feat_k_max", 512)),
+        patch_points=int(cfg.get("feat_patch_points", 256)),
+        feat_dtype=cfg.get("feat_dtype"),
+        sample_cap=int(cfg.get("feat_sample_cap", 48)),
+        sample_priority=str(cfg.get("feat_sample_priority", "knn")),
+        chunk=min(int(cfg.get("feat_chunk", 2048)), N),
+    )
+
+
 def fusion3d_statics(cfg: dict, N: int, M: int, *, with_image: bool = False) -> dict:
     """Static step options from a flat config dict (the JAX runner's
     derivation, ``parallel/pipeline.py:388-448``); ``with_image`` adds the
@@ -215,9 +235,7 @@ def fusion3d_statics(cfg: dict, N: int, M: int, *, with_image: bool = False) -> 
     member_cap = int(cfg.get("member_cap", 0)) or 512
     statics = dict(
         levels=tuple(int(v) for v in (cfg.get("level_of_superpoint") or [1])),
-        patch_points=int(cfg.get("feat_patch_points", 256)),
-        feat_dtype=cfg.get("feat_dtype"),
-        chunk=min(int(cfg.get("feat_chunk", 2048)), N),
+        **_dips_statics(cfg, N),
         sv_cap=sv_cap,
         sv_cap_tgt=sv_cap_t,
         member_cap=member_cap,
@@ -271,7 +289,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
                        logger=None, timings: dict | None = None,
                        image_kit_fn=None, pix_cap: int | None = None,
                        n_image_pairs: int = 1, n_bucket: int | None = None,
-                       m_bucket: int | None = None) -> dict:
+                       m_bucket: int | None = None, rng_seed: int = 0) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles through the fusion
     step, one tile stream per entry of ``devices`` (else on ``device``),
     and write the ``c2f_*`` result tables under
@@ -288,7 +306,8 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
     ``n_bucket`` / ``m_bucket`` fix the padded source / target sizes (the
     driver's, from the tile files' headers; every tile must fit), and the
     statics derived from them; without them they are the buckets of the
-    largest tile.
+    largest tile. ``rng_seed``: the i-th tile's DIPs draws come from a
+    generator seeded with ``rng_seed + i``.
 
     Returns {tile_id: {"dvfs", "valid", "assigned_fraction", "n_dropped",
     "overflow", "n_c2d"}}. ``timings`` (optional dict) collects per-stage
@@ -335,7 +354,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
         return torch.from_numpy(lab).to(dev)
 
     def run_tile(models, dev, tile, timings):
-        tile_id, src, tgt = tile
+        tile_id, src, tgt, seed = tile
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         images = {}
@@ -346,8 +365,8 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
             images |= _image_inputs(image_kit_fn(tile_id, src, tgt), n_image_pairs, pix_cap,
                                    center, cfg, tile_id, dev, logger)
         out = fusion3d_tile_step(
-            *models, sb, sm, tb, tm, timings=timings, device=dev, **scalars, **statics,
-            **images,
+            *models, sb, sm, tb, tm, timings=timings, device=dev, rng_seed=seed, **scalars,
+            **statics, **images,
         )
         valid = out.valid[:n].cpu().numpy()
         moved = out.moved[:n].cpu().numpy()
@@ -402,20 +421,16 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
             "n_c2d": int(out.n_c2d),
         }
 
-    return _run_streams(tiles, devs, lambda dev, own: _models_on(dev, own, dips, agg),
-                        run_tile, timings)
+    return _run_streams(_with_seeds(tiles, rng_seed), devs,
+                        lambda dev, own: _models_on(dev, own, dips, agg), run_tile, timings)
 
 
 def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
     """Static F2S3 step options from a flat config dict (the JAX runner's
     derivation, ``parallel/pipeline.py:146-170``). The filter's depth is
-    the FilteringNetwork module's own; the CPU-branch sampler options
-    (``feat_k_max``, ``feat_sample_cap``, ``feat_sample_priority``) feed
-    nothing on the accelerator branch and are not read."""
+    the FilteringNetwork module's own."""
     return dict(
-        patch_points=int(cfg.get("feat_patch_points", 256)),
-        feat_dtype=cfg.get("feat_dtype"),
-        chunk=min(int(cfg.get("feat_chunk", 2048)), N),
+        **_dips_statics(cfg, N),
         k_neighbors=int(cfg.get("n_normals", 30)),
         sv_cap=int(cfg.get("sv_cap", 0)) or max(bucket_size(max(N // 16, 1)), 64),
         member_cap=int(cfg.get("member_cap", 0)) or 1024,
@@ -428,15 +443,16 @@ def f2s3_statics(cfg: dict, N: int, M: int) -> dict:
 
 def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None, devices=None,
                    logger=None, timings: dict | None = None,
-                   n_bucket: int | None = None, m_bucket: int | None = None) -> dict:
+                   n_bucket: int | None = None, m_bucket: int | None = None,
+                   rng_seed: int = 0) -> dict:
     """Process (tile_id, src (n, 3), tgt (m, 3)) tiles through
     ``f2s3_tile_step``, one tile stream per entry of ``devices`` (else on
     ``device``), and write the ``f2s3_*``
     result tables (the pre-pruning ``f2s3_dvfms_without_pruning_of_tile_*``
     included) under ``<output_dir>/<output_folder>/results``.
 
-    ``n_bucket`` / ``m_bucket`` fix the padded sizes as in
-    ``run_fusion3d_tiles``.
+    ``n_bucket`` / ``m_bucket`` fix the padded sizes, and ``rng_seed``
+    seeds the DIPs draws, as in ``run_fusion3d_tiles``.
 
     Returns {tile_id: {"dvfs", "magnitudes", "keep", "n_dropped",
     "overflow"}}. ``timings`` (optional dict) collects per-stage seconds
@@ -453,12 +469,12 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None, devices=None,
     os.makedirs(results_dir, exist_ok=True)
 
     def run_tile(models, dev, tile, timings):
-        tile_id, src, tgt = tile
+        tile_id, src, tgt, seed = tile
         n, m = src.shape[0], tgt.shape[0]
         center, sb, sm, tb, tm = _padded_tile(src, tgt, N, M, dev)
         out = f2s3_tile_step(
             *models, sb, sm, tb, tm, max_disp, voxel_size,
-            timings=timings, device=dev, **statics,
+            timings=timings, device=dev, rng_seed=seed, **statics,
         )
         n_dropped = int(out.n_dropped)
         if n_dropped and logger:
@@ -491,8 +507,8 @@ def run_f2s3_tiles(cfg: dict, dips, filt, tiles, *, device=None, devices=None,
             "overflow_by_source": out.overflow_by_source,
         }
 
-    return _run_streams(tiles, devs, lambda dev, own: _models_on(dev, own, dips, filt),
-                        run_tile, timings)
+    return _run_streams(_with_seeds(tiles, rng_seed), devs,
+                        lambda dev, own: _models_on(dev, own, dips, filt), run_tile, timings)
 
 
 def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_extrinsic,

@@ -4,16 +4,23 @@ per-supervoxel outlier filter.
 Port of ``fusion4landslide_tpu.pipelines.f2s3`` (reference
 ``Deformation_Analyze``, src/f2s3.py:19-507):
 
-- ``compute_dips_features`` (its accelerator branch): one radius sampler
-  sweep (kernel 1, ``'random'`` priority, seed 0 — the sampler's fixed seed
-  matches the reference's ``setup_seed(0)``) draws each patch's in-radius
-  subset, then LRF + PointNet run in chunks. The whole padded query cloud
-  is sorted and blocked ONCE, exactly as the window prologue does (kernel 1
-  centres on each 512-query block's mean, so re-blocking per chunk would
-  move borderline radius decisions); the kernel and the network then run
-  over consecutive ranges of those blocks, so the whole-cloud (n, P, 3)
-  sampler output never exists at once. Rows at or past ``n_core``
-  (padding) skip the network and get zero descriptors.
+- ``compute_dips_features``: for patch sizes that are multiples of 128
+  the JAX function's accelerator branch: one radius sampler sweep (kernel
+  1, ``'random'`` priority, seed 0 — the sampler's fixed seed matches the
+  reference's ``setup_seed(0)``) draws each patch's in-radius subset, then
+  LRF + PointNet run in chunks. The whole padded query cloud is sorted and
+  blocked ONCE, exactly as the window prologue does (kernel 1 centres on
+  each 512-query block's mean, so re-blocking per chunk would move
+  borderline radius decisions); the kernel and the network then run over
+  consecutive ranges of those blocks, so the whole-cloud (n, P, 3) sampler
+  output never exists at once. Rows at or past ``n_core`` (padding) skip
+  the network and get zero descriptors. Other patch sizes take the JAX
+  function's second branch: per chunk of ``chunk`` queries, the exact
+  ``k_max`` nearest support points and a random ``patch_points`` subset
+  of those in the radius (``ops.lrf.extract_lrf_patches``), with one
+  (chunk, k_max) draw of uniform priorities per chunk (``DipsDraws`` or a
+  ``torch.Generator``). ``dtype='bfloat16'`` runs the PointNet trunks in
+  bf16 (``models.dips``); descriptors are float32 either way.
 - ``drop_small_and_compact``: small-supervoxel removal and label
   compaction, shared by both F2S3 tiles and the fusion step.
 - ``filter_supervoxel_buckets``: the FilteringNetwork and the robust
@@ -34,12 +41,14 @@ from __future__ import annotations
 
 import os
 import os.path as osp
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.io.results import save_dvfms, save_txt, visual_clamp_magnitude
+from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, nn1_spatial
 from fusion4landslide_tpu_torch.ops.hashgrid_cuda import (
     block_centres,
@@ -48,12 +57,13 @@ from fusion4landslide_tpu_torch.ops.hashgrid_cuda import (
 )
 from fusion4landslide_tpu_torch.ops.kabsch import transform_points, weighted_kabsch
 from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
-from fusion4landslide_tpu_torch.ops.lrf import lrf_patches_from_neighbors
+from fusion4landslide_tpu_torch.ops.lrf import extract_lrf_patches, lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
+    "DipsDraws",
     "compute_dips_features",
     "drop_small_and_compact",
     "filter_supervoxel_buckets",
@@ -67,16 +77,43 @@ __all__ = [
 _SAMPLE_BLOCKS = 128
 
 
+class DipsDraws(NamedTuple):
+    """The random draws of the DIPs branches other than kernel 1's (the
+    JAX package takes them from ``jax.random``), as inputs. ``'knn'``:
+    ``priorities`` (rows, k_max) uniform [0, 1), one row per padded query
+    row (the JAX function draws ``uniform(key_c, (chunk, k_max))`` per
+    chunk c). ``'random'``: ``perm`` (m,) the support permutation and
+    ``seed`` the sampler's hash seed."""
+
+    priorities: torch.Tensor | None = None
+    perm: torch.Tensor | None = None
+    seed: int | None = None
+
+
+def chunk_priorities(draws: DipsDraws | None, c0: int, rows: int):
+    """Rows ``c0 .. c0 + rows`` of the drawn priorities (None: draw)."""
+    if draws is None or draws.priorities is None:
+        return None
+    return draws.priorities[c0:c0 + rows]
+
+
 @torch.inference_mode()
-def compute_dips_features(model, core_pts, halo_pts, radius, *,
-                          patch_points: int = 256, chunk: int = 2048,
-                          halo_mask=None, n_core=None):
+def compute_dips_features(model, core_pts, halo_pts, radius, *, k_max: int = 512,
+                          patch_points: int = 256, chunk: int = 2048, halo_mask=None,
+                          n_core=None, dtype=None, draws: DipsDraws | None = None,
+                          generator=None):
     """((n, 64) descriptors of ``core_pts`` with patches from ``halo_pts``,
     () sampler window overflow count). ``n_core``: exclusive bound on the
-    valid query rows (padded clouds); rows at or past it get zeros."""
+    valid query rows (padded clouds); rows at or past it get zeros.
+    ``dtype``: the trunks' compute dtype (``feat_dtype``: None, 'float32'
+    or 'bfloat16'). Patch sizes that are not a multiple of 128 take the
+    exact-kNN branch (module docstring) with ``draws.priorities`` or draws
+    from ``generator``; it overflows nothing."""
+    tdt = feat_torch_dtype(dtype)
     if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
-                                  "ROADMAP.md queue 1 item 10)")
+        return _dips_features_knn(model, core_pts, halo_pts, radius, k_max=k_max,
+                                  patch_points=patch_points, chunk=chunk, halo_mask=halo_mask,
+                                  n_core=n_core, dtype=tdt, draws=draws, generator=generator)
     n = core_pts.shape[0]
     dev = core_pts.device
     nb = max(bucket_size(n), chunk)
@@ -113,8 +150,27 @@ def compute_dips_features(model, core_pts, halo_pts, radius, *,
         for c0 in range(0, sel.shape[0], chunk):
             s = sel[c0:c0 + chunk]
             patches = lrf_patches_from_neighbors(qpos[s], xyz[s], valid[s], radius_q)
-            feats[rows[s]] = model(patches)
+            feats[rows[s]] = model(patches, tdt)
     return feats, win.overflow
+
+
+def _dips_features_knn(model, core_pts, halo_pts, radius, *, k_max, patch_points, chunk,
+                       halo_mask, n_core, dtype, draws, generator):
+    """The JAX function's second branch: zero-padded chunks of ``chunk``
+    queries, each through ``extract_lrf_patches`` (its own (chunk, k_max)
+    priorities) and the network; chunks at or past ``n_core`` are skipped
+    and those rows are zero."""
+    n = core_pts.shape[0]
+    n_valid = n if n_core is None else int(n_core)
+    q = torch.cat([core_pts, core_pts.new_zeros(((-n) % chunk, 3))])
+    feats = torch.zeros((n, 64), dtype=torch.float32, device=core_pts.device)
+    for c0 in range(0, min(n_valid, n), chunk):
+        patches = extract_lrf_patches(
+            q[c0:c0 + chunk], halo_pts, radius, chunk_priorities(draws, c0, chunk), k_max=k_max,
+            num_points=patch_points, support_mask=halo_mask, generator=generator)
+        feats[c0:c0 + chunk] = model(patches, dtype)[:n - c0]
+    feats[n_valid:] = 0.0
+    return feats, 0
 
 
 def drop_small_and_compact(labels: torch.Tensor, valid: torch.Tensor, min_count):
@@ -314,9 +370,14 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     ``feat_compute: false`` loads the tile's descriptors from its cache
     file where it exists (stage ``feature_cache`` in place of
     ``dips_features``; the sampler does not run); ``save_interim: true``
-    writes them there after computing them."""
-    if cfg.get("feat_dtype") not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
+    writes them there after computing them (float32 on disk, whatever
+    ``feat_dtype`` is).
+
+    As in the JAX host tile, patches have 256 points whatever
+    ``feat_patch_points`` says; ``feat_dtype`` and ``feat_k_max`` are
+    read."""
+    feat_kw = dict(k_max=int(cfg.get("feat_k_max", 512)), dtype=cfg.get("feat_dtype"))
+    feat_torch_dtype(feat_kw["dtype"])  # an unknown dtype raises before tile work
     dev = resolve_device(device)
     timer = StageTimer(timings, dev)
     dips, filt = dips.to(dev).eval(), filt.to(dev).eval()
@@ -349,8 +410,8 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         if logger:
             logger.info("tile %s: features loaded from %s", tile_id, feat_cache)
     else:
-        src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius)
-        tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius)
+        src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius, **feat_kw)
+        tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius, **feat_kw)
         timer.mark("dips_features")
         if cfg.get("save_interim", False):
             os.makedirs(osp.dirname(feat_cache), exist_ok=True)

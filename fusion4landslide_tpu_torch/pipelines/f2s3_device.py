@@ -8,6 +8,14 @@ step's accelerator branch; ``dips_features_device``,
 ``masked_median`` (also used by the fusion step), and
 ``drop_small_and_compact`` (defined in ``pipelines.f2s3``).
 
+``dips_features_device`` takes the JAX function's branches: patch sizes
+that are multiples of 128 run kernel 1 (``compute_dips_features``), as on
+a TPU; other sizes take the traced grid branches, ``sample_priority``
+``'knn'`` (the ``k_max`` nearest in-radius points, then a random subset)
+or ``'random'`` (a hash-priority ball sample of a permuted support). The
+JAX step's ``jax.random`` draws become ``DipsDraws`` inputs, or draws from
+a ``torch.Generator`` seeded with ``rng_seed``.
+
 Fixed-shape conventions as in the JAX step: supervoxel buckets use static
 caps ``(sv_cap, member_cap)``; supervoxels past the cap, or members past
 ``member_cap``, fall out of the learned filter (``keep=False``) and are
@@ -21,17 +29,23 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.device import resolve_device
+from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
 from fusion4landslide_tpu_torch.ops.hashgrid import (
+    build_hash_grid,
     knn_grid_traced,
     median_nn_distance_traced,
+    radius_sample_grid,
 )
 from fusion4landslide_tpu_torch.ops.knn import nn1
+from fusion4landslide_tpu_torch.ops.lrf import lrf_patches_from_knn, lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import (
     supervoxel_graph,
     supervoxel_segmentation,
 )
 from fusion4landslide_tpu_torch.pipelines.f2s3 import (
+    DipsDraws,
+    chunk_priorities,
     compute_dips_features,
     drop_small_and_compact,
     filter_supervoxel_buckets,
@@ -56,23 +70,77 @@ def masked_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s[lo] + s[hi])
 
 
-def dips_features_device(model, query, support, support_mask, radius, *,
-                         patch_points: int = 256, chunk: int = 2048,
-                         query_count=None):
+@torch.inference_mode()
+def dips_features_device(model, query, support, support_mask, radius, *, k_max: int = 512,
+                         patch_points: int = 256, chunk: int = 2048, sample_cap: int = 48,
+                         sample_priority: str = "knn", dtype=None, query_count=None,
+                         draws: DipsDraws | None = None, generator=None):
     """((n, 64) DIPs descriptors of a padded query cloud, () sampler
-    window overflow count); rows at or past ``query_count`` are zero.
-    This is the path the JAX package takes on an accelerator (grid
-    sampler); its CPU branches ('knn' / traced 'random' samplers) compute
-    different functions and are not ported."""
-    if patch_points % 128:
-        raise NotImplementedError(
-            "patch_points % 128 != 0 takes the JAX package's CPU sampler, "
-            "which is not ported (ROADMAP.md queue 1 item 10)"
+    overflow count); rows at or past ``query_count`` are zero and their
+    chunks skip the network.
+
+    ``patch_points`` a multiple of 128: kernel 1 (``compute_dips_features``;
+    the count is of truncated window blocks). Otherwise, over the query
+    cloud zero-padded to whole chunks (JAX ``pipelines/f2s3_device.py:
+    145-196``):
+
+    - ``'knn'``: one ``knn_grid_traced`` of every query for its ``k_max``
+      nearest in-radius supports (``r_max`` = the patch radius, ``cap`` =
+      max(``sample_cap``, ceil(k_max / 27))), then per chunk
+      ``lrf_patches_from_knn`` with that chunk's (chunk, k_max) priorities
+      and the network;
+    - ``'random'``: the support permuted by ``draws.perm``, one grid over
+      it, and per chunk ``radius_sample_grid`` (``cap`` = ``sample_cap``,
+      hash seed ``draws.seed``), the LRF and the network.
+
+    Any ``sample_priority`` but 'random' takes the 'knn' branch, as in
+    JAX. The grid branches count truncated cell runs. Draws not given come
+    from ``generator``."""
+    if patch_points % 128 == 0:
+        return compute_dips_features(
+            model, query, support, radius, patch_points=patch_points, chunk=chunk,
+            halo_mask=support_mask, n_core=query_count, dtype=dtype,
         )
-    return compute_dips_features(
-        model, query, support, radius, patch_points=patch_points, chunk=chunk,
-        halo_mask=support_mask, n_core=query_count,
-    )
+    tdt = feat_torch_dtype(dtype)
+    n, m = query.shape[0], support.shape[0]
+    dev = query.device
+    chunk = min(chunk, n)
+    nv = n if query_count is None else int(query_count)
+    q = torch.cat([query, query.new_zeros(((-n) % chunk, 3))])
+    feats = torch.zeros((n, 64), dtype=torch.float32, device=dev)
+    draws = draws or DipsDraws()
+
+    def put(c0, patches):
+        feats[c0:c0 + chunk] = model(patches, tdt)[:n - c0]
+
+    if sample_priority == "random":
+        perm = draws.perm
+        if perm is None:
+            perm = torch.randperm(m, generator=generator, device=dev)
+        seed = draws.seed
+        if seed is None:
+            seed = int(torch.randint(0, 2**31 - 1, (), generator=generator, device=dev))
+        perm = perm.to(dev).long()
+        msk = None if support_mask is None else support_mask.to(torch.bool)[perm]
+        grid = build_hash_grid(support[perm], radius, msk)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        for c0 in range(0, min(nv, n), chunk):
+            qc = q[c0:c0 + chunk]
+            coords, valid, ov = radius_sample_grid(qc, grid, radius, seed, num_samples=patch_points,
+                                                   cap=sample_cap, query_block=chunk)
+            overflow = overflow + ov
+            put(c0, lrf_patches_from_neighbors(qc, coords, valid, radius))
+    else:
+        sqd, idx, overflow = knn_grid_traced(q, support, k_max, ref_mask=support_mask,
+                                             r_max=radius, cap=max(sample_cap, -(-k_max // 27)))
+        for c0 in range(0, min(nv, n), chunk):
+            sl = slice(c0, c0 + chunk)
+            put(c0, lrf_patches_from_knn(q[sl], support, sqd[sl], idx[sl], radius,
+                                         chunk_priorities(draws, c0, chunk),
+                                         num_points=patch_points, generator=generator))
+        del sqd, idx
+    feats[nv:] = 0.0
+    return feats, overflow
 
 
 class F2S3TileResult(NamedTuple):
@@ -106,6 +174,7 @@ def f2s3_tile_step(
     max_disp: float = 0.0,
     voxel_size: float = 0.0,
     *,
+    k_max: int = 512,
     patch_points: int = 256,
     chunk: int = 2048,
     k_neighbors: int = 30,
@@ -116,6 +185,10 @@ def f2s3_tile_step(
     small_patch_removal: bool = True,
     with_c2c: bool = True,
     feat_dtype: str | None = None,
+    sample_cap: int = 48,
+    sample_priority: str = "knn",
+    dips_draws: tuple[DipsDraws | None, DipsDraws | None] | None = None,
+    rng_seed: int = 0,
     timings: dict | None = None,
     device=None,
 ) -> F2S3TileResult:
@@ -126,17 +199,16 @@ def f2s3_tile_step(
     disables the magnitude gate; ``rockfall`` pins the supervoxel radius
     to 0.1 (f2s3.py:185-186).
 
-    The JAX step takes a PRNG key and the CPU branches' sampler options
-    (``k_max``, ``sample_cap``, ``sample_priority``); on the accelerator
-    branch this port follows they feed nothing, so the port takes none.
-    ``timings`` (optional dict) accumulates per-stage seconds,
-    synchronising the device at each stage boundary.
+    ``k_max``, ``sample_cap`` and ``sample_priority`` select and size the
+    DIPs grid branches for patch sizes that are not a multiple of 128
+    (``dips_features_device``); ``feat_dtype`` 'bfloat16' runs the
+    PointNet trunks in bf16. The JAX step splits its PRNG key into the two
+    clouds' draws: here ``dips_draws`` (source, target) gives them, and
+    draws not given come from one ``torch.Generator`` on the device seeded
+    with ``rng_seed`` (the source's first). ``timings`` (optional dict)
+    accumulates per-stage seconds, synchronising the device at each stage
+    boundary.
     """
-    if feat_dtype not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
-    if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
-                                  "ROADMAP.md queue 1 item 10)")
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
@@ -157,10 +229,13 @@ def f2s3_tile_step(
 
     # 2. DIPs descriptors (f2s3.py:91-154); rows past the last valid one
     # skip the network.
-    feat_kw = dict(patch_points=patch_points, chunk=chunk)
-    src_feat, ov_s = dips_features_device(dips, src, src, smask, radius,
+    feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
+                   sample_priority=sample_priority, dtype=feat_dtype,
+                   generator=torch.Generator(device=dev).manual_seed(rng_seed))
+    draws_s, draws_t = dips_draws or (None, None)
+    src_feat, ov_s = dips_features_device(dips, src, src, smask, radius, draws=draws_s,
                                           query_count=_count_bound(smask), **feat_kw)
-    tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius,
+    tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius, draws=draws_t,
                                           query_count=_count_bound(tmask), **feat_kw)
     ov_sampler = ov_s + ov_t
     stages.mark("dips_features")

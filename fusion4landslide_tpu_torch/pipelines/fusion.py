@@ -30,8 +30,13 @@ are written by ``utils/visualization.py`` where the JAX host tile writes
 them; a tile that asks for them without matplotlib raises ``ImportError``
 before any work.
 
-Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-bf16 descriptors and patch sizes that are not a multiple of 128.
+DIPs options as in the JAX host tile: ``feat_patch_points`` (a multiple
+of 128 runs kernel 1; any other size the exact-kNN branch with
+``feat_k_max`` neighbours and one (chunk, k_max) draw of priorities per
+chunk), ``feat_chunk`` and ``feat_dtype`` ('bfloat16' runs the PointNet
+trunks in bf16). The draws are ``dips_draws`` (source, target
+``DipsDraws``) or come from a ``torch.Generator`` seeded with
+``rng_seed``.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_graph, supervoxel_segmentation
 from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
 from fusion4landslide_tpu_torch.pipelines.driver import load_or_compute_features
+from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
 from fusion4landslide_tpu_torch.pipelines.f2s3 import compute_dips_features
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 from fusion4landslide_tpu_torch.utils.visualization import (
@@ -344,17 +350,10 @@ def coarse_match_2d_votes(lab_s: np.ndarray, lab_t: np.ndarray, c2d_idx: np.ndar
     return best, votes[np.arange(n_s), best] >= max(min_votes, 1)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
 def _check_ported(cfg, image_data) -> None:
-    """Raise for the options the host tile does not run yet, and for
-    figures without matplotlib."""
-    if cfg.get("feat_dtype") not in (None, "float32"):
-        raise _not_ported(f"feat_dtype: {cfg.get('feat_dtype')}", 3)
-    if int(cfg.get("feat_patch_points", 256)) % 128:
-        raise _not_ported("feat_patch_points not a multiple of 128 (the CPU DIPs branch)", 10)
+    """Raise before tile work for an unknown ``feat_dtype``, for figures
+    without matplotlib, and for an RGB tile without an image size."""
+    feat_torch_dtype(cfg.get("feat_dtype"))
     require_matplotlib(cfg, ("visualize_patch",) if image_data is None else FIGURE_KEYS)
     if image_data is None:
         return
@@ -392,15 +391,18 @@ def _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_
 
 def run_fusion3d_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
                       src_halo: np.ndarray | None = None, tgt_halo: np.ndarray | None = None,
-                      tile_id=0, logger=None, device=None, timings: dict | None = None) -> dict:
+                      tile_id=0, logger=None, device=None, timings: dict | None = None,
+                      rng_seed: int = 0, dips_draws=None) -> dict:
     """One tile of the fusion_3d method (use_2d_matches=False), host
     orchestrated: what ``main_fusion.py`` runs per tile on one device.
     ``cfg`` keys follow ``configs/landslide/fusion_3d_brienz.yaml``; runs
     on ``device`` (default ``cuda``). ``timings`` (optional dict) collects
-    per-stage seconds, synchronised at each stage boundary."""
+    per-stage seconds, synchronised at each stage boundary. ``rng_seed``
+    / ``dips_draws``: the DIPs draws (module docstring)."""
     return _fusion_tile_core(cfg, dips, agg, src_core, tgt_core, image_data=None,
                              src_halo=src_halo, tgt_halo=tgt_halo, tile_id=tile_id,
-                             logger=logger, device=device, timings=timings)
+                             logger=logger, device=device, timings=timings,
+                             rng_seed=rng_seed, dips_draws=dips_draws)
 
 
 def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
@@ -410,7 +412,8 @@ def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
                     src_images: list | None = None, tgt_images: list | None = None,
                     src_extrinsics: list | None = None, tgt_extrinsics: list | None = None,
                     src_halo: np.ndarray | None = None, tgt_halo: np.ndarray | None = None,
-                    tile_id=0, logger=None, device=None, timings: dict | None = None) -> dict:
+                    tile_id=0, logger=None, device=None, timings: dict | None = None,
+                    rng_seed: int = 0, dips_draws=None) -> dict:
     """One tile of the RGB+3D fusion method (use_2d_matches=True), host
     orchestrated: learned 3D matches fused with 3D matches chained from
     pixel matches, at the coarse vote (base:3015-3070) and the fine solve
@@ -420,7 +423,8 @@ def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
     pair of ``src_images`` x ``tgt_images`` (default the one pair, with
     ``src_extrinsics`` / ``tgt_extrinsics`` aligned, best camera first),
     and the pairs' matches merge by fill-in (base:1697-1953). Without
-    ``image_size`` in the config it is the source image's size."""
+    ``image_size`` in the config it is the source image's size.
+    ``rng_seed`` / ``dips_draws``: the DIPs draws (module docstring)."""
     image_data = {
         "src_image": src_image,
         "intrinsic": np.asarray(intrinsic, np.float32),
@@ -434,7 +438,8 @@ def run_fusion_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray,
     }
     return _fusion_tile_core(cfg, dips, agg, src_core, tgt_core, image_data=image_data,
                              src_halo=src_halo, tgt_halo=tgt_halo, tile_id=tile_id,
-                             logger=logger, device=device, timings=timings)
+                             logger=logger, device=device, timings=timings,
+                             rng_seed=rng_seed, dips_draws=dips_draws)
 
 
 def _interim_table(src_vox, tgt_vox, idx, valid, center, dataset) -> np.ndarray:
@@ -450,7 +455,7 @@ def _interim_table(src_vox, tgt_vox, idx, valid, center, dataset) -> np.ndarray:
 def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
                       image_data: dict | None, src_halo: np.ndarray | None,
                       tgt_halo: np.ndarray | None, tile_id, logger, device,
-                      timings: dict | None) -> dict:
+                      timings: dict | None, rng_seed: int = 0, dips_draws=None) -> dict:
     """The coarse-to-fine tile solve of ``fusion4landslide_tpu.pipelines.
     fusion._fusion_tile_core``; the 2D-match channel runs when
     ``image_data`` is given. Stages: median resolution, voxel subsampling
@@ -458,9 +463,9 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     ``features_tile_*.npz`` cache), global 3D matches, the 2D channel,
     then per level: partition, members, aggregation, coarse matching
     (with 2D votes), fine SVD + ICP, priority merge; dense output and the
-    sparse re-association. The JAX key split at its start feeds only the
-    CPU DIPs branch, which the port does not run (``patch_points`` must be
-    a multiple of 128), so no draw is taken here."""
+    sparse re-association. The JAX key split at its start becomes the two
+    clouds' ``dips_draws``, or one generator seeded with ``rng_seed``; only
+    the exact-kNN DIPs branch draws."""
     _check_ported(cfg, image_data)
     dev = resolve_device(device)
     dips, agg = dips.to(dev).eval(), agg.to(dev).eval()
@@ -520,15 +525,18 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     # 2. DIPs descriptors of the voxel clouds with patches from the halo
     # clouds (base:1965-2049), cached as features_tile_N.npz.
     radius = float(np.sqrt(3) * 10.0 * median_res)
-    feat_kw = dict(patch_points=int(cfg.get("feat_patch_points", 256)),
-                   chunk=int(cfg.get("feat_chunk", 2048)))
+    feat_kw = dict(k_max=int(cfg.get("feat_k_max", 512)),
+                   patch_points=int(cfg.get("feat_patch_points", 256)),
+                   chunk=int(cfg.get("feat_chunk", 2048)), dtype=cfg.get("feat_dtype"),
+                   generator=torch.Generator(device=dev).manual_seed(rng_seed))
+    draws_s, draws_t = dips_draws or (None, None)
     sh_d = on_dev((src_halo - center).astype(np.float32))
     th_d = on_dev((tgt_halo - center).astype(np.float32))
     dips_overflow = []
 
     def compute_feats():
-        fs, ov_s = compute_dips_features(dips, src_vox_d, sh_d, radius, **feat_kw)
-        ft, ov_t = compute_dips_features(dips, tgt_vox_d, th_d, radius, **feat_kw)
+        fs, ov_s = compute_dips_features(dips, src_vox_d, sh_d, radius, draws=draws_s, **feat_kw)
+        ft, ov_t = compute_dips_features(dips, tgt_vox_d, th_d, radius, draws=draws_t, **feat_kw)
         dips_overflow.append(int(ov_s) + int(ov_t))
         return {"src_feat": fs, "tgt_feat": ft}
 

@@ -30,8 +30,9 @@ each voxel takes its first point's label, with the flat ``sv_cap`` at
 every level. ``icp_type`` selects the fine stage's solver
 (``ops/registration.py::icp_by_type``).
 
-Not ported yet (raise ``NotImplementedError``): bf16 descriptors and
-patch sizes that are not a multiple of 128.
+DIPs descriptors take ``dips_features_device``'s branches: kernel 1 for
+patch sizes that are multiples of 128, the 'knn' / 'random' grid branches
+otherwise, the PointNet trunks in bf16 with ``feat_dtype='bfloat16'``.
 """
 
 from __future__ import annotations
@@ -293,6 +294,7 @@ def fusion3d_tile_step(
     thres_inlier_ratio: float = 0.15,
     *,
     levels: tuple[int, ...] = (1, 2, 3),
+    k_max: int = 512,
     patch_points: int = 256,
     chunk: int = 2048,
     k_neighbors: int = 15,
@@ -310,6 +312,10 @@ def fusion3d_tile_step(
     with_sparse: bool = True,
     with_tgt2src: bool = True,
     feat_dtype: str | None = None,
+    sample_cap: int = 48,
+    sample_priority: str = "knn",
+    dips_draws=None,
+    rng_seed: int = 0,
     sp_lab_src=None,
     sp_lab_tgt=None,
     pix_matches=None,
@@ -355,16 +361,16 @@ def fusion3d_tile_step(
     normals, as the JAX step does. The per-level caps shrink either way
     (JAX's ``_per_level_caps`` does not read the option).
 
-    The JAX step takes a PRNG key; on the accelerator branch this port
-    follows, the key feeds nothing (the patch sampler runs with seed 0),
-    so the port takes none. ``timings`` (optional dict) accumulates
-    per-stage seconds, synchronising the device at each stage boundary.
+    ``k_max``, ``sample_cap``, ``sample_priority`` and ``feat_dtype`` are
+    the DIPs options of ``f2s3_device.dips_features_device``. The JAX step
+    splits its PRNG key into the two clouds' draws (its
+    ``pipelines/fusion_device.py:555``): here ``dips_draws`` (source,
+    target ``DipsDraws``) gives them, and draws not given come from one
+    ``torch.Generator`` on the device seeded with ``rng_seed`` (the
+    source's first; kernel 1 draws nothing). ``timings`` (optional dict)
+    accumulates per-stage seconds, synchronising the device at each stage
+    boundary.
     """
-    if feat_dtype not in (None, "float32"):
-        raise NotImplementedError("only float32 descriptors are ported (ROADMAP.md queue 1 item 3)")
-    if patch_points % 128:
-        raise NotImplementedError("patch_points must be a multiple of 128 (the CPU DIPs branch: "
-                                  "ROADMAP.md queue 1 item 10)")
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
@@ -393,10 +399,13 @@ def fusion3d_tile_step(
     stages.mark("median_res_voxels")
 
     # 2. DIPs descriptors on the voxel clouds; support = full clouds.
-    feat_kw = dict(patch_points=patch_points, chunk=chunk)
-    src_feat, ov_s = dips_features_device(dips, s_cent, src, smask, radius,
+    feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
+                   sample_priority=sample_priority, dtype=feat_dtype,
+                   generator=torch.Generator(device=dev).manual_seed(rng_seed))
+    draws_s, draws_t = dips_draws or (None, None)
+    src_feat, ov_s = dips_features_device(dips, s_cent, src, smask, radius, draws=draws_s,
                                           query_count=s_nv, **feat_kw)
-    tgt_feat, ov_t = dips_features_device(dips, t_cent, tgt, tmask, radius,
+    tgt_feat, ov_t = dips_features_device(dips, t_cent, tgt, tmask, radius, draws=draws_t,
                                           query_count=t_nv, **feat_kw)
     ov_sampler = ov_s + ov_t
     stages.mark("dips_features")

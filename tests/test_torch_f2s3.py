@@ -256,7 +256,13 @@ def test_f2s3_tile_step_matches_emulated_jax(tile, params, port_out, tpu_branch)
 
 
 def test_unported_f2s3_options_raise(tile, params):
+    """bf16 descriptors and patch sizes off the multiples of 128 are
+    ported: they run (``test_torch_dips_branches.py`` and
+    ``test_torch_dips_bf16.py`` hold them to JAX). A descriptor dtype the
+    port has no trunk for still raises."""
     _, _, td, tf = params
-    for kw in (dict(feat_dtype="bfloat16"), dict(patch_points=64)):
-        with pytest.raises(NotImplementedError):
-            _port_step(tile, td, tf, **{**STATICS, **kw})
+    n = tile["n"]
+    out = _port_step(tile, td, tf, **{**STATICS, "feat_dtype": "bfloat16", "patch_points": 64})
+    assert out.keep[:n].any() and torch.isfinite(out.new_tgt[:n]).all()
+    with pytest.raises(ValueError, match="feat_dtype"):
+        _port_step(tile, td, tf, **{**STATICS, "feat_dtype": "float16"})

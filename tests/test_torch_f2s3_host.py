@@ -116,8 +116,10 @@ def test_host_tile_options_not_ported_raise(tmp_path):
     filt = seeded_filter(0, "cpu")
     src = np.zeros((10, 3), np.float32)
     # The feature cache (feat_compute, save_interim) is ported:
-    # tests/test_torch_f2s3_cache.py holds it.
-    for extra in ({"feat_dtype": "bfloat16"},):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            run_f2s3_tile({**CFG, "output_dir": str(tmp_path), **extra}, dips, filt, src, src,
-                          device="cpu")
+    # tests/test_torch_f2s3_cache.py holds it. So are bf16 descriptors
+    # (tests/test_torch_dips_bf16.py); a dtype without a trunk raises
+    # before tile work.
+    with pytest.raises(ValueError, match="feat_dtype"):
+        run_f2s3_tile({**CFG, "output_dir": str(tmp_path), "feat_dtype": "float16"}, dips,
+                      filt, src, src, device="cpu")
+    assert not os.listdir(tmp_path)

@@ -33,7 +33,9 @@ def test_f2s3_runner_writes_the_step_tables(tile, params, port_out, tmp_path):
     res = run_f2s3_tiles(cfg, td, tf, [(3, src, tgt)], device="cpu")
     N, M = tile["sb"].shape[0], tile["tb"].shape[0]
     statics = f2s3_statics(cfg, N, M)
-    assert statics == {**STATICS, "feat_dtype": None}
+    # The JAX runner's DIPs options, at their defaults.
+    assert statics == {**STATICS, "feat_dtype": None, "k_max": 512, "sample_cap": 48,
+                       "sample_priority": "knn"}
     out = port_out
     n, c = tile["n"], src.mean(0)
     keep = out.keep[:n].numpy()
@@ -59,3 +61,29 @@ def test_f2s3_runner_writes_the_step_tables(tile, params, port_out, tmp_path):
     for name in ("f2s3_dvfms_of_tile_3_visualize_0_5.txt",
                  osp.join("filtered_by_magnitude", "f2s3_dvfms_filtered_by_median_mag_of_tile_3.txt")):
         assert osp.exists(osp.join(results, name)), name
+
+
+def test_f2s3_runner_seeds_each_tile_by_its_place(tile, params, port_out, tmp_path,
+                                                  monkeypatch):
+    """The i-th tile's step gets ``rng_seed + i``, whichever of two
+    streams runs it (the step itself is replaced by its recorded output;
+    tile i drops its last i source points, so the step's source mask
+    names the tile)."""
+    from fusion4landslide_tpu_torch.parallel import pipeline as tp
+
+    seen = {}
+
+    def step(*args, rng_seed, **kw):
+        seen[tile["n"] - int(args[3].sum())] = rng_seed
+        return port_out
+
+    monkeypatch.setattr(tp, "f2s3_tile_step", step)
+    _, _, td, tf = params
+    cfg = {"output_dir": str(tmp_path), "output_folder": "run", "voxel_size": VOXEL,
+           "max_disp_magnitude": MAX_DISP, "feat_patch_points": 96, "feat_chunk": 512,
+           "feat_sample_priority": "random"}
+    src, tgt = tile["src"], tile["tgt"]
+    tiles = [(10 + i, src[:len(src) - i], tgt) for i in range(3)]
+    tp.run_f2s3_tiles(cfg, td, tf, tiles, devices=["cpu", "cpu"], rng_seed=7,
+                      n_bucket=tile["sb"].shape[0], m_bucket=tile["tb"].shape[0])
+    assert seen == {0: 7, 1: 8, 2: 9}

@@ -332,14 +332,23 @@ def test_merge_by_priority_matches_jax():
     ({"feat_patch_points": 100}, "item 10"),
 ])
 def test_unported_host_options_raise(tmp_path, extra, item):
+    """The options of ROADMAP items 3 (bf16 descriptors) and 10 (patch
+    sizes off the multiples of 128) are ported: the tile runs with them
+    (``test_torch_dips_branches.py`` and ``test_torch_dips_bf16.py`` hold
+    them to JAX). A descriptor dtype the port has no trunk for still
+    raises, before tile work."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
     from fusion4landslide_tpu_torch.pipelines.fusion import run_fusion3d_tile, run_fusion_tile
 
     dips, agg = seeded_models(0, "cpu")
     pts = np.random.default_rng(0).uniform(0, 2, size=(50, 3))
-    cfg = {**CFG, "output_dir": str(tmp_path), **extra}
+    out = run_fusion3d_tile({**CFG, "output_dir": str(tmp_path / "run"), **extra}, dips, agg,
+                            pts, pts, device="cpu")
+    assert out["interim"]["src_feat"].shape == (out["interim"]["src_vox"].shape[0], 64)
+    assert np.isfinite(out["interim"]["src_feat"]).all()
+    cfg = {**CFG, "output_dir": str(tmp_path / "raise"), **extra, "feat_dtype": "float16"}
     K, E = np.eye(3), np.eye(4)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="feat_dtype"):
         if extra.get("use_2d_matches"):
             corres = None if extra.get("no_matches") else np.zeros((4, 4), np.float32)
             run_fusion_tile(cfg, dips, agg, pts, pts, None, None, K, E, E, corres_2d=corres,

@@ -3,7 +3,7 @@ every module of the port (the drivers ``main_fusion``, ``main_f2s3``,
 ``main_rgb_guided`` and ``main_piecewise_icp`` and the learned image
 matchers, the superpoint partition, the registration solvers, classic
 LoFTR, the E57 reader, the native tiler binding and the figure writers
-among them). Every module also imports without matplotlib (the card's
+among them, and the matcher trainers). Every module also imports without matplotlib (the card's
 machine has none): the figure writers import it inside their functions."""
 
 import subprocess
@@ -31,7 +31,7 @@ for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.image
              "image.roma", "image.crop", "image.flax_bridge", "ops.superpoint",
              "ops.partition_io", "ops.registration", "image.loftr", "image.loftr_classic",
              "io.e57", "tiling.native", "utils.visualization", "utils.metrics",
-             "utils.timing", "utils.profiling"):
+             "utils.timing", "utils.profiling", "image.eloftr_train", "image.roma_train"):
     assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)

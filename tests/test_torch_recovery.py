@@ -85,6 +85,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import yaml
 import _torch_workers  # noqa: F401 (caps torch threads per xdist worker)
 
 from fusion4landslide_tpu_torch.models.convert import (
@@ -123,6 +124,9 @@ F2S3_CFG = {
     "small_patch_removal": True, "feat_patch_points": 256,
 }
 F2S3_SCALARS = (5.0, 0.1)
+#: Config keys set from the command line (``--set KEY=VALUE``) over
+#: ``CFG`` / ``F2S3_CFG`` / the host tiles' YAML, in every run.
+OVERRIDES: dict = {}
 
 
 def flax_from_state_dict(sd: dict) -> dict:
@@ -192,6 +196,20 @@ def rgb_tile(n_core: int, margin: float, halo: float | None = None):
                   center=c.astype(np.float32), pixel_thres=5.0)
     return dict(n=n, m=m, sb=sb, tb=tb, sm=np.arange(N) < n, tm=np.arange(M) < m,
                 core=core, moving=moving, images=images, tol=2e-3 + 0.7 * m_per_px)
+
+
+@contextlib.contextmanager
+def _peak(device: str):
+    """Yields a dict that gets ``peak_gib``, the run's peak device memory,
+    when ``device`` is a CUDA device (nothing on the CPU)."""
+    got: dict = {}
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    yield got
+    if cuda:
+        torch.cuda.synchronize(device)
+        got["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
 
 
 @contextlib.contextmanager
@@ -285,7 +303,7 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
     uses 2048. A tile with ``images`` runs the RGB+3D step."""
     N, M, n = tile["sb"].shape[0], tile["tb"].shape[0], tile["n"]
     images = dict(tile.get("images", {}))
-    cfg = {**CFG, **(RGB_CFG if images else {}), "feat_chunk": chunk}
+    cfg = {**CFG, **(RGB_CFG if images else {}), "feat_chunk": chunk, **OVERRIDES}
     statics = fusion3d_statics(cfg, N, M, with_image=bool(images))
     td, ta = seeded_models(0, "cpu")
     fault = kind.split(":", 1)[1] if ":" in kind else None
@@ -316,16 +334,19 @@ def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
     else:
         from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
 
-        with _fault(fault):
+        stages: dict = {}
+        with _fault(fault), _peak(device) as peak:
             out = fusion3d_tile_step(
                 td, ta, torch.from_numpy(tile["sb"]), torch.from_numpy(tile["sm"]),
                 torch.from_numpy(tile["tb"]), torch.from_numpy(tile["tm"]), *SCALARS,
-                device=device, **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
-                                  for k, v in images.items()}, **statics,
+                device=device, timings=stages,
+                **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+                   for k, v in images.items()}, **statics,
             )
         valid, moved = out.valid[:n].cpu().numpy(), out.moved[:n].cpu().numpy()
         extra = dict(n_vox=[int(out.n_vox_src), int(out.n_vox_tgt)],
-                     median_res=float(out.median_res), overflow=out.overflow)
+                     median_res=float(out.median_res), overflow=out.overflow,
+                     stages_s=stages, **peak)
     extra["n_c2d"] = int(out.n_c2d)
     rec = recovery(valid, moved, tile["sb"][:n], tile["core"], tile["moving"])
     if images:
@@ -339,7 +360,7 @@ def run_f2s3(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> di
     with ``seeded_models(0)`` and ``seeded_filter(0)``; returns its
     recovery readings over the points the filter kept."""
     N, M, n = tile["sb"].shape[0], tile["tb"].shape[0], tile["n"]
-    statics = f2s3_statics({**F2S3_CFG, "feat_chunk": chunk}, N, M)
+    statics = f2s3_statics({**F2S3_CFG, "feat_chunk": chunk, **OVERRIDES}, N, M)
     td, _ = seeded_models(0, "cpu")
     tf = seeded_filter(0, "cpu")
     fault = kind.split(":", 1)[1] if ":" in kind else None
@@ -362,17 +383,19 @@ def run_f2s3(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> di
     else:
         from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
 
-        with _fault(fault):
+        stages: dict = {}
+        with _fault(fault), _peak(device) as peak:
             out = f2s3_tile_step(
                 td, tf, torch.from_numpy(tile["sb"]), torch.from_numpy(tile["sm"]),
                 torch.from_numpy(tile["tb"]), torch.from_numpy(tile["tm"]), *F2S3_SCALARS,
-                device=device, **statics,
+                device=device, timings=stages, **statics,
             )
         keep, moved = out.keep[:n].cpu().numpy(), out.new_tgt[:n].cpu().numpy()
+        extra = dict(stages_s=stages, **peak)
     rec = recovery(keep, moved, tile["sb"][:n], tile["core"], tile["moving"])
     return {"run": "f2s3:" + kind, **rec, "kept": float(keep.mean()),
             "median_res": float(out.median_res), "valid": keep, "moved": moved,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, **(extra if kind != "jax" else {})}
 
 
 #: Stages of the port's step held against their JAX twins by ``stages``:
@@ -540,6 +563,7 @@ def run_host(kind: str, tile: dict, device: str = "cpu", pipeline: str = "fusion
         cfg["icp_refine"] = False
     elif fault == "no_refine":
         cfg["refine_results"] = False
+    cfg.update(OVERRIDES)
     name = "run_fusion3d_tile" if fusion else "run_f2s3_tile"
     module = "pipelines.fusion" if fusion else "pipelines.f2s3"
     t0 = time.perf_counter()
@@ -553,15 +577,18 @@ def run_host(kind: str, tile: dict, device: str = "cpu", pipeline: str = "fusion
                          tile_id=tile["tile_id"])
         else:
             fn = getattr(importlib.import_module("fusion4landslide_tpu_torch." + module), name)
-            with _fault(None if fault in ("no_icp", "no_refine") else fault):
+            extra = {"stages_s": {}}
+            with _fault(None if fault in ("no_icp", "no_refine") else fault), \
+                    _peak(device) as peak:
                 out = fn(cfg, td, second, tile["src"], tile["tgt"], tile_id=tile["tile_id"],
-                         device=device)
+                         device=device, timings=extra["stages_s"])
+            extra.update(peak)
     dvfs = out["dvfs"]
     rec = driver_tile_recovery(tile["core"], dvfs[:, :3], dvfs[:, 3:6] - dvfs[:, :3],
                                tile["moving_y"], PLANTED_SHIFT.astype(np.float64))
     return {"run": f"{pipeline}:{kind}", "tile": tile["tile_id"], **rec,
             "src": len(tile["src"]), "tgt": len(tile["tgt"]), "dvfs": dvfs,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, **(extra if kind != "jax" else {})}
 
 
 def test_flax_bridge_round_trips_the_seeded_weights():
@@ -618,7 +645,15 @@ def main() -> None:
                     help="fusion_host: the epoch's width and height (m)")
     ap.add_argument("--max-pts", type=int, default=1_000_000,
                     help="fusion_host: max_pts_per_tile")
+    ap.add_argument("--set", nargs="+", default=[], metavar="KEY=VALUE",
+                    help="config keys over every run's config (YAML values), e.g. "
+                         "feat_patch_points=192 feat_sample_priority=random")
     args = ap.parse_args()
+    for item in args.set:
+        key, _, value = item.partition("=")
+        OVERRIDES[key] = yaml.safe_load(value)
+    if OVERRIDES:
+        print(json.dumps({"set": OVERRIDES}), flush=True)
     torch.set_grad_enabled(False)
     if args.pipeline in ("fusion_host", "f2s3_host"):
         tiles = driver_tiles(*args.epoch, args.max_pts)

@@ -164,10 +164,16 @@ def test_runner_writes_the_step_tables(tile, params, tmp_path):
 
 
 def test_unported_options_raise(tile, params):
+    """bf16 descriptors and patch sizes off the multiples of 128 are
+    ported: they run (``test_torch_dips_branches.py`` and
+    ``test_torch_dips_bf16.py`` hold them to JAX). A descriptor dtype the
+    port has no trunk for still raises."""
     _, _, td, ta = params
-    for kw in (dict(feat_dtype="bfloat16"), dict(patch_points=64)):
-        with pytest.raises(NotImplementedError):
-            _port_step(tile, td, ta, **{**STATICS, **kw})
+    n = tile["n"]
+    out = _port_step(tile, td, ta, **{**STATICS, "feat_dtype": "bfloat16", "patch_points": 64})
+    assert out.valid[:n].any() and torch.isfinite(out.moved[:n]).all()
+    with pytest.raises(ValueError, match="feat_dtype"):
+        _port_step(tile, td, ta, **{**STATICS, "feat_dtype": "float16"})
 
 
 def test_cuda_entry_point_raises_without_a_card(monkeypatch):
