@@ -36,7 +36,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    (``run_f2s3_tile``, on a tile above ``median_nn_distance``'s 4096-point
    grid threshold), and the RGB+3D fusion step (``lifting_type``
    ``nn_search`` and ``interpolation``) on a small tile seen by a 512^2
-   camera;
+   camera; the fusion steps' CPU paths (and phase (r)'s and (s)'s) run in
+   a worker process of their own (``spawn``, two cores left to the card's
+   process) while the card goes on, and are scored after phase (u)'s
+   production fusion tile;
 6. one production-shaped tile (a 250 000-point core at 100 pts/m^2 with
    symmetric 10 m margins, ~490 k points per cloud, bucket 524288) through
    ``run_fusion3d_tiles`` with the ``fusion_3d_brienz.yaml`` statics and
@@ -143,14 +146,15 @@ Phases (n)-(r): (n) the F2S3 feature cache: phase 11 runs with
    ``nested_levels=False`` (levels 1-3) on phase 5's small tile, card vs
    CPU (equal assigned sets, the DVF gap reported). Phases 9, 11 and 16
    run on ``CLI_EPOCH``, ``DRIVER_EPOCH`` at half its height, cut into two
-   tiles by ``max_pts_per_tile: CLI_TILE_PTS``; (q) runs an eighth-size
-   tile pair;
+   tiles by ``max_pts_per_tile: CLI_TILE_PTS``; (q) runs a sixteenth-size
+   tile pair with 5 m margins;
 Phases (s)-(v): (s) the DIPs grid branches at ``feat_patch_points`` 96:
    the small fusion and F2S3 steps, each with ``sample_priority``
    ``'knn'`` and ``'random'`` (``feat_k_max`` ``SMALL_K_MAX``), card vs
    the CPU path on the card's draws (assigned / kept sets and the DVF gap
    as ``tools/parity_check.py`` scores them), and on the F2S3 tile both
-   branches' descriptors (max error, 1-NN agreement), run after phase (r);
+   branches' descriptors (max error, 1-NN agreement), run after phase (r)
+   (the CPU path in the worker process of phase 5);
    (t) the production tile of phase 6 through ``run_fusion3d_tiles`` at
    ``feat_patch_points: 192``, ``feat_k_max: 512`` ('knn'), and (u) with
    ``feat_dtype: bfloat16``: tile and ``dips_features`` seconds beside
@@ -165,6 +169,23 @@ Phases (s)-(v): (s) the DIPs grid branches at ``feat_patch_points`` 96:
    first step's loss and gradients card vs CPU (cuDNN's deterministic
    algorithms; a second card run gives the spread from run to run),
    checkpoints written to a temporary directory and read back;
+Phases (w)-(y): (w) the host fusion tile (``parity_check.run_path``) on
+   phase 6's production tile with phase 6's configuration, its DVF table
+   joined with phase 6's runner table as ``tools/parity_check.py`` joins
+   them (``parity_check.parity_readings``: assigned-set overlap, gap
+   median / p95 / max, share over 10 mm, each path's error against the
+   planted field; host seconds, stage times, peak memory, launches), run
+   after phase 6; (x) ``matcher_eval`` at the production crops: ``zncc``,
+   ``eloftr`` and ``roma`` on the rendered 1920 x 2560 nadir scene of a
+   150 m extent with a ~25 px planted shift (rendered by numpy in a
+   process of its own from phase 6 on), one warm repeat each: EPE, precision at 3
+   and 5 px, match count, seconds per image and crop pair, whether the
+   matcher fell back to ZNCC; (y) the host fusion tile on the hard pair
+   of ``tests/test_synth_hard.py`` (``synth.HARD_PAIR``, 20 000 points, a
+   2x density gradient and a rotating disc; ``synth.HARD_TILE_CFG``) held
+   to that test's bars (assigned > 0.7, static median < 5 mm, moving
+   median < 10 mm), with its window overflow and launches; (x) and (y)
+   run after phase (q);
 17. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
    (and per path), time, the time before the kernel's redesign
    (``ms_before``), plain-version time, the least time the card could
@@ -179,12 +200,14 @@ back to the CPU or to the plain versions.
 from __future__ import annotations
 
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -395,13 +418,11 @@ def image_inputs(src: np.ndarray, pix: np.ndarray, K: np.ndarray, E: np.ndarray)
     )
 
 
-def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None,
-                        **step_kw) -> dict:
-    """The fusion step on a small tile, card vs the port's CPU path; the
-    card run's kernel launches are read just after it. With ``lifting``
-    the step runs the RGB channel on ``synth_small_rgb_tile``;
-    ``step_kw`` overrides the step's statics (phase (r):
-    ``nested_levels=False``, where the assigned sets must be equal)."""
+def fusion_small_run(d, global_gated: bool, lifting: str | None, step_kw: dict) -> tuple:
+    """The fusion step on a small tile on device ``d``: (result with CPU
+    tensors, source points, the RGB tile's core mask or None). With
+    ``lifting`` the step runs the RGB channel on ``synth_small_rgb_tile``;
+    ``step_kw`` overrides the step's statics."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
     from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
     from fusion4landslide_tpu_torch.synth import SMALL_IMG_SIZE, synth_small_rgb_tile
@@ -418,25 +439,50 @@ def fusion_small_parity(dev, global_gated: bool, lifting: str | None = None,
         images = image_inputs(src, pix, K, E)
         small.update(image_size=SMALL_IMG_SIZE, lifting=lifting)
     small.update(step_kw)
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        dm, am = seeded_models(0, d)
-        reset_launches()
-        outs.append(fusion3d_tile_step(
-            dm, am, torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
-            torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d),
-            5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
-            **{k: torch.as_tensor(v, device=d) if isinstance(v, np.ndarray) else v
-               for k, v in images.items()},
-            **small,
-        ))
-        if d is dev:
-            torch.cuda.synchronize()
-            launches = read_launches()
-    g, c = outs
-    vg, vc = g.valid[:ns].cpu().numpy(), c.valid[:ns].numpy()
+    dm, am = seeded_models(0, d)
+    o = fusion3d_tile_step(
+        dm, am, torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
+        torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d),
+        5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
+        **{k: torch.as_tensor(v, device=d) if isinstance(v, np.ndarray) else v
+           for k, v in images.items()},
+        **small,
+    )
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    return o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)}), ns, core
+
+
+def fusion_small_cpu_side(global_gated: bool, lifting: str | None, step_kw: dict):
+    """``fusion_small_run`` on the CPU path in a worker process (numpy
+    result), leaving two cores to the process driving the card."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+    return _numpy_fields(fusion_small_run(torch.device("cpu"), global_gated, lifting, step_kw)[0])
+
+
+def fusion_small_card_side(dev, pool, global_gated: bool, lifting: str | None = None,
+                           **step_kw) -> dict:
+    """The fusion step on a small tile on the card (its launches read just
+    after it), the CPU path submitted to ``pool``; ``fusion_small_compare``
+    scores the two. ``step_kw`` overrides the step's statics (phase (r):
+    ``nested_levels=False``, where the assigned sets must be equal)."""
+    future = pool.submit(fusion_small_cpu_side, global_gated, lifting, step_kw)
+    reset_launches()
+    g, ns, core = fusion_small_run(dev, global_gated, lifting, step_kw)
+    return dict(g=g, ns=ns, core=core, launches=read_launches(), future=future,
+                global_gated=global_gated, lifting=lifting, step_kw=step_kw)
+
+
+def fusion_small_compare(state: dict) -> dict:
+    """The small fusion step, card vs the port's CPU path, scored as
+    ``tools/parity_check.py`` scores two paths. Returns the card run's
+    launches."""
+    g, ns, core, launches = (state[k] for k in ("g", "ns", "core", "launches"))
+    global_gated, lifting, step_kw = state["global_gated"], state["lifting"], state["step_kw"]
+    c = _tensor_fields(state["future"].result())
+    vg, vc = g.valid[:ns].numpy(), c.valid[:ns].numpy()
     common = vg & vc
-    gap = np.linalg.norm(g.moved[:ns].cpu().numpy()[common] - c.moved[:ns].numpy()[common], axis=1)
+    gap = np.linalg.norm(g.moved[:ns].numpy()[common] - c.moved[:ns].numpy()[common], axis=1)
     parity = {
         "n_vox": [int(g.n_vox_src), int(c.n_vox_src), int(g.n_vox_tgt), int(c.n_vox_tgt)],
         "median_res_rel": abs(float(g.median_res) - float(c.median_res)) / float(c.median_res),
@@ -1996,7 +2042,8 @@ def e57_phase(root: str) -> None:
 
 def f2s3_streams_phase(dev, dips, filt, n_core: int, margin: float, halo: float,
                        density: float) -> dict:
-    """(q) on the F2S3 runner: two quarter-size tiles through one stream
+    """(q) on the F2S3 runner: two small tiles (``n_core`` core points)
+    through one stream
     and through two on the card (``devices=[dev, dev]``: two threads, each
     with its model copies and stream); results, tables and launches equal.
     Returns both runs' launches by path."""
@@ -2102,79 +2149,148 @@ def draws_on(draws, d):
                                                     for v in x)) for x in draws)
 
 
-def dips_descriptor_parity(dev, priority: str, sb, sm, tb, tm, ns: int, nt: int, radius: float,
-                           dtype=None, draws=None) -> dict:
+def descriptor_pair(d, priority: str, sb, sm, tb, tm, ns: int, nt: int, radius: float,
+                    dtype=None, draws=None) -> tuple:
     """The DIPs descriptors of a small tile's two clouds (query = support,
-    as in the F2S3 step) at patch 96 on the card and on the CPU path with
-    the same draws (or, at patch 128, kernel 1's fixed seed): max abs
-    error and the source -> target 1-NN agreement."""
+    as in the F2S3 step) on device ``d``, at patch 96 with ``draws`` (or,
+    at patch 128, kernel 1's fixed seed), as CPU tensors."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
-    from fusion4landslide_tpu_torch.ops.knn import knn
     from fusion4landslide_tpu_torch.pipelines.f2s3_device import dips_features_device
 
     kw = dict(patch_points=96 if draws is not None else 128, chunk=512, sample_priority=priority,
               dtype=dtype, k_max=SMALL_K_MAX)
-    feats = []
-    for d in (dev, torch.device("cpu")):
-        dm, _ = seeded_models(0, d)
-        dr = draws_on(draws, d) if draws is not None else (None, None)
-        pair = []
-        for x, m, nv, dw in ((sb, sm, ns, dr[0]), (tb, tm, nt, dr[1])):
-            xt = torch.from_numpy(x).to(d)
-            f, _ = dips_features_device(dm, xt, xt, torch.from_numpy(m).to(d),
-                                        torch.tensor(radius, device=d), query_count=nv,
-                                        draws=dw, **kw)
-            pair.append(f.cpu())
-        feats.append(pair)
-    (gs, gt), (cs, ct) = feats
+    dm, _ = seeded_models(0, d)
+    dr = draws_on(draws, d) if draws is not None else (None, None)
+    pair = []
+    for x, m, nv, dw in ((sb, sm, ns, dr[0]), (tb, tm, nt, dr[1])):
+        xt = torch.from_numpy(x).to(d)
+        f, _ = dips_features_device(dm, xt, xt, torch.from_numpy(m).to(d),
+                                    torch.tensor(radius, device=d), query_count=nv,
+                                    draws=dw, **kw)
+        pair.append(f.cpu())
+    return tuple(pair)
+
+
+def descriptor_readings(card_pair, cpu_pair, ns: int, nt: int) -> dict:
+    """Max abs descriptor error and the source -> target 1-NN agreement of
+    the card's and the CPU path's descriptors."""
+    from fusion4landslide_tpu_torch.ops.knn import knn
+
+    (gs, gt), (cs, ct) = card_pair, cpu_pair
     err = float((gs[:ns] - cs[:ns]).abs().max())
     _, nn_g = knn(gs[:ns], gt[:nt], 1)
     _, nn_c = knn(cs[:ns], ct[:nt], 1)
     return {"feat_max_abs_err": err, "nn1_equal_frac": float((nn_g == nn_c).double().mean())}
 
 
-def dips_branch_small_parity(dev, pipeline: str, priority: str,
-                             descriptors: bool = False) -> dict:
-    """Phase (s): the small fusion or F2S3 step at ``feat_patch_points``
-    96 with ``sample_priority`` ``priority`` (k_max ``SMALL_K_MAX``), the
-    card against the port's CPU path on the card's draws; scored as
-    ``tools/parity_check.py`` scores two paths (F2S3: as
-    ``f2s3_small_parity``; with ``descriptors``, also both branches'
-    descriptors of its tile)."""
+def dips_descriptor_parity(dev, priority: str, sb, sm, tb, tm, ns: int, nt: int, radius: float,
+                           dtype=None, draws=None) -> dict:
+    """``descriptor_readings`` of the card against the CPU path on the same
+    draws."""
+    args = (priority, sb, sm, tb, tm, ns, nt, radius, dtype, draws)
+    return descriptor_readings(descriptor_pair(dev, *args),
+                               descriptor_pair(torch.device("cpu"), *args), ns, nt)
+
+
+def branch_small_tile(pipeline: str):
+    """Phase (s)'s padded small tile of ``pipeline`` (numpy)."""
+    return padded_small_tile(1.0 if pipeline == "fusion" else 1.5, 1.5)
+
+
+def branch_small_step(d, pipeline: str, priority: str, draws) -> tuple:
+    """Phase (s)'s small fusion or F2S3 step at patch 96 on device ``d``
+    with ``draws``: (result with CPU tensors, seconds)."""
     from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
     from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
     from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
 
-    fusion = pipeline == "fusion"
-    sb, sm, tb, tm, ns, nt = padded_small_tile(1.0, 1.5) if fusion else padded_small_tile(1.5, 1.5)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    draws = (card_draws(dev, priority, len(sb), gen=gen), card_draws(dev, priority, len(tb), gen=gen))
+    sb, sm, tb, tm, _, _ = branch_small_tile(pipeline)
     kw = dict(patch_points=96, chunk=512, sample_priority=priority, k_max=SMALL_K_MAX)
-    if fusion:
-        kw.update(levels=(1, 2), k_neighbors=8, sv_cap=256, member_cap=128, agg_max_points=64,
-                  small_patch=3, icp_max_iter=8, fine_max_matches=64)
+    dm, am = seeded_models(0, d)
+    args = [torch.from_numpy(x).to(d) for x in (sb, sm, tb, tm)]
+    t0 = time.perf_counter()
+    if pipeline == "fusion":
+        o = fusion3d_tile_step(dm, am, *args, 5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
+                               dips_draws=draws_on(draws, d), levels=(1, 2), k_neighbors=8,
+                               sv_cap=256, member_cap=128, agg_max_points=64, small_patch=3,
+                               icp_max_iter=8, fine_max_matches=64, **kw)
     else:
-        kw.update(k_neighbors=30, sv_cap=256, member_cap=256)
-    outs, secs = [], []
-    for d in (dev, torch.device("cpu")):
-        dm, am = seeded_models(0, d)
-        args = [torch.from_numpy(x).to(d) for x in (sb, sm, tb, tm)]
-        reset_launches()
-        t0 = time.perf_counter()
-        if fusion:
-            o = fusion3d_tile_step(dm, am, *args, 5.0, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d,
-                                   dips_draws=draws_on(draws, d), **kw)
-        else:
-            o = f2s3_tile_step(dm, seeded_filter(0, d), *args, 5.0, 0.1, device=d,
-                               dips_draws=draws_on(draws, d), **kw)
-        if d is dev:
-            torch.cuda.synchronize()
-            launches = read_launches()
-        secs.append(time.perf_counter() - t0)
-        outs.append(o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)}))
-    g, c = outs
+        o = f2s3_tile_step(dm, seeded_filter(0, d), *args, 5.0, 0.1, device=d,
+                           dips_draws=draws_on(draws, d), k_neighbors=30, sv_cap=256,
+                           member_cap=256, **kw)
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)}), secs
+
+
+def _numpy_fields(t):
+    """A NamedTuple's tensor fields as numpy arrays (to cross a process)."""
+    return None if t is None else t._replace(**{k: v.numpy() for k, v in t._asdict().items()
+                                                 if torch.is_tensor(v)})
+
+
+def _tensor_fields(t):
+    return None if t is None else t._replace(**{k: torch.from_numpy(v) for k, v in
+                                                 t._asdict().items() if isinstance(v, np.ndarray)})
+
+
+def branch_cpu_side(pipeline: str, priority: str, draws, descriptor_draws: dict) -> tuple:
+    """Phase (s)'s CPU path in a worker process: the step on the card's
+    ``draws`` and the descriptors per entry of ``descriptor_draws``
+    (priority -> draws), leaving two cores to the process driving the
+    card. Returns (numpy step result, seconds, {priority: descriptors})."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+    cpu = torch.device("cpu")
+    draws = tuple(_tensor_fields(x) for x in draws)
+    out, secs = branch_small_step(cpu, pipeline, priority, draws)
+    sb, sm, tb, tm, ns, nt = branch_small_tile(pipeline)
+    radius = float(np.sqrt(3.0) * 10.0 * float(out.median_res))
+    descriptors = {
+        prio: tuple(f.numpy() for f in descriptor_pair(
+            cpu, prio, sb, sm, tb, tm, ns, nt, radius,
+            draws=tuple(_tensor_fields(x) for x in dr)))
+        for prio, dr in descriptor_draws.items()}
+    return _numpy_fields(out), secs, descriptors
+
+
+def dips_branch_card_side(dev, pipeline: str, priority: str, pool,
+                          descriptors: bool = False) -> dict:
+    """Phase (s), card side: the small fusion or F2S3 step at
+    ``feat_patch_points`` 96 with ``sample_priority`` ``priority`` (k_max
+    ``SMALL_K_MAX``) on the card's draws (with ``descriptors``, also both
+    branches' descriptors of its tile); the CPU path on the same draws is
+    submitted to ``pool`` (``branch_cpu_side``). Returns the state that
+    ``dips_branch_compare`` scores."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sb, _, tb, _, _, _ = branch_small_tile(pipeline)
+    draws = (card_draws(dev, priority, len(sb), gen=gen), card_draws(dev, priority, len(tb), gen=gen))
+    desc_draws = {prio: draws if prio == priority else
+                  (card_draws(dev, prio, len(sb), gen=gen), card_draws(dev, prio, len(tb), gen=gen))
+                  for prio in (("knn", "random") if descriptors else ())}
+    to_cpu = lambda dr: tuple(_numpy_fields(draws_on((x,), "cpu")[0]) for x in dr)  # noqa: E731
+    future = pool.submit(branch_cpu_side, pipeline, priority, to_cpu(draws),
+                         {prio: to_cpu(dr) for prio, dr in desc_draws.items()})
+    reset_launches()
+    g, card_s = branch_small_step(dev, pipeline, priority, draws)
+    launches = read_launches()
+    return dict(pipeline=pipeline, priority=priority, g=g, card_s=card_s, launches=launches,
+                desc_draws=desc_draws, future=future, dev=dev)
+
+
+def dips_branch_compare(state: dict) -> dict:
+    """Phase (s), scored: the card against the port's CPU path on the
+    card's draws, as ``tools/parity_check.py`` scores two paths (F2S3: as
+    ``f2s3_small_parity``; with descriptors, also both branches'
+    descriptors of the tile). Returns the card run's launches."""
+    pipeline, priority, g, launches = (state[k] for k in ("pipeline", "priority", "g",
+                                                          "launches"))
+    fusion = pipeline == "fusion"
+    sb, sm, tb, tm, ns, nt = branch_small_tile(pipeline)
+    c_np, cpu_s, cpu_desc = state["future"].result()
+    c = _tensor_fields(c_np)
     radius = float(np.sqrt(3.0) * 10.0 * float(c.median_res))
-    parity = dict(points=ns, card_s=secs[0], cpu_s=secs[1], launches=launches,
+    parity = dict(points=ns, card_s=state["card_s"], cpu_s=cpu_s, launches=launches,
                   overflow=[g.overflow_by_source, c.overflow_by_source],
                   median_res_rel=abs(float(g.median_res) - float(c.median_res)) / float(c.median_res))
     if fusion:
@@ -2205,11 +2321,11 @@ def dips_branch_small_parity(dev, pipeline: str, priority: str,
                       flipped_points=int(np.isin(lab, flipped).sum()),
                       kept=[int(vg.sum()), int(vc.sum())])
         finite = bool(torch.isfinite(g.new_tgt).all())
-        for prio in ("knn", "random") if descriptors else ():
-            parity[prio] = dips_descriptor_parity(dev, prio, sb, sm, tb, tm, ns, nt, radius,
-                                                  draws=draws if prio == priority else
-                                                  (card_draws(dev, prio, len(sb), gen=gen),
-                                                   card_draws(dev, prio, len(tb), gen=gen)))
+        for prio, dr in state["desc_draws"].items():
+            card_pair = descriptor_pair(state["dev"], prio, sb, sm, tb, tm, ns, nt, radius,
+                                        draws=dr)
+            cpu_pair = tuple(torch.from_numpy(f) for f in cpu_desc[prio])
+            parity[prio] = descriptor_readings(card_pair, cpu_pair, ns, nt)
     parity.update(overlap_frac=float(common.sum()) / max(int(vg.sum()), int(vc.sum()), 1),
                   median_delta_m=float(np.median(gap)) if gap.size else None,
                   frac_gt_10mm=float((gap > 0.01).mean()) if gap.size else None)
@@ -2223,7 +2339,7 @@ def dips_branch_small_parity(dev, pipeline: str, priority: str,
     else:
         check(parity["labels_equal_frac"] >= 0.99 and parity["nn_equal_frac"] >= 0.99, parity)
         check(parity["flipped_supervoxels"] <= 2, parity)
-        for prio in ("knn", "random") if descriptors else ():
+        for prio in state["desc_draws"]:
             check(parity[prio]["feat_max_abs_err"] <= 1e-3, parity)
             check(parity[prio]["nn1_equal_frac"] >= 0.99, parity)
     return launches
@@ -2255,23 +2371,26 @@ def production_recovery(out: dict, n: int, core, moving, static, label: str,
     return rec
 
 
-def production_tile_run(runner, cfg: dict, models, tile, dev, here: str) -> tuple:
+def production_tile_run(runner, cfg: dict, models, tile, dev, here: str,
+                        out_dir: str | None = None) -> tuple:
     """One production tile through ``runner`` (``run_fusion3d_tiles`` or
     ``run_f2s3_tiles``): (result, seconds, stage seconds, launches, peak
-    GiB, the result tables written, relative to the results folder)."""
+    GiB, the result tables written, relative to the results folder). The
+    tables go to a temporary directory, or stay under ``out_dir``."""
     timings: dict = {}
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        root = out_dir or tmp
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = runner(dict(cfg, output_dir=tmp, output_folder="smoke"), *models, [(0, *tile)],
+        res = runner(dict(cfg, output_dir=root, output_folder="smoke"), *models, [(0, *tile)],
                      device=dev, timings=timings)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        results = os.path.join(tmp, "smoke", "results")
+        results = os.path.join(root, "smoke", "results")
         written = sorted(os.path.relpath(os.path.join(d, f), results)
                          for d, _, fs in os.walk(results) for f in fs)
     return res[0], secs, timings, launches, peak, written
@@ -2395,6 +2514,100 @@ def training_phase(dev, tmp: str) -> dict:
         check(out[name]["first_loss_rel_err"] <= 1e-3 and grad_err <= 1e-2, out[name])
         check(same and not os.path.abspath(path).startswith(os.path.abspath("weights")), out[name])
     return out
+
+
+# ---- Phases (w) host vs runner parity, (x) matcher evaluation, (y) the
+# hard scene --------------------------------------------------------------
+
+#: Seconds spent in phases (w)-(y).
+PHASES_W_Y_S = [0.0]
+#: ``tools/matcher_eval.py``'s scene: the nadir view of a 150 m extent at
+#: the reference image size, a planted shift of ~25 px.
+EVAL_IMAGE, EVAL_EXTENT, EVAL_SHIFT_PX = (1920, 2560), 150.0, 25.0
+EVAL_OVERLAP = (480, 640)
+
+
+def host_parity_phase(dev, cfg: dict, models, tile, runner_table: str, runner_s: float,
+                      n_core: int, halo: float, here: str) -> dict:
+    """(w): the host tile (``parity_check.run_path('host')``) on phase 6's
+    production tile and configuration, joined with phase 6's runner table
+    as ``tools/parity_check.py`` joins them (``parity_check.parity_readings``:
+    the tool's keys; ``mesh`` is the runner)."""
+    from fusion4landslide_tpu_torch import parity_check
+
+    timings: dict = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        table, host_s, out = parity_check.run_path("host", cfg, *models, *tile, tmp, dev, timings)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec = parity_check.parity_readings(table, runner_table,
+                                           parity_check.planted_truth(n_core, halo))
+    rec.update(tile_points=int(len(tile[0])), host_seconds=host_s, mesh_seconds=runner_s,
+               host_peak_gib=peak, host_overflow=out["overflow_by_source"], launches=launches)
+    log(f"# phase (w) host tile vs runner on phase 6's production tile ({card()}): "
+        f"{json.dumps(rec)}; host stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    check(launches["radius_sample"] > 0 and launches["grid_knn"] > 0, launches)
+    check(rec["common"] > 0 and rec["host_assigned"] > 0.1 * len(tile[0]), rec)
+    check(all(np.isfinite(rec[k]) for k in ("median_delta_disp_m", "max_delta_disp_m",
+                                            "host_median_err_vs_truth_m",
+                                            "mesh_median_err_vs_truth_m")), rec)
+    return launches
+
+
+def matcher_eval_phase(dev, scene) -> dict:
+    """(x): ``matcher_eval`` at the production crops (960 x 1280, overlap
+    480 x 640) on the rendered nadir scene, one warm repeat per matcher."""
+    from fusion4landslide_tpu_torch import matcher_eval
+
+    by_path = {}
+    for matcher in ("zncc", "eloftr", "roma"):
+        reset_launches()
+        row = matcher_eval.evaluate_matcher(scene, matcher, CROP, EVAL_OVERLAP, EVAL_SHIFT_PX,
+                                            repeats=1, device=dev)
+        by_path[f"matcher_eval_{matcher}"] = read_launches()
+        log(f"# phase (x) matcher_eval {matcher}, {scene.image_size[0]}x{scene.image_size[1]} "
+            f"in {CROP[0]}x{CROP[1]} crops ({card()}): {json.dumps(row)}")
+        check(row["n_matches"] > 100 and np.isfinite(row["epe_mean_px"]), row)
+        if matcher != "roma":
+            check(not row["zncc_fallback"] and row["epe_median_px"] < 3.0, row)
+    return by_path
+
+
+def hard_scene_phase(dev, dips, agg, here: str) -> dict:
+    """(y): the host fusion tile on the hard pair of the repository's
+    ``tests/test_synth_hard.py`` (``synth.HARD_PAIR``,
+    ``synth.HARD_TILE_CFG``), held to that test's bars."""
+    from fusion4landslide_tpu_torch.pipelines.fusion import run_fusion3d_tile
+    from fusion4landslide_tpu_torch.synth import (
+        HARD_PAIR,
+        HARD_TILE_CFG,
+        hard_tile_readings,
+        make_epoch_pair_hard,
+    )
+
+    src, tgt, _, moving, true_disp = make_epoch_pair_hard(**HARD_PAIR)
+    timings: dict = {}
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_fusion3d_tile(dict(HARD_TILE_CFG, output_dir=tmp), dips, agg, src, tgt,
+                                tile_id="hard", device=dev, timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    rec = dict(hard_tile_readings(out, moving, true_disp), points=int(len(src)),
+               n_vox=list(out["n_vox"]), tile_s=secs, overflow=out["overflow_by_source"],
+               launches=launches)
+    log(f"# phase (y) hard scene host tile ({card()}): {json.dumps(rec)}; stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    check(launches["radius_sample"] > 0 and launches["grid_knn"] > 0, launches)
+    check(rec["assigned"] > 0.7 and rec["static_err_m"] < 5e-3 and rec["moving_err_m"] < 1e-2,
+          rec)
+    return launches
 
 
 def main() -> int:
@@ -2577,30 +2790,34 @@ def main() -> int:
     f1_launches = nn1_overflow_phase(dev)
 
     # ---- 5. small tiles: card vs the port's CPU path ---------------------
-    by_path = {
-        "fusion3d_small": fusion_small_parity(dev, global_gated=True),
-        "fusion3d_ungated_small": fusion_small_parity(dev, global_gated=False),
-        "f2s3_small": f2s3_small_parity(dev),
-        "f2s3_host_small": f2s3_host_small_parity(dev),
-        "fusion_rgb_small": fusion_small_parity(dev, global_gated=True, lifting="nn_search"),
-        "fusion_rgb_interp_small": fusion_small_parity(dev, global_gated=True,
-                                                       lifting="interpolation"),
+    # The small fusion steps' and phase (s)'s CPU paths run in a process of
+    # their own while the card works on; they are scored after the
+    # production fusion tiles.
+    cpu_pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
+    fusion_states = {
+        "fusion3d_small": fusion_small_card_side(dev, cpu_pool, global_gated=True),
+        "fusion3d_ungated_small": fusion_small_card_side(dev, cpu_pool, global_gated=False),
+        "fusion_rgb_small": fusion_small_card_side(dev, cpu_pool, global_gated=True,
+                                                   lifting="nn_search"),
+        "fusion_rgb_interp_small": fusion_small_card_side(dev, cpu_pool, global_gated=True,
+                                                          lifting="interpolation"),
     }
-    check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
-    by_path["nn1_spatial_f1"] = f1_launches
+    by_path = {"f2s3_small": f2s3_small_parity(dev),
+               "f2s3_host_small": f2s3_host_small_parity(dev),
+               "nn1_spatial_f1": f1_launches}
 
     # ---- (r) nested_levels=False on the small tile -------------------------
     t_new = time.perf_counter()
-    by_path["fusion3d_flat_levels_small"] = fusion_small_parity(
-        dev, global_gated=True, nested_levels=False, levels=(1, 2, 3))
+    fusion_states["fusion3d_flat_levels_small"] = fusion_small_card_side(
+        dev, cpu_pool, global_gated=True, nested_levels=False, levels=(1, 2, 3))
     PHASES_N_R_S[0] += time.perf_counter() - t_new
 
     # ---- (s) the DIPs grid branches at patch 96; (u) bf16 on a small tile --
     t_new = time.perf_counter()
-    for pipeline in ("fusion", "f2s3"):
-        for priority in ("knn", "random"):
-            by_path[f"{pipeline}_patch96_{priority}_small"] = dips_branch_small_parity(
-                dev, pipeline, priority, descriptors=(pipeline, priority) == ("f2s3", "random"))
+    branch_states = [
+        dips_branch_card_side(dev, pipeline, priority, cpu_pool,
+                              descriptors=(pipeline, priority) == ("f2s3", "random"))
+        for pipeline in ("fusion", "f2s3") for priority in ("knn", "random")]
     bf16_small_parity(dev)
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
@@ -2615,6 +2832,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. the production tile through the fusion runner ---------------
+    # Phase (x)'s scene is rendered by numpy in a process of its own while
+    # the card works through the production tiles (after the phases whose
+    # CPU sides it would slow).
+    from fusion4landslide_tpu_torch.matcher_eval import Scene
+
+    render_pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
+    scene_future = render_pool.submit(Scene, EVAL_IMAGE, EVAL_EXTENT, EVAL_SHIFT_PX)
     cfg = {
         "dataset": "brienz_tls",
         "voxel_size_init": 0.1,
@@ -2641,8 +2865,10 @@ def main() -> int:
     dips, agg = seeded_models(0, dev)
     here = os.path.dirname(os.path.abspath(__file__))
     static = core & ~moving
+    # Phase 6's tables stay until phase (w) has joined them with the host tile's.
+    runner_dir = tempfile.TemporaryDirectory(prefix="_smoke_", dir=here)
     out, step_s, timings, launches, peak, written = production_tile_run(
-        run_fusion3d_tiles, cfg, (dips, agg), (src, tgt), dev, here)
+        run_fusion3d_tiles, cfg, (dips, agg), (src, tgt), dev, here, out_dir=runner_dir.name)
     by_path["fusion3d"] = launches
     log(f"# tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
@@ -2653,6 +2879,15 @@ def main() -> int:
     production_recovery(out, n, core, moving, static, "phase 6 production fusion tile",
                         RECOVERY)
     ok = out["valid"]
+
+    # ---- (w) the host tile against phase 6's runner tile -----------------
+    t_new = time.perf_counter()
+    by_path["fusion3d_host_parity"] = host_parity_phase(
+        dev, cfg, (dips, agg), (src, tgt),
+        os.path.join(runner_dir.name, "smoke", "results", "c2f_dvfs_src2tgt_tile_0.txt"),
+        step_s, n_core, halo, here)
+    runner_dir.cleanup()
+    PHASES_W_Y_S[0] += time.perf_counter() - t_new
 
     # ---- (l) the same tile with icp_type: generalized ----------------------
     t_new = time.perf_counter()
@@ -2689,6 +2924,18 @@ def main() -> int:
         check(v_l["radius_sample"] > 0 and v_l["grid_knn"] > 0, v_l)
         production_recovery(v_out, n, core, moving, static, f"phase {label}", RECOVERY)
         by_path["fusion3d_patch192_knn" if "192" in label else "fusion3d_bf16"] = v_l
+    PHASES_S_V_S[0] += time.perf_counter() - t_new
+
+    # ---- 5., (r), (s) scored: the CPU paths from the worker process -------
+    t_new = time.perf_counter()
+    for key, st in fusion_states.items():
+        by_path[key] = fusion_small_compare(st)
+    check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
+    for st in branch_states:
+        by_path[f"{st['pipeline']}_patch96_{st['priority']}_small"] = dips_branch_compare(st)
+    cpu_pool.shutdown()
+    log(f"# the CPU paths of phases 5, (r) and (s) scored after {time.perf_counter() - t_new:.1f} "
+        "s of waiting")
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
     # ---- 7. bench.py's RGB tile through the fusion runner ----------------
@@ -2774,14 +3021,23 @@ def main() -> int:
 
     # ---- (q) two tile streams on the one card: the F2S3 runner -------------
     t_new = time.perf_counter()
-    by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 8, margin, halo, density))
+    by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 16, margin / 2, halo, density))
     PHASES_N_R_S[0] += time.perf_counter() - t_new
+
+    # ---- (x) matcher_eval at production crops; (y) the hard scene --------
+    t_new = time.perf_counter()
+    scene = scene_future.result()
+    render_pool.shutdown()
+    by_path.update(matcher_eval_phase(dev, scene))
+    by_path["hard_host"] = hard_scene_phase(dev, dips, agg, here)
+    PHASES_W_Y_S[0] += time.perf_counter() - t_new
 
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))
     log(f"# phases (j)-(m) in the main script: {new_phase_s + NEW_PHASE_S[0]:.1f} s ({card()})")
     log(f"# phases (n)-(r): {PHASES_N_R_S[0]:.1f} s ({card()})")
     log(f"# phases (s)-(v): {PHASES_S_V_S[0]:.1f} s ({card()})")
+    log(f"# phases (w)-(y): {PHASES_W_Y_S[0]:.1f} s ({card()})")
 
     # ---- 17. kernels line + 18. result line ------------------------------
     log(f"# chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernel build "

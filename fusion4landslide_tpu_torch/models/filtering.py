@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["FilteringNetwork", "PointCN"]
+from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
+
+__all__ = ["FilteringNetwork", "PointCN", "filter_correspondences"]
 
 _EPS = 1e-3
 #: Channel width of the projection and of every block.
@@ -69,3 +71,31 @@ class FilteringNetwork(nn.Module):
             x = getattr(self, f"block{i}")(x, mask)
         w = torch.relu(torch.tanh(self.output(x)[..., 0]))
         return torch.where(mask.to(torch.bool), w, 0.0)
+
+
+def filter_correspondences(filt: FilteringNetwork, corr: torch.Tensor, mask: torch.Tensor, *,
+                           rockfall: bool = False) -> dict:
+    """The reference's ``filter_input`` (outlier_classifier.py:65-105) on
+    one padded supervoxel, ``corr`` (n, 6) src xyz | tgt xyz with ``mask``
+    (n,), or on a batch of them (..., n, 6): scale by the largest valid
+    |coordinate|, score, fit a weighted Kabsch and take the residuals'
+    (lower) median over the valid rows; with >= 5 inliers (residual <
+    coeff x median, coeff 2.5 for the rockfall dataset, else 1) and a
+    median < 0.5 the fit is redone on the inliers.
+
+    Returns {'scores' (..., n), 'R' (..., 3, 3), 't' (..., 3),
+    'robust_estimate' (...)}."""
+    mask = mask.to(torch.bool)
+    scale = torch.clamp(torch.where(mask[..., None], corr.abs(), 0.0).amax(dim=(-2, -1)),
+                        min=1e-12)
+    scores = filt(corr / scale[..., None, None], mask)
+    x1, x2 = corr[..., :3], corr[..., 3:6]
+    R, t, res, _ = weighted_kabsch(x1, x2, scores, mask=mask)
+    rs = torch.sort(torch.where(mask, res, torch.inf), dim=-1).values
+    lo = torch.clamp(torch.div(mask.sum(-1) - 1, 2, rounding_mode="floor"), min=0)
+    med = torch.gather(rs, -1, lo[..., None])[..., 0]
+    inlier = mask & (res < (2.5 if rockfall else 1.0) * med[..., None])
+    robust = (inlier.sum(-1) >= 5) & (med < 0.5)
+    R2, t2, _, _ = weighted_kabsch(x1, x2, inlier.to(corr.dtype), mask=mask)
+    return {"scores": scores, "R": torch.where(robust[..., None, None], R2, R),
+            "t": torch.where(robust[..., None], t2, t), "robust_estimate": robust}

@@ -9,12 +9,28 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["weighted_kabsch", "transform_points"]
+__all__ = ["rt_to_transform", "transform_points", "transformation_residuals", "weighted_kabsch"]
 
 
 def transform_points(points, R, t) -> torch.Tensor:
     """(..., N, 3) rigidly transformed points R p + t."""
     return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def transformation_residuals(x1, x2, R, t) -> torch.Tensor:
+    """(..., N) pointwise residuals ||R x1 + t - x2|| (reference
+    src/functions.py:88-104)."""
+    return torch.linalg.norm(transform_points(x1, R, t) - x2, dim=-1)
+
+
+def rt_to_transform(R, t) -> torch.Tensor:
+    """(..., 4, 4) homogeneous transforms from (..., 3, 3) rotations and
+    (..., 3) translations."""
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
 
 
 def weighted_kabsch(x1, x2, weights=None, mask=None, *, eps: float = 1e-7):
@@ -53,7 +69,7 @@ def weighted_kabsch(x1, x2, weights=None, mask=None, *, eps: float = 1e-7):
     eye = torch.eye(3, dtype=x1.dtype, device=x1.device).expand_as(R)
     R = torch.where(valid[..., None, None], R, eye)
     t = torch.where(valid[..., None], t, torch.zeros_like(t))
-    res = torch.linalg.norm(transform_points(x1, R, t) - x2, dim=-1)
+    res = transformation_residuals(x1, x2, R, t)
     if mask is not None:
         res = torch.where(mask.to(torch.bool), res, 0.0)
     return R, t, res, valid

@@ -32,7 +32,8 @@ from fusion4landslide_tpu_torch.ops.hashgrid_cuda import xla_sqnorm
 from fusion4landslide_tpu_torch.ops.knn_cuda import MAX_K, knn_feature
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
-__all__ = ["pairwise_sqdist", "knn", "nn1", "nn1_xla_rounded", "median_nn_distance"]
+__all__ = ["pairwise_sqdist", "knn", "nn1", "nn1_xla_rounded", "median_nn_distance",
+           "radius_neighbors"]
 
 _DIFF_DIM_MAX = 8
 _QUERY_BLOCK = 4096  # query rows per distance slab, at most
@@ -282,3 +283,15 @@ def median_nn_distance(points, mask=None):
         return _median_of_first(torch.sort(d).values, n)
     valid = mask.to(torch.bool) & torch.isfinite(d)
     return _median_of_first(torch.sort(torch.where(valid, d, torch.inf)).values, valid.sum())
+
+
+def radius_neighbors(query, ref, radius, k_max: int, ref_mask=None, **kw):
+    """Up to ``k_max`` nearest neighbours within ``radius`` (the k_max
+    nearest in-radius references are kept): (idx (n, k_max), valid
+    (n, k_max) in radius and not padding, dist (n, k_max) Euclidean, inf
+    where invalid). ``kw`` goes to ``knn`` (``exclude_self``)."""
+    sqd, idx = knn(query, ref, k_max, ref_mask, **kw)
+    dist = torch.sqrt(sqd)
+    valid = torch.isfinite(dist) & (dist <= torch.as_tensor(radius, dtype=dist.dtype,
+                                                            device=dist.device))
+    return idx, valid, torch.where(valid, dist, torch.inf)

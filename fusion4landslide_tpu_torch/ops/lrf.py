@@ -23,7 +23,8 @@ import torch
 from fusion4landslide_tpu_torch.ops.eig3 import smallest_eigenvector_sym3x3
 from fusion4landslide_tpu_torch.ops.knn import knn
 
-__all__ = ["extract_lrf_patches", "lrf_patches_from_knn", "lrf_patches_from_neighbors"]
+__all__ = ["extract_lrf_patches", "lrf_patches_from_knn", "lrf_patches_from_neighbors",
+           "lrf_patches_from_samples"]
 
 _EPS = 1e-6
 
@@ -36,6 +37,13 @@ def lrf_patches_from_neighbors(query, neigh, valid, radius) -> torch.Tensor:
     radius = torch.as_tensor(radius, dtype=query.dtype, device=query.device)
     patch, v = _lrf_normalize(query, neigh, valid, valid, radius)
     return torch.where(v[..., None], patch, 0.0)
+
+
+def lrf_patches_from_samples(query, support, idx, valid, radius) -> torch.Tensor:
+    """(n, k, 3) LRF patches from pre-sampled neighbour *indices* ``idx``
+    (n, k) into ``support``: the coordinates are gathered, then
+    ``lrf_patches_from_neighbors``."""
+    return lrf_patches_from_neighbors(query, support[idx.long()], valid, radius)
 
 
 def lrf_patches_from_knn(query, support, sqd, idx, radius, priorities=None, *,

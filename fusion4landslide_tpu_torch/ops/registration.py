@@ -32,7 +32,11 @@ from typing import NamedTuple
 import torch
 
 from fusion4landslide_tpu_torch.ops.icp import ICPLoop, ICPResult, icp_point2point, start_pose
-from fusion4landslide_tpu_torch.ops.kabsch import transform_points, weighted_kabsch
+from fusion4landslide_tpu_torch.ops.kabsch import (
+    transform_points,
+    transformation_residuals,
+    weighted_kabsch,
+)
 from fusion4landslide_tpu_torch.ops.knn import knn
 from fusion4landslide_tpu_torch.ops.normals import pca_normals
 
@@ -305,6 +309,6 @@ def ransac_registration(src_corr, tgt_corr, samples=None, *,
     scores = inl.sum(1) * oks
     best = torch.argmax(scores)
     R, t, _, _ = weighted_kabsch(src_corr, tgt_corr, inl[best].to(src_corr.dtype))
-    final = (torch.linalg.norm(transform_points(src_corr, R, t) - tgt_corr, dim=-1)
+    final = (transformation_residuals(src_corr, tgt_corr, R, t)
              <= max_correspondence_distance) & m
     return RansacResult(R=R, t=t, inliers=final, n_inliers=final.sum(), best_score=scores[best])

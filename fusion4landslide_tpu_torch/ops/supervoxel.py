@@ -21,7 +21,8 @@ from fusion4landslide_tpu_torch.ops.normals import pca_normals
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 from fusion4landslide_tpu_torch.ops.voxel import grid_cells, group_by_cells, segment_sum
 
-__all__ = ["SupervoxelResult", "supervoxel_graph", "supervoxel_segmentation"]
+__all__ = ["SupervoxelResult", "supervoxel_graph", "supervoxel_segmentation",
+           "supervoxel_segmentation_pair"]
 
 
 class SupervoxelResult(NamedTuple):
@@ -101,15 +102,45 @@ def supervoxel_segmentation(points, resolution, mask=None, *,
     )._replace(overflow=overflow)
 
 
+def supervoxel_segmentation_pair(points, resolution, valid, neigh_idx, neigh_mask, normals, *,
+                                 num_sweeps: int = 24) -> SupervoxelResult:
+    """Segment B same-shape clouds (``points`` (B, n, 3), ``valid`` (B, n),
+    ``neigh_idx`` / ``neigh_mask`` (B, n, k), ``normals`` (B, n, 3); one
+    ``resolution``) in ONE batched propagation that sweeps until the last
+    cloud converges. A sweep past a cloud's fixed point changes nothing,
+    so every field equals the per-cloud call's exactly (each with a
+    leading B). The tile steps keep their per-cloud calls, as JAX's do."""
+    res = torch.as_tensor(resolution, dtype=points.dtype, device=points.device)
+    seeds = [_seed(points[b], res, valid[b].to(torch.bool), normals[b])
+             for b in range(points.shape[0])]
+    labels, seed_of_cell, seed_pn, n_cells = (torch.stack(x) for x in zip(*seeds))
+    labels = _propagate(points, normals, res, valid.to(torch.bool), neigh_idx, neigh_mask,
+                        labels, seed_pn, n_cells, num_sweeps)
+    labels, n_spv = _compact(labels, valid.to(torch.bool))
+    return SupervoxelResult(labels=labels, n_supervoxels=n_spv, seed_idx=seed_of_cell,
+                            normals=normals)
+
+
 def _supervoxel_core(points, resolution, valid, neigh_idx, neigh_mask,
                      normals=None, *, num_sweeps: int = 24) -> SupervoxelResult:
-    n = points.shape[0]
-    dev = points.device
     if normals is None:
         normals = pca_normals(points, valid, neigh_idx=neigh_idx, neigh_mask=neigh_mask)
+    labels, seed_of_cell, seed_pn, n_cells = _seed(points, resolution, valid, normals)
+    labels = _propagate(points[None], normals[None], resolution, valid[None], neigh_idx[None],
+                        neigh_mask[None], labels[None], seed_pn[None], n_cells[None],
+                        num_sweeps)
+    labels, n_spv = _compact(labels, valid[None])
+    return SupervoxelResult(labels=labels[0], n_supervoxels=n_spv[0], seed_idx=seed_of_cell,
+                            normals=normals)
 
-    # Seeds: one per occupied cell, the point nearest the cell centroid
-    # (earliest in stable distance order on ties).
+
+def _seed(points, resolution, valid, normals):
+    """Seeds, one per occupied cell: the point nearest the cell centroid
+    (earliest in stable distance order on ties). Returns each point's
+    initial label (its cell), the cells' seed points, their packed (n, 6)
+    position | normal rows and the cell count."""
+    n = points.shape[0]
+    dev = points.device
     origin = torch.where(valid[:, None], points, torch.inf).min(dim=0).values
     cells = grid_cells(points, resolution, origin)
     p2cell, n_cells, _ = group_by_cells(cells, valid)
@@ -129,35 +160,50 @@ def _supervoxel_core(points, resolution, valid, neigh_idx, neigh_mask,
         first < n, order[torch.clamp(first, max=n - 1)], n - 1
     ).to(torch.int32)
     seed_pn = torch.cat([points[seed_of_cell.long()], normals[seed_of_cell.long()]], 1)
-
     labels = torch.where(valid, p2cell, n - 1).to(torch.int32)
-    nidx = neigh_idx.long()
+    return labels, seed_of_cell, seed_pn, n_cells
+
+
+def _propagate(points, normals, resolution, valid, neigh_idx, neigh_mask, labels, seed_pn,
+               n_cells, num_sweeps: int):
+    """VCCS label propagation over B clouds at once ((B, n, .) inputs,
+    (B,) ``n_cells``): every point adopts the candidate label (its own or
+    a neighbour's) whose seed is VCCS-closest, until no label of any
+    cloud changes or ``num_sweeps`` sweeps ran."""
+    B, n = labels.shape
+    dev = points.device
+    # Row offsets of each cloud in the flattened (B * n) tables.
+    off = (torch.arange(B, device=dev) * n)[:, None, None]
+    nidx = neigh_idx.long() + off
+    seed_flat = seed_pn.reshape(B * n, 6)
     ok_base = torch.cat(
-        [torch.ones((n, 1), dtype=torch.bool, device=dev), neigh_mask], 1
+        [torch.ones((B, n, 1), dtype=torch.bool, device=dev), neigh_mask], 2
     )
     it = 0
     while it < num_sweeps:
-        cand = torch.cat([labels[:, None], labels[nidx]], 1)
-        cand_pn = seed_pn[cand.long()]
+        cand = torch.cat([labels[..., None], labels.reshape(-1)[nidx]], 2)
+        cand_pn = seed_flat[cand.long() + off]
         cost = _vccs(
-            points[:, None, :], normals[:, None, :],
+            points[:, :, None, :], normals[:, :, None, :],
             cand_pn[..., :3], cand_pn[..., 3:], resolution,
         )
-        cost = torch.where(ok_base & (cand < n_cells), cost, torch.inf)
-        best = cost.argmin(dim=1, keepdim=True)
-        new = torch.where(valid, torch.gather(cand, 1, best)[:, 0], n - 1)
+        cost = torch.where(ok_base & (cand < n_cells[:, None, None]), cost, torch.inf)
+        best = cost.argmin(dim=2, keepdim=True)
+        new = torch.where(valid, torch.gather(cand, 2, best)[..., 0], n - 1)
         changed = bool((new != labels).any())
         labels = new
         it += 1
         if not changed:
             break
+    return labels
 
-    used = torch.zeros((n,), dtype=torch.int32, device=dev).scatter_reduce(
-        0, labels.long(), valid.to(torch.int32), reduce="amax"
+
+def _compact(labels, valid):
+    """Labels of (B, n) clouds compacted to 0..K-1 (-1 masked), and K."""
+    B, n = labels.shape
+    used = torch.zeros((B, n), dtype=torch.int32, device=labels.device).scatter_reduce(
+        1, labels.long(), valid.to(torch.int32), reduce="amax"
     )
-    remap = torch.cumsum(used, 0) - 1
-    labels = torch.where(valid, remap[labels.long()], -1).to(torch.int32)
-    return SupervoxelResult(
-        labels=labels, n_supervoxels=used.sum(), seed_idx=seed_of_cell,
-        normals=normals,
-    )
+    remap = torch.cumsum(used, 1) - 1
+    labels = torch.where(valid, torch.gather(remap, 1, labels.long()), -1).to(torch.int32)
+    return labels, used.sum(1)

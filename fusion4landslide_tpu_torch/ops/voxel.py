@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["grid_cells", "group_by_cells", "lexsort3", "segment_sum", "voxel_downsample"]
+__all__ = ["grid_cells", "group_by_cells", "lexsort3", "segment_mean", "segment_sum",
+           "voxel_downsample"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -63,6 +64,16 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tens
     acc = torch.zeros(shape, dtype=acc_dtype, device=values.device)
     acc.index_add_(0, seg[keep], values[keep].to(acc_dtype))
     return acc.to(values.dtype)
+
+
+def segment_mean(values: torch.Tensor, seg: torch.Tensor, num: int):
+    """Mean of ``values`` rows per segment: (means (num, ...), counts
+    (num,)); the count is clamped at 1 in the divide, so empty segments
+    read 0."""
+    counts = segment_sum(torch.ones(values.shape[:1], dtype=values.dtype,
+                                    device=values.device), seg, num)
+    sums = segment_sum(values, seg, num)
+    return sums / torch.clamp(counts, min=1.0)[..., None], counts
 
 
 def voxel_downsample(points, voxel_size, mask=None, origin=None):

@@ -49,13 +49,14 @@ import torch
 from fusion4landslide_tpu_torch.device import resolve_device
 from fusion4landslide_tpu_torch.io.results import save_dvfms, save_txt, visual_clamp_magnitude
 from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
+from fusion4landslide_tpu_torch.models.filtering import filter_correspondences
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, nn1_spatial
 from fusion4landslide_tpu_torch.ops.hashgrid_cuda import (
     block_centres,
     radius_sample_blocks,
     window_prologue,
 )
-from fusion4landslide_tpu_torch.ops.kabsch import transform_points, weighted_kabsch
+from fusion4landslide_tpu_torch.ops.kabsch import transform_points
 from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
 from fusion4landslide_tpu_torch.ops.lrf import extract_lrf_patches, lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
@@ -205,12 +206,10 @@ def filter_supervoxel_buckets(filt, correspondences, member_idx, member_mask, *,
     f2s3.py:340-366), chunked over S; the (chunk, P, 6) correspondence
     slab is gathered per chunk.
 
-    Per supervoxel: scale by the largest |coordinate|, score, fit a
-    weighted Kabsch, take the residual median; with >= 5 inliers (residual
-    < coeff x median; coeff 2.5 for the rockfall dataset, else 1) and a
-    median < 0.5 the fit is redone on the inliers, every member's target
-    becomes the rigid prediction and every member is kept; otherwise the
-    matched target stays and only scores > 0.99999 are kept.
+    Per supervoxel ``models.filtering.filter_correspondences``: where its
+    estimate is robust, every member's target becomes the rigid prediction
+    and every member is kept; otherwise the matched target stays and only
+    scores > 0.99999 are kept.
 
     Returns (new_tgt (S, P, 3), keep (S, P), scores (S, P), robust (S,)).
     Chunks with no member are skipped: their rows are masked out of every
@@ -222,7 +221,6 @@ def filter_supervoxel_buckets(filt, correspondences, member_idx, member_mask, *,
     keep = torch.zeros((S, P), dtype=torch.bool, device=dev)
     scores = torch.zeros((S, P), dtype=torch.float32, device=dev)
     robust = torch.zeros((S,), dtype=torch.bool, device=dev)
-    coeff = 2.5 if rockfall else 1.0
     live = member_mask.any(dim=1)
     for s0 in range(0, S, _S_CHUNK):
         sl = slice(s0, s0 + _S_CHUNK)
@@ -230,22 +228,10 @@ def filter_supervoxel_buckets(filt, correspondences, member_idx, member_mask, *,
             continue
         m = member_mask[sl]
         c = correspondences[member_idx[sl].long()]  # (sc, P, 6)
-        scale = torch.clamp(
-            torch.where(m[..., None], c.abs(), 0.0).amax(dim=(1, 2)), min=1e-12
-        )
-        sc = filt(c / scale[:, None, None], m)
-        x1, x2 = c[..., :3], c[..., 3:6]
-        R, t, res, _ = weighted_kabsch(x1, x2, sc, mask=m)
-        rs = torch.sort(torch.where(m, res, torch.inf), dim=1).values
-        lo = torch.clamp(torch.div(m.sum(1) - 1, 2, rounding_mode="floor"), min=0)
-        med = torch.gather(rs, 1, lo[:, None])[:, 0]
-        inlier = m & (res < coeff * med[:, None])
-        rob = (inlier.sum(1) >= 5) & (med < 0.5)
-        R2, t2, _, _ = weighted_kabsch(x1, x2, inlier.to(torch.float32), mask=m)
-        R = torch.where(rob[:, None, None], R2, R)
-        t = torch.where(rob[:, None], t2, t)
-        pred = transform_points(x1, R, t)
-        new_tgt[sl] = torch.where(rob[:, None, None], pred, x2)
+        f = filter_correspondences(filt, c, m, rockfall=rockfall)
+        sc, rob = f["scores"], f["robust_estimate"]
+        pred = transform_points(c[..., :3], f["R"], f["t"])
+        new_tgt[sl] = torch.where(rob[:, None, None], pred, c[..., 3:6])
         keep[sl] = torch.where(rob[:, None], m, m & (sc > _KEEP_SCORE))
         scores[sl] = sc
         robust[sl] = rob

@@ -5,8 +5,9 @@ Port of ``fusion4landslide_tpu.pipelines.fusion``:
 - ``global_matches_3d`` (the ungated search-then-gate feature 1-NN on
   kernel 3, reference base:2756-2889), ``coarse_match_superpoints``
   (superpoint mutual matching under the magnitude gate, base:2966-2999,
-  scanned over target chunks), ``aggregate_superpoints``
-  (ClusterFeatureNet over member buckets, base:2561-2656),
+  scanned over target chunks), ``aggregate_superpoints`` (re-exported
+  from ``models.aggregation``: ClusterFeatureNet over member buckets,
+  base:2561-2656),
   ``coarse_match_2d_votes`` (base:3019-3070) and ``fine_match_pairs``
   (quality gate + SVD + ICP, base:3254-3436, with one correspondence
   channel or two: 3D matches and 3D matches lifted from 2D pixel matches,
@@ -70,6 +71,7 @@ from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_graph, supervoxel_segmentation
 from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
 from fusion4landslide_tpu_torch.pipelines.driver import load_or_compute_features
+from fusion4landslide_tpu_torch.models.aggregation import aggregate_superpoints
 from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
 from fusion4landslide_tpu_torch.pipelines.f2s3 import compute_dips_features
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
@@ -148,32 +150,6 @@ def coarse_match_superpoints(feat_s, coord_s, valid_s, feat_t, coord_t, valid_t,
     if mutual:
         valid = valid & (src_of_tgt[best_i] == torch.arange(S, device=dev))
     return best_i.to(torch.int32), valid
-
-
-def aggregate_superpoints(agg, feat_arr, coords, member_idx, member_mask, *,
-                          agg_max_points: int, s_chunk: int = 128):
-    """ClusterFeatureNet over supervoxel buckets, chunked over S, with a
-    strided member subsample bounding the quadratic attention. Chunks
-    with no live member are skipped (their features are never read)."""
-    S, P = member_idx.shape
-    if P > agg_max_points:
-        stride = -(-P // agg_max_points)
-        mi = member_idx[:, ::stride][:, :agg_max_points]
-        mm = member_mask[:, ::stride][:, :agg_max_points]
-    else:
-        mi, mm = member_idx, member_mask
-    spt_feat = torch.zeros((S, 64), dtype=torch.float32, device=feat_arr.device)
-    live = mm.view(-1, mm.shape[1]).any(-1)
-    for s0 in range(0, S, s_chunk):
-        if not bool(live[s0:s0 + s_chunk].any()):
-            continue
-        mic, mmc = mi[s0:s0 + s_chunk].long(), mm[s0:s0 + s_chunk]
-        feats = feat_arr[mic] * mmc[..., None]
-        spt_feat[s0:s0 + s_chunk] = agg(feats, mmc)
-    # Centroid over the FULL member set (not the strided subsample).
-    w = member_mask.to(coords.dtype)[..., None]
-    cent = (coords[member_idx.long()] * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
-    return spt_feat, cent
 
 
 class FinePairResult(NamedTuple):
@@ -362,11 +338,12 @@ def _check_ported(cfg, image_data) -> None:
 
 
 def _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s, lab_t,
-                   pair_src, pair_tgt, ch1_idx, ch1_valid) -> None:
+                   pair_src, pair_tgt, ch1_idx, ch1_valid, rng_seed: int) -> None:
     """The reference's ``visualize_patch`` / ``visualize_matches_within_patch``
     figures of one level's coarse pairs (base:3159-3231, :4279-4403) under
-    ``<run>/visualization``, as the JAX host tile writes them."""
-    vis_idx = patch_visualization_requests(cfg, len(pair_src), seed=0)
+    ``<run>/visualization``, as the JAX host tile writes them; with
+    ``random_choice`` the pairs are drawn with the tile's ``rng_seed``."""
+    vis_idx = patch_visualization_requests(cfg, len(pair_src), seed=rng_seed)
     if not len(vis_idx):
         return
     vis_dir = osp.join(out_root, "visualization")
@@ -821,7 +798,7 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         lab_R[pair_src], lab_t_arr[pair_src] = fR, ft
         lab_rmse[pair_src], lab_ok[pair_src] = frmse, fvalid
         _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s, lab_t,
-                       pair_src, pair_tgt, ch1_idx, ch1_valid)
+                       pair_src, pair_tgt, ch1_idx, ch1_valid, rng_seed)
 
         # 7. Dense per-point assignment, merged by level priority.
         pt_label = np.where(s_p2v < s_nv, lab_s[np.clip(s_p2v, 0, max(s_nv - 1, 0))], -1)

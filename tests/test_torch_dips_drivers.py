@@ -17,10 +17,15 @@ TILING = {k: v for k, v in SMALL.items() if k.startswith(("min", "tile", "halo")
 
 @pytest.mark.parametrize("method, options", [
     ("fusion", {"feat_patch_points": 192, "feat_k_max": 512, "feat_dtype": "bfloat16"}),
-    ("f2s3", {"feat_patch_points": 192, "feat_sample_priority": "random", "use_mesh": True}),
     ("f2s3", {"feat_dtype": "bfloat16"}),
 ])
 def test_drivers_run_the_dips_options(tmp_path, seeded_weights, method, options):
+    run_driver_with_options(tmp_path, seeded_weights, method, options)
+
+
+def run_driver_with_options(tmp_path, seeded_weights, method: str, options: dict) -> None:
+    """``method``'s driver on the two-tile epoch with ``options`` added to
+    its shipped config; both tiles' tables finite."""
     from fusion4landslide_tpu_torch import main_f2s3, main_fusion
 
     shipped = "f2s3_brienz.yaml" if method == "f2s3" else "fusion_3d_brienz.yaml"

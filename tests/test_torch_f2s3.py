@@ -253,16 +253,3 @@ def test_f2s3_tile_step_matches_emulated_jax(tile, params, port_out, tpu_branch)
     cj, ct = jo.c2c[:n].astype(np.float64), to.c2c[:n].numpy().astype(np.float64)
     assert (np.abs(cj - ct) <= 1e-5).mean() >= 0.995
     np.testing.assert_allclose(cj**2, ct**2, atol=8e-6)
-
-
-def test_unported_f2s3_options_raise(tile, params):
-    """bf16 descriptors and patch sizes off the multiples of 128 are
-    ported: they run (``test_torch_dips_branches.py`` and
-    ``test_torch_dips_bf16.py`` hold them to JAX). A descriptor dtype the
-    port has no trunk for still raises."""
-    _, _, td, tf = params
-    n = tile["n"]
-    out = _port_step(tile, td, tf, **{**STATICS, "feat_dtype": "bfloat16", "patch_points": 64})
-    assert out.keep[:n].any() and torch.isfinite(out.new_tgt[:n]).all()
-    with pytest.raises(ValueError, match="feat_dtype"):
-        _port_step(tile, td, tf, **{**STATICS, "feat_dtype": "float16"})

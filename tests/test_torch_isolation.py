@@ -3,7 +3,9 @@ every module of the port (the drivers ``main_fusion``, ``main_f2s3``,
 ``main_rgb_guided`` and ``main_piecewise_icp`` and the learned image
 matchers, the superpoint partition, the registration solvers, classic
 LoFTR, the E57 reader, the native tiler binding and the figure writers
-among them, and the matcher trainers). Every module also imports without matplotlib (the card's
+among them, the matcher trainers, and the measuring modules ``parity_check``
+and ``matcher_eval``), nor the repository's ``tools/`` and ``bench.py``.
+Every module also imports without matplotlib (the card's
 machine has none): the figure writers import it inside their functions."""
 
 import subprocess
@@ -31,15 +33,16 @@ for name in ("config", "main_fusion", "main_f2s3", "io.ply", "io.las", "io.image
              "image.roma", "image.crop", "image.flax_bridge", "ops.superpoint",
              "ops.partition_io", "ops.registration", "image.loftr", "image.loftr_classic",
              "io.e57", "tiling.native", "utils.visualization", "utils.metrics",
-             "utils.timing", "utils.profiling", "image.eloftr_train", "image.roma_train"):
+             "utils.timing", "utils.profiling", "image.eloftr_train", "image.roma_train",
+             "parity_check", "matcher_eval"):
     assert "fusion4landslide_tpu_torch." + name in names, name
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(
     m for m, mod in sys.modules.items()
     if mod is not None
-    and (m == "fusion4landslide_tpu"
-         or m.startswith(("fusion4landslide_tpu.", "jax", "flax", "matplotlib")))
+    and (m in ("fusion4landslide_tpu", "bench", "synth_scene", "tools")
+         or m.startswith(("fusion4landslide_tpu.", "jax", "flax", "matplotlib", "tools.")))
 )
 print(len(names), leaked)
 assert not leaked, leaked
@@ -69,3 +72,4 @@ def test_port_sources_name_no_jax_import():
                     assert not s.startswith(("import matplotlib", "from matplotlib")), (f, s)
                 mod = s.split()[1]
                 assert not (mod == "fusion4landslide_tpu" or mod.startswith("fusion4landslide_tpu.")), (f, s)
+                assert mod.split(".")[0] not in ("tools", "bench", "synth_scene"), (f, s)
