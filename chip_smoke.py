@@ -13,14 +13,19 @@ Phases (each prints its own lines; any failure exits non-zero):
 2. kernel 2 (grid kNN) against its plain PyTorch version on the card,
    bit for bit: on a production-density grid (k = 1, 3 and 32, with and
    without ``exclude_self``), on a near-tie cloud (duplicated refs and
-   one-ulp neighbours) and on the pixel-space launch of the production RGB
-   tile (its projected source voxels against its pixel matches, 5-pixel
-   cells, z = 0); timed at the production 3D shape (524 288 queries,
-   k = 1, ``exclude_self``) and at the pixel-space shape;
+   one-ulp neighbours), on the source cloud of phase 7's RGB tile (1.31 M
+   queries, k = 1) and on that tile's pixel-space launch (its ~1.1 M
+   projected source voxels against its ~605 k pixel matches, 5-pixel
+   cells, z = 0), the last two on windows fitted as the step fits them;
+   timed at the production 3D shape (524 288 queries, k = 1,
+   ``exclude_self``), at the RGB tile's source shape and at its
+   pixel-space shape;
 3. kernel 1 (radius sampler) against its plain version: P = 256
-   ``'random'`` and P = 128 ``'distance'``, each timed at its main-path
-   launch shape: 128 blocks at P = 256 ``'random'`` (DIPs) and every
-   block at P = 128 ``'distance'`` (the F2S3 supervoxel graph);
+   ``'random'`` and P = 128 ``'distance'`` on every 8th block and the
+   widest one, on the production cloud and on phase 7's source cloud
+   (whose widest windows pass 32 768 positions: fitted), each timed at
+   its main-path launch shape: 128 blocks at P = 256 ``'random'`` (DIPs)
+   and every block at P = 128 ``'distance'`` (the supervoxel graph);
 4. kernel 3 (feature kNN) against its plain version, bit for bit: the
    F2S3 tile's shape (524 288 x 524 288 x 64, k = 1, refs past 489 362
    masked) and 65 536 x 65 536 x 64 at k = 8 with ``exclude_self``, on
@@ -36,10 +41,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    (``run_f2s3_tile``, on a tile above ``median_nn_distance``'s 4096-point
    grid threshold), and the RGB+3D fusion step (``lifting_type``
    ``nn_search`` and ``interpolation``) on a small tile seen by a 512^2
-   camera; the fusion steps' CPU paths (and phase (r)'s and (s)'s) run in
-   a worker process of their own (``spawn``, two cores left to the card's
-   process) while the card goes on, and are scored after phase (u)'s
-   production fusion tile;
+   camera; every small tile's CPU path (and those of phases (j), (l),
+   (r), (s) and (u)) runs in a worker process of its own (``spawn``, two
+   cores left to the card's process) while the card goes on: the fusion
+   steps', (r)'s and (s)'s are scored after phase (u)'s production fusion
+   tile, the F2S3 tiles', (j)'s, (l)'s and (u)'s after phase (v);
 6. one production-shaped tile (a 250 000-point core at 100 pts/m^2 with
    symmetric 10 m margins, ~490 k points per cloud, bucket 524288) through
    ``run_fusion3d_tiles`` with the ``fusion_3d_brienz.yaml`` statics and
@@ -47,14 +53,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    step, finite outputs, and recovery of the planted displacement between
    the sound and the broken readings of random-init descriptors (see
    ``RECOVERY``);
-7. the RGB+3D fusion step on ``bench.py``'s RGB tile (a 250 000-point
-   core, source margin 5 m, target margin 10 m, a 4096^2 nadir camera
-   and pixel matches for half the source points) through
-   ``run_fusion3d_tiles`` with an ``image_kit_fn`` and the
-   ``fusion_brienz.yaml`` statics: asserts kernels 1 and 2 launched during
-   the step, the result tables, and ``bench.py``'s own recovery targets
-   (see ``RECOVERY_RGB``); prints stage times, launches, overflow,
-   ``n_c2d`` and peak memory;
+7. the RGB+3D fusion step on ``bench.py``'s ``e2e`` tile at the shipped
+   size (``RGB_TILE``: a 1 000 000-point core, source margin 5 m, target
+   margin 10 m, the +-20 m halo; 1 210 554 / 1 440 062 points in buckets
+   1 310 720 / 1 572 864; a 4096^2 nadir camera and 605 277 pixel
+   matches, half the source points; built on a thread from the start)
+   through ``run_fusion3d_tiles`` with an ``image_kit_fn`` and the
+   ``fusion_brienz.yaml`` statics in float32: asserts kernels 1 and 2
+   launched during the step, no window overflow, the result tables, and
+   ``bench.py``'s own recovery targets (see ``RECOVERY_RGB``); prints
+   the clouds' sizes and buckets, ``sv_cap`` / ``sv_cap_tgt``, stage
+   times, launches, overflow by kernel, ``n_dropped``, ``n_c2d``, peak
+   memory and the free memory after the step;
 8. the 3D-only tile through ``run_f2s3_tiles`` with the ``f2s3_brienz.yaml``
    statics and seeded random weights: asserts all three kernels launched
    during the step, finite outputs, the result tables, and recovery
@@ -186,15 +196,19 @@ Phases (w)-(y): (w) the host fusion tile (``parity_check.run_path``) on
    to that test's bars (assigned > 0.7, static median < 5 mm, moving
    median < 10 mm), with its window overflow and launches; (x) and (y)
    run after phase (q);
-17. a ``kernels`` JSON line: launches on the ``main_f2s3`` driver run
-   (and per path), time, the time before the kernel's redesign
+17. a ``kernels`` JSON line: launches on phase 7's RGB tile
+   (``launches_path``; kernel 3, which that path does not run, on phase
+   8's F2S3 tile) and per path, time (and at phase 7's launch shapes,
+   ``rgb_tile_*``), the time before the kernel's redesign
    (``ms_before``), plain-version time, the least time the card could
    take (bound), what bounds it, and a library yardstick where one
    exists;
 18. last line: ``{"ok": true, "device": {...}}``.
 
-It imports neither ``jax`` nor ``fusion4landslide_tpu``, and never falls
-back to the CPU or to the plain versions.
+Lines ``# elapsed ... s: <phase>`` give the seconds since the start at
+the main phase boundaries. It imports neither ``jax`` nor
+``fusion4landslide_tpu``, and never falls back to the CPU or to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -207,7 +221,7 @@ import sys
 import tempfile
 import time
 import warnings
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -290,6 +304,37 @@ RECOVERY_CLI_F2S3 = {"kept": 0.0015, "static_err_m": 2.9, "moving_err_m": 3.1}
 #: gate and nothing is assigned. The assignment floor lies between the
 #: two; the error floors are alarms at ~6x and ~4x the sound reading.
 RECOVERY_SUPERPOINT = {"static_assigned": 0.03, "static_err_m": 0.05, "moving_err_m": 0.3}
+#: The fusion runner's settings of phases 6 and 7: the
+#: ``fusion_3d_brienz.yaml`` / ``fusion_brienz.yaml`` statics, with
+#: ``bench.py``'s DIPs and supervoxel sizes spelled out.
+FUSION_CFG = {
+    "dataset": "brienz_tls",
+    "voxel_size_init": 0.1,
+    "level_of_superpoint": [1, 2, 3],
+    "num_min_matches_for_small_patch": 10,
+    "remove_low_quality_patch_matches": True,
+    "num_min_matches_for_quality_check": 10,
+    "thres_dist_diff": 0.5,
+    "thres_inlier_ratio": 0.15,
+    "coarse_refinement_3d_type": "nn_mutual",
+    "num_min_fine_match": 10,
+    "icp_refine": True,
+    "output_tgt2src": False,
+    "assign_type": "assign_then_nn",
+    "icp_threshold": 0.1,
+    "max_magnitude": 5,
+    "feat_patch_points": 256,
+    "feat_chunk": 2048,
+    "member_cap": 512,
+    "agg_max_points": 512,
+    "fine_max_matches": 256,
+    "global_matching_gated": True,
+}
+#: bench.py's RGB headline tile (its ``e2e`` mode's defaults: ``BENCH_N``
+#: core points, source margin ``max_magnitude``, target margin twice that,
+#: the +-20 m halo; ``synth.synth_rgb_tile``): ~1.21 M / 1.44 M points in
+#: buckets 1 310 720 / 1 572 864 and ~605 k pixel matches.
+RGB_TILE = dict(n_core=1_000_000, src_margin=5.0, tgt_margin=10.0, halo=20.0)
 #: fusion_brienz.yaml's settings that the fusion runner reads (the RGB
 #: channel on bench.py's 4096^2 camera).
 RGB_CFG = {
@@ -332,6 +377,11 @@ F2S3_CFG = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_elapsed(t_start: float, where: str) -> None:
+    """A line with the seconds since the run started, at a phase boundary."""
+    log(f"# elapsed {time.perf_counter() - t_start:.1f} s: {where}")
 
 
 def check(ok, what) -> None:
@@ -418,9 +468,33 @@ def image_inputs(src: np.ndarray, pix: np.ndarray, K: np.ndarray, E: np.ndarray)
     )
 
 
+def cpu_run(fn, *args):
+    """``fn(cpu, *args)`` in the worker process, leaving two cores to the
+    process driving the card."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+    return fn(torch.device("cpu"), *args)
+
+
+def split_run(dev, pool, fn, *args) -> dict:
+    """``fn(dev, *args)`` on the card, its launches read just after it,
+    and ``fn(cpu, *args)`` submitted to ``pool`` (the worker process)
+    before it: the state a ``*_compare`` function scores."""
+    future = pool.submit(cpu_run, fn, *args)
+    reset_launches()
+    card = fn(dev, *args)
+    torch.cuda.synchronize()
+    return dict(card=card, cpu=future, launches=read_launches())
+
+
+def _on_host(t):
+    """A NamedTuple's tensor fields moved to the CPU, as numpy arrays."""
+    return _numpy_fields(t._replace(**{k: v.cpu() for k, v in t._asdict().items()
+                                       if torch.is_tensor(v)}))
+
+
 def fusion_small_run(d, global_gated: bool, lifting: str | None, step_kw: dict) -> tuple:
-    """The fusion step on a small tile on device ``d``: (result with CPU
-    tensors, source points, the RGB tile's core mask or None). With
+    """The fusion step on a small tile on device ``d``: (result with numpy
+    fields, source points, the RGB tile's core mask or None). With
     ``lifting`` the step runs the RGB channel on ``synth_small_rgb_tile``;
     ``step_kw`` overrides the step's statics."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
@@ -448,28 +522,16 @@ def fusion_small_run(d, global_gated: bool, lifting: str | None, step_kw: dict) 
            for k, v in images.items()},
         **small,
     )
-    if d.type == "cuda":
-        torch.cuda.synchronize()
-    return o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)}), ns, core
-
-
-def fusion_small_cpu_side(global_gated: bool, lifting: str | None, step_kw: dict):
-    """``fusion_small_run`` on the CPU path in a worker process (numpy
-    result), leaving two cores to the process driving the card."""
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
-    return _numpy_fields(fusion_small_run(torch.device("cpu"), global_gated, lifting, step_kw)[0])
+    return _on_host(o), ns, core
 
 
 def fusion_small_card_side(dev, pool, global_gated: bool, lifting: str | None = None,
                            **step_kw) -> dict:
-    """The fusion step on a small tile on the card (its launches read just
-    after it), the CPU path submitted to ``pool``; ``fusion_small_compare``
-    scores the two. ``step_kw`` overrides the step's statics (phase (r):
-    ``nested_levels=False``, where the assigned sets must be equal)."""
-    future = pool.submit(fusion_small_cpu_side, global_gated, lifting, step_kw)
-    reset_launches()
-    g, ns, core = fusion_small_run(dev, global_gated, lifting, step_kw)
-    return dict(g=g, ns=ns, core=core, launches=read_launches(), future=future,
+    """``split_run`` of the fusion step on a small tile;
+    ``fusion_small_compare`` scores the two. ``step_kw`` overrides the
+    step's statics (phase (r): ``nested_levels=False``, where the assigned
+    sets must be equal)."""
+    return dict(split_run(dev, pool, fusion_small_run, global_gated, lifting, step_kw),
                 global_gated=global_gated, lifting=lifting, step_kw=step_kw)
 
 
@@ -477,9 +539,9 @@ def fusion_small_compare(state: dict) -> dict:
     """The small fusion step, card vs the port's CPU path, scored as
     ``tools/parity_check.py`` scores two paths. Returns the card run's
     launches."""
-    g, ns, core, launches = (state[k] for k in ("g", "ns", "core", "launches"))
+    (g, ns, core), launches = state["card"], state["launches"]
     global_gated, lifting, step_kw = state["global_gated"], state["lifting"], state["step_kw"]
-    c = _tensor_fields(state["future"].result())
+    g, c = _tensor_fields(g), _tensor_fields(state["cpu"].result()[0])
     vg, vc = g.valid[:ns].numpy(), c.valid[:ns].numpy()
     common = vg & vc
     gap = np.linalg.norm(g.moved[:ns].numpy()[common] - c.moved[:ns].numpy()[common], axis=1)
@@ -514,28 +576,26 @@ def fusion_small_compare(state: dict) -> dict:
     return launches
 
 
-def f2s3_small_parity(dev) -> dict:
-    """The F2S3 step on a small tile, card vs the port's CPU path, scored
-    as ``tests/test_torch_f2s3.py`` scores the port against JAX."""
+def f2s3_small_run(d):
+    """The F2S3 step on a small tile on device ``d`` (numpy fields)."""
     from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
     from fusion4landslide_tpu_torch.pipelines.f2s3_device import f2s3_tile_step
 
-    sb, sm, tb, tm, ns, _ = padded_small_tile(1.5, 1.5)
+    sb, sm, tb, tm, _, _ = padded_small_tile(1.5, 1.5)
     small = dict(patch_points=128, chunk=512, k_neighbors=30, sv_cap=256, member_cap=256)
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        dm, _ = seeded_models(0, d)
-        reset_launches()
-        outs.append(f2s3_tile_step(
-            dm, seeded_filter(0, d), torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
-            torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d), 5.0, 0.1,
-            device=d, **small,
-        ))
-        if d is dev:
-            torch.cuda.synchronize()
-            launches = read_launches()
-    g, c = (o._replace(**{k: v.cpu() for k, v in o._asdict().items() if torch.is_tensor(v)})
-            for o in outs)
+    dm, _ = seeded_models(0, d)
+    return _on_host(f2s3_tile_step(
+        dm, seeded_filter(0, d), torch.from_numpy(sb).to(d), torch.from_numpy(sm).to(d),
+        torch.from_numpy(tb).to(d), torch.from_numpy(tm).to(d), 5.0, 0.1, device=d, **small))
+
+
+def f2s3_small_compare(state: dict) -> dict:
+    """The F2S3 step on a small tile, card vs the port's CPU path, scored
+    as ``tests/test_torch_f2s3.py`` scores the port against JAX. Returns
+    the card run's launches."""
+    ns = padded_small_tile(1.5, 1.5)[4]
+    launches = state["launches"]
+    g, c = _tensor_fields(state["card"]), _tensor_fields(state["cpu"].result())
     lab = c.labels[:ns].numpy()
     nn_same = (g.nn_tgt[:ns] == c.nn_tgt[:ns]).all(1).numpy()
     same = ~np.isin(lab, lab[~nn_same & (lab >= 0)])
@@ -566,36 +626,45 @@ def f2s3_small_parity(dev) -> dict:
     return launches
 
 
-def f2s3_host_small_parity(dev) -> dict:
-    """The host F2S3 tile (``run_f2s3_tile``) on a 5.6 k-point tile, card
-    vs the port's CPU path, scored as ``tests/test_torch_f2s3_host.py``
-    scores the port against JAX; the card run's launches are read just
-    after it."""
-    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
-    from fusion4landslide_tpu_torch.ops.knn import knn
-    from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
+def _host_small_tile():
     from fusion4landslide_tpu_torch.synth import synth_split_tile
 
     src, tgt, _, _ = synth_split_tile(2000, 1.5, 1.5, halo=2.0)
-    n = src.shape[0]
-    check(n > 4096, "the host parity tile must take median_nn_distance's grid loop")
+    return src, tgt
+
+
+def f2s3_host_small_run(d):
+    """The host F2S3 tile (``run_f2s3_tile``) on a 5.6 k-point tile on
+    device ``d``: (its result, the result tables written, the C2C-combined
+    table's C2C column)."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
+    from fusion4landslide_tpu_torch.pipelines.f2s3 import run_f2s3_tile
+
+    src, tgt = _host_small_tile()
     c2c_name = os.path.join("combined_with_c2c", "f2s3_dvfms_combined_with_c2c_of_tile_0.txt")
-    outs, written, c2c = [], [], []
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
-        for d in (dev, torch.device("cpu")):
-            dm, _ = seeded_models(0, d)
-            cfg = dict(F2S3_CFG, output_dir=os.path.join(tmp, d.type), output_folder="run")
-            reset_launches()
-            outs.append(run_f2s3_tile(cfg, dm, seeded_filter(0, d), src, tgt, device=d))
-            if d is dev:
-                torch.cuda.synchronize()
-                launches = read_launches()
-            results = os.path.join(tmp, d.type, "run", "results")
-            written.append(sorted(os.path.relpath(os.path.join(r, f), results)
-                                  for r, _, fs in os.walk(results) for f in fs))
-            c2c.append(np.loadtxt(os.path.join(results, c2c_name)).reshape(-1, 4)[:, 3])
-    g, c = outs
+        dm, _ = seeded_models(0, d)
+        cfg = dict(F2S3_CFG, output_dir=tmp, output_folder="run")
+        out = run_f2s3_tile(cfg, dm, seeded_filter(0, d), src, tgt, device=d)
+        results = os.path.join(tmp, "run", "results")
+        written = sorted(os.path.relpath(os.path.join(r, f), results)
+                         for r, _, fs in os.walk(results) for f in fs)
+        c2c = np.loadtxt(os.path.join(results, c2c_name)).reshape(-1, 4)[:, 3]
+    return out, written, c2c
+
+
+def f2s3_host_small_compare(state: dict) -> dict:
+    """The host F2S3 tile on its 5.6 k-point tile, card vs the port's CPU
+    path, scored as ``tests/test_torch_f2s3_host.py`` scores the port
+    against JAX. Returns the card run's launches."""
+    from fusion4landslide_tpu_torch.ops.knn import knn
+
+    src, _ = _host_small_tile()
+    n = src.shape[0]
+    check(n > 4096, "the host parity tile must take median_nn_distance's grid loop")
+    launches = state["launches"]
+    (g, g_written, g_c2c), (c, c_written, c_c2c) = state["card"], state["cpu"].result()
     # Feature 1-NN on each side's descriptors; rows that differ must be
     # near-ties of the CPU side (descriptor distance gap within 5e-5).
     fg, fc = torch.from_numpy(g["src_feat"]), torch.from_numpy(c["src_feat"])
@@ -631,8 +700,8 @@ def f2s3_host_small_parity(dev) -> dict:
         "keep_overlap_frac": float((kg & kc_).sum()) / max(int(kg.sum()), int(kc_.sum()), 1),
         "median_delta_tgt_m": float(np.median(gap)) if gap.size else None,
         "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
-        "c2c_within_1e-5_frac": float((np.abs(c2c[0] - c2c[1])[same] <= 1e-5).mean()),
-        "tables_equal": written[0] == written[1],
+        "c2c_within_1e-5_frac": float((np.abs(g_c2c - c_c2c)[same] <= 1e-5).mean()),
+        "tables_equal": g_written == c_written,
         "launches": launches,
     }
     log(f"# phase small-tile host F2S3 parity (run_f2s3_tile, card vs CPU path): "
@@ -653,11 +722,17 @@ def fusion_rgb_tile(dev, cfg: dict, dips, agg, tile: tuple, label: str = "RGB ti
     ``bench.py``'s recovery targets (``RECOVERY_RGB``); returns the
     launches read just after the step."""
     from fusion4landslide_tpu_torch.ops.segments import bucket_size
-    from fusion4landslide_tpu_torch.parallel.pipeline import run_fusion3d_tiles
+    from fusion4landslide_tpu_torch.parallel.pipeline import fusion3d_statics, run_fusion3d_tiles
     from fusion4landslide_tpu_torch.synth import PLANTED_SHIFT
 
     src, tgt, core, moving, pix, K, E, m_per_px = tile
     n = src.shape[0]
+    N, M = bucket_size(n), bucket_size(tgt.shape[0])
+    statics = fusion3d_statics(cfg, N, M, with_image=True)
+    log(f"# {label}: src {n} pts in bucket {N}, tgt {tgt.shape[0]} pts in bucket {M}, "
+        f"{pix.shape[0]} pixel matches in bucket {bucket_size(pix.shape[0])}, sv_cap "
+        f"{statics['sv_cap']}, sv_cap_tgt {statics['sv_cap_tgt']}, member_cap "
+        f"{statics['member_cap']}, feat_dtype {statics['feat_dtype']}")
 
     def kit(tile_id, s, t):
         return {"pix": [pix], "intrinsic": K, "src_extrinsics": [E], "tgt_extrinsics": [E]}
@@ -679,14 +754,17 @@ def fusion_rgb_tile(dev, cfg: dict, dips, agg, tile: tuple, label: str = "RGB ti
         step_s = time.perf_counter() - t0
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        free, total = torch.cuda.mem_get_info() if dev.type == "cuda" else (0, 0)
         written = sorted(os.listdir(os.path.join(tmp, "smoke", "results")))
     out = res[0]
-    log(f"# {label}: {step_s:.2f} s, peak {peak:.2f} GiB, overflow {out['overflow']}, "
-        f"n_dropped {out['n_dropped']}, n_c2d {out['n_c2d']}, launches {launches}")
+    log(f"# {label}: {step_s:.2f} s, peak {peak:.2f} GiB, after the step {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free, overflow {out['overflow_by_source']}, n_dropped "
+        f"{out['n_dropped']}, n_c2d {out['n_c2d']}, launches {launches} ({card()})")
     log(f"# {label} stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
     log(f"# {label} tables: {written}")
     check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
-    check(out["n_c2d"] > 0 and "c2f_dvfs_src2tgt_tile_0.txt" in written, (out, written))
+    check(out["overflow"] == 0, ("window overflow", out["overflow_by_source"]))
+    check(out["n_c2d"] > 0 and "c2f_dvfs_src2tgt_tile_0.txt" in written, (out["n_c2d"], written))
     ok = out["valid"]
     disp = out["dvfs"][:, 3:6] - out["dvfs"][:, :3]
     check(np.isfinite(disp).all(), "non-finite RGB displacements")
@@ -716,7 +794,7 @@ def pixel_window(dev, src, tgt, pix, K, E, image_size):
     as the step builds it: the source voxel centroids (median-resolution
     voxels on the clouds' shared min corner) projected through the
     camera, as queries with a zero z column, against the pixel matches'
-    source endpoints in 5-pixel cells."""
+    source endpoints in 5-pixel cells, the window fitted."""
     from fusion4landslide_tpu_torch.image.geometry import project_points
     from fusion4landslide_tpu_torch.ops import hashgrid_cuda as hc
     from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, median_nn_distance_traced
@@ -724,13 +802,10 @@ def pixel_window(dev, src, tgt, pix, K, E, image_size):
     from fusion4landslide_tpu_torch.ops.voxel import voxel_downsample
 
     n, m = src.shape[0], tgt.shape[0]
-    N, M = bucket_size(n), bucket_size(m)
+    N = bucket_size(n)
     centre = src.mean(axis=0)
-    sp = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    sp[:n] = torch.from_numpy(src - centre).to(dev)
-    tp = torch.zeros((M, 3), dtype=torch.float32, device=dev)
-    tp[:m] = torch.from_numpy(tgt - centre).to(dev)
-    sm, tm = torch.arange(N, device=dev) < n, torch.arange(M, device=dev) < m
+    sp, sm = padded_cloud(dev, src, centre)
+    tp, tm = padded_cloud(dev, tgt, centre)
     med = torch.maximum(median_nn_distance_traced(sp, sm)[0], median_nn_distance_traced(tp, tm)[0])
     origin = torch.minimum(sp[:n].min(dim=0).values, tp[:m].min(dim=0).values)
     cent, _, _, nv = voxel_downsample(sp, med, sm, origin=origin)
@@ -743,7 +818,7 @@ def pixel_window(dev, src, tgt, pix, K, E, image_size):
     ref[: pix.shape[0], :2] = torch.from_numpy(pix[:, :2]).to(dev)
     grid = build_hash_grid(ref, 5.0, torch.arange(Pc, device=dev) < pix.shape[0])
     q3 = torch.cat([uv, torch.zeros_like(uv[:, :1])], dim=1)
-    return hc.window_prologue(q3, grid, 512, 32768), int(nv)
+    return hc.window_prologue(q3, grid, 512, 32768, fit_chunk=2048), int(nv)
 
 
 def grid_knn_bit_check(win, tag: str, cases, chunk: int) -> None:
@@ -1627,6 +1702,83 @@ def rgb_guided_broken_run(matcher: str = "zncc") -> dict:
     return rec
 
 
+def full_size_readings(runs=("fusion3d", "f2s3")) -> dict:
+    """Readings at ``bench.py``'s 1 000 000-point core (``RGB_TILE``'s core
+    and halo, symmetric 10 m margins as ``bench.py``'s ``e2e3d``: 1 440 062
+    points a cloud, bucket 1 572 864), not checks: the 3D-only fusion
+    runner with phase 6's configuration and the F2S3 runner with phase
+    8's, once each (``runs``; ``"rgb"`` adds phase 7's tile and checks):
+    seconds, stage seconds, peak and free memory, launches, window
+    overflow by kernel, ``n_dropped``, and recovery against ``RECOVERY``
+    / ``RECOVERY_F2S3``, whose floors were placed on the 250 000-point
+    tile (reported as held or not). After the F2S3 tile, kernel 3 timed at
+    that tile's feature-kNN shape on seeded unit features, with its bound
+    reckoned as phase 4's. Run on a card as ``python3 -c "import
+    chip_smoke; chip_smoke.full_size_readings()"``."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_filter, seeded_models
+    from fusion4landslide_tpu_torch.ops import cuda_build, knn_cuda as kc
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.parallel.pipeline import run_f2s3_tiles, run_fusion3d_tiles
+    from fusion4landslide_tpu_torch.synth import synth_rgb_tile, synth_split_tile
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    log(f"# card: {card()}")
+    cuda_build.build_all()
+    dips, agg = seeded_models(0, dev)
+    filt = seeded_filter(0, dev)
+    readings = {}
+    if "rgb" in runs:
+        readings["rgb"] = fusion_rgb_tile(dev, dict(FUSION_CFG, **RGB_CFG), dips, agg,
+                                          synth_rgb_tile(**RGB_TILE))
+        torch.cuda.empty_cache()
+    src, tgt, core, moving = synth_split_tile(RGB_TILE["n_core"], 10.0, 10.0,
+                                              halo=RGB_TILE["halo"])
+    n, m = len(src), len(tgt)
+    N, M = bucket_size(n), bucket_size(m)
+    static = core & ~moving
+    plan = (("fusion3d", run_fusion3d_tiles, FUSION_CFG, (dips, agg), RECOVERY, "valid"),
+            ("f2s3", run_f2s3_tiles, F2S3_CFG, (dips, filt), RECOVERY_F2S3, "keep"))
+    for name, runner, cfg, models, floors, kept_key in plan:
+        if name not in runs:
+            continue
+        label = f"1M-core {name} tile"
+        res, secs, timings, launches, peak, written = production_tile_run(
+            runner, cfg, models, (src, tgt), dev, here)
+        free, total = torch.cuda.mem_get_info()
+        rec = production_recovery(res, n, core, moving, static, label, {}, kept_key=kept_key)
+        held = {k: bool(rec[k] > f) if k in ("static_assigned", "kept") else bool(rec[k] < f)
+                for k, f in floors.items()}
+        row = {"points": [n, m], "buckets": [N, M], "tile_s": secs, "peak_gib": peak,
+               "free_after_gib": free / 2**30, "total_gib": total / 2**30, "launches": launches,
+               "overflow": res["overflow_by_source"], "n_dropped": res["n_dropped"],
+               "tables": len(written), "recovery": rec, "floors_held": held}
+        log(f"# {label} ({card()}): {json.dumps(row)}; stages (s): "
+            + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+        readings[name] = row
+        del res
+        torch.cuda.empty_cache()
+    if "f2s3" in runs:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fq = torch.randn((N, 64), generator=gen, device=dev)
+        fr = torch.randn((M, 64), generator=gen, device=dev)
+        fq, fr = fq / fq.norm(dim=1, keepdim=True), fr / fr.norm(dim=1, keepdim=True)
+        q2 = kc.sq_norms(fq)
+        r2 = torch.where(torch.arange(M, device=dev) < m, kc.sq_norms(fr), torch.inf)
+        ms = cuda_ms(lambda: kc._knn_cuda(fq, fr, 1, q2, r2, exclude_self=False), reps=1)
+        in_out = 4 * (N * 64 + m * 64 + 2 * N + 2 * m)
+        b_ms, b_by = bound(in_out, 3 * 2.0 * N * m * 64, TF32_FLOPS)
+        f32_ms, _ = bound(in_out, 2.0 * N * m * 64)
+        readings["knn"] = {"shape": [N, M, 64], "ref_valid": m, "ms": ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "bound_f32_ms": f32_ms,
+                           "rescored_per_row": int(kc.RESCORED[0]) / N}
+        log(f"# kernel 3 at the 1M-core F2S3 tile's shape ({card()}): "
+            f"{json.dumps(readings['knn'])}")
+    log(f"# full-size readings in {time.perf_counter() - t_start:.1f} s")
+    return readings
+
+
 def eloftr_broken_run() -> dict:
     """``rgb_guided_broken_run`` with the shipped ``eloftr`` matcher: the
     reading ``RECOVERY_RGB_GUIDED_ELOFTR`` is placed against. Run it on a
@@ -1697,34 +1849,46 @@ NEW_PHASE_S = [0.0]
 SUPERPOINT_SMALL_CORE = 8000
 
 
-def superpoint_phase(dev) -> dict:
-    """(j) The superpoint generator (``ops/superpoint.py``): on a small
-    tile cloud, card vs the port's CPU path (labels per level up to
-    relabelling, differing points counted); then on ``RGB_EPOCH``'s
-    source cloud: seconds of the 30-NN search, the features, the level-1
-    VCCS and the region merge, region counts per level, peak memory.
-    Returns the launches of the two card runs."""
-    from fusion4landslide_tpu_torch.checks import partition_differing
+def superpoint_small_run(d):
+    """(j)'s small tile cloud through the superpoint generator on device
+    ``d``: (labels per level, seconds)."""
     from fusion4landslide_tpu_torch.ops.superpoint import superpoint_hierarchy
-    from fusion4landslide_tpu_torch.synth import synth_epoch_pair, synth_split_tile
+    from fusion4landslide_tpu_torch.synth import synth_split_tile
 
     src, _, _, _ = synth_split_tile(SUPERPOINT_SMALL_CORE, 1.0, 1.0, halo=2.0)
-    reset_launches()
-    g = superpoint_hierarchy(src, levels=3, device=dev)
-    torch.cuda.synchronize()
-    small_launches = read_launches()
     t0 = time.perf_counter()
-    c = superpoint_hierarchy(src, levels=3, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    res = {"points": len(src), "regions_card": [int(x.max()) + 1 for x in g],
+    labels = superpoint_hierarchy(src, levels=3, device=d)
+    return labels, time.perf_counter() - t0
+
+
+def superpoint_small_compare(state: dict) -> dict:
+    """(j) The superpoint generator (``ops/superpoint.py``) on a small tile
+    cloud, card vs the port's CPU path (labels per level up to
+    relabelling, differing points counted). Returns the card run's
+    launches."""
+    from fusion4landslide_tpu_torch.checks import partition_differing
+
+    (g, _), (c, cpu_s) = state["card"], state["cpu"].result()
+    small_launches = state["launches"]
+    res = {"points": len(g[0]), "regions_card": [int(x.max()) + 1 for x in g],
            "regions_cpu": [int(x.max()) + 1 for x in c],
            "differing_points": [partition_differing(a, b) for a, b in zip(g, c)],
            "cpu_s": cpu_s, "launches": small_launches}
     log(f"# phase (j) superpoint generator, small cloud, card vs CPU path ({card()}): "
         f"{json.dumps(res)}")
     check(res["differing_points"][0] == 0, res)
-    check(max(res["differing_points"]) <= 0.02 * len(src), res)
+    check(max(res["differing_points"]) <= 0.02 * res["points"], res)
     check(small_launches["radius_sample"] > 0 and small_launches["grid_knn"] > 0, small_launches)
+    return small_launches
+
+
+def superpoint_epoch_phase(dev) -> dict:
+    """(j) The superpoint generator on ``RGB_EPOCH``'s source cloud:
+    seconds of the 30-NN search, the features, the level-1 VCCS and the
+    region merge, region counts per level, peak memory. Returns the
+    launches."""
+    from fusion4landslide_tpu_torch.ops.superpoint import superpoint_hierarchy
+    from fusion4landslide_tpu_torch.synth import synth_epoch_pair
 
     src, _, _ = synth_epoch_pair(*RGB_EPOCH)
     timings: dict = {}
@@ -1746,7 +1910,7 @@ def superpoint_phase(dev) -> dict:
     counts = res["regions"]
     check(counts[0] > counts[1] > counts[2] >= 1, res)
     check(launches["radius_sample"] > 0, launches)
-    return {"superpoint_small": small_launches, "superpoint_rgb_epoch": launches}
+    return launches
 
 
 def shuffle_partition_labels(path: str, seed: int = 0) -> None:
@@ -1825,12 +1989,11 @@ def superpoint_broken_run() -> dict:
     return rec
 
 
-def icp_small_parity(dev, icp_type: str, host: bool) -> dict:
-    """(l) ``icp_type`` on a small tile with metre-scale relief
-    (``synth_rough_split_tile``, magnitude gate 0.3 m), card vs the port's
-    CPU path, through the step (``host`` False) or the host tile: the
-    assigned sets (which the ICP type does not decide) equal, finite
-    outputs; the DVF gap reported. Returns the card run's launches."""
+def icp_small_run(d, icp_type: str, host: bool):
+    """(l)'s small tile with metre-scale relief (``synth_rough_split_tile``,
+    magnitude gate 0.3 m) through the step (``host`` False) or the host
+    tile with ``icp_type`` on device ``d``: (moved source points, assigned
+    mask), numpy."""
     from fusion4landslide_tpu_torch.models.convert import seeded_models
     from fusion4landslide_tpu_torch.pipelines.fusion import run_fusion3d_tile
     from fusion4landslide_tpu_torch.pipelines.fusion_device import fusion3d_tile_step
@@ -1838,46 +2001,45 @@ def icp_small_parity(dev, icp_type: str, host: bool) -> dict:
 
     src, tgt = synth_rough_split_tile()
     here = os.path.dirname(os.path.abspath(__file__))
-    moved, valid = [], []
-    for d in (dev, torch.device("cpu")):
-        dm, am = seeded_models(0, d)
-        reset_launches()
-        if host:
-            with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
-                cfg = {"level_of_superpoint": [1, 2], "feat_patch_points": 128,
-                       "feat_chunk": 512, "agg_max_points": 64,
-                       "num_min_matches_for_small_patch": 3, "fine_max_matches": 64,
-                       "max_magnitude": 0.3, "icp_threshold": 0.1, "voxel_size_init": 0.1,
-                       "dataset": "brienz_tls", "icp_type": icp_type, "output_dir": tmp,
-                       "output_folder": "run"}
-                out = run_fusion3d_tile(cfg, dm, am, src, tgt, device=d)
-            ok = out["valid"]
-            s = (src - src.mean(0)).astype(np.float32)
-            moved.append(np.einsum("nij,nj->ni", out["R"], s) + out["t"])
-        else:
-            sb, sm, tb, tm, ns, _ = padded(src, tgt)
-            out = fusion3d_tile_step(
-                dm, am, *(torch.from_numpy(x).to(d) for x in (sb, sm, tb, tm)),
-                0.3, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d, levels=(1, 2), patch_points=128,
-                chunk=512, k_neighbors=8, sv_cap=256, member_cap=128, agg_max_points=64,
-                small_patch=3, icp_max_iter=30, fine_max_matches=64, icp_type=icp_type)
-            ok = out.valid[:ns].cpu().numpy()
-            moved.append(out.moved[:ns].cpu().numpy())
-        if d is dev:
-            torch.cuda.synchronize()
-            launches = read_launches()
-        valid.append(ok)
-    common = valid[0] & valid[1]
-    gap = np.linalg.norm(moved[0][common] - moved[1][common], axis=1)
+    dm, am = seeded_models(0, d)
+    if host:
+        with tempfile.TemporaryDirectory(prefix="_smoke_", dir=here) as tmp:
+            cfg = {"level_of_superpoint": [1, 2], "feat_patch_points": 128,
+                   "feat_chunk": 512, "agg_max_points": 64,
+                   "num_min_matches_for_small_patch": 3, "fine_max_matches": 64,
+                   "max_magnitude": 0.3, "icp_threshold": 0.1, "voxel_size_init": 0.1,
+                   "dataset": "brienz_tls", "icp_type": icp_type, "output_dir": tmp,
+                   "output_folder": "run"}
+            out = run_fusion3d_tile(cfg, dm, am, src, tgt, device=d)
+        s = (src - src.mean(0)).astype(np.float32)
+        return np.einsum("nij,nj->ni", out["R"], s) + out["t"], out["valid"]
+    sb, sm, tb, tm, ns, _ = padded(src, tgt)
+    out = fusion3d_tile_step(
+        dm, am, *(torch.from_numpy(x).to(d) for x in (sb, sm, tb, tm)),
+        0.3, 0.1, 0.1, 10, 10, 0.5, 0.15, device=d, levels=(1, 2), patch_points=128,
+        chunk=512, k_neighbors=8, sv_cap=256, member_cap=128, agg_max_points=64,
+        small_patch=3, icp_max_iter=30, fine_max_matches=64, icp_type=icp_type)
+    return out.moved[:ns].cpu().numpy(), out.valid[:ns].cpu().numpy()
+
+
+def icp_small_compare(state: dict, icp_type: str, host: bool) -> dict:
+    """(l) ``icp_type`` on the small relief tile, card vs the port's CPU
+    path: the assigned sets (which the ICP type does not decide) equal,
+    finite outputs; the DVF gap reported. Returns the card run's
+    launches."""
+    (mg, vg), (mc, vc) = state["card"], state["cpu"].result()
+    launches = state["launches"]
+    common = vg & vc
+    gap = np.linalg.norm(mg[common] - mc[common], axis=1)
     res = {"path": "host tile" if host else "step", "icp_type": icp_type,
-           "points": len(src), "assigned": [int(v.sum()) for v in valid],
-           "same_assigned": bool((valid[0] == valid[1]).all()),
+           "points": len(vg), "assigned": [int(vg.sum()), int(vc.sum())],
+           "same_assigned": bool((vg == vc).all()),
            "median_gap_m": float(np.median(gap)) if gap.size else None,
            "frac_gt_10mm": float((gap > 0.01).mean()) if gap.size else None,
            "launches": launches}
     log(f"# phase (l) {icp_type} small-tile {res['path']}, card vs CPU path: {json.dumps(res)}")
-    check(res["same_assigned"] and valid[0].sum() > 0.02 * len(src), res)
-    check(np.isfinite(moved[0]).all(), "non-finite moved points")
+    check(res["same_assigned"] and vg.sum() > 0.02 * len(vg), res)
+    check(np.isfinite(mg).all(), "non-finite moved points")
     return launches
 
 
@@ -2183,15 +2345,6 @@ def descriptor_readings(card_pair, cpu_pair, ns: int, nt: int) -> dict:
     return {"feat_max_abs_err": err, "nn1_equal_frac": float((nn_g == nn_c).double().mean())}
 
 
-def dips_descriptor_parity(dev, priority: str, sb, sm, tb, tm, ns: int, nt: int, radius: float,
-                           dtype=None, draws=None) -> dict:
-    """``descriptor_readings`` of the card against the CPU path on the same
-    draws."""
-    args = (priority, sb, sm, tb, tm, ns, nt, radius, dtype, draws)
-    return descriptor_readings(descriptor_pair(dev, *args),
-                               descriptor_pair(torch.device("cpu"), *args), ns, nt)
-
-
 def branch_small_tile(pipeline: str):
     """Phase (s)'s padded small tile of ``pipeline`` (numpy)."""
     return padded_small_tile(1.0 if pipeline == "fusion" else 1.5, 1.5)
@@ -2281,7 +2434,7 @@ def dips_branch_card_side(dev, pipeline: str, priority: str, pool,
 def dips_branch_compare(state: dict) -> dict:
     """Phase (s), scored: the card against the port's CPU path on the
     card's draws, as ``tools/parity_check.py`` scores two paths (F2S3: as
-    ``f2s3_small_parity``; with descriptors, also both branches'
+    ``f2s3_small_compare``; with descriptors, also both branches'
     descriptors of the tile). Returns the card run's launches."""
     pipeline, priority, g, launches = (state[k] for k in ("pipeline", "priority", "g",
                                                           "launches"))
@@ -2301,7 +2454,7 @@ def dips_branch_compare(state: dict) -> dict:
                       assigned=[int(vg.sum()), int(vc.sum())])
         finite = bool(torch.isfinite(g.moved).all())
     else:
-        # As in f2s3_small_parity: supervoxels with a near-tie 1-NN swap
+        # As in f2s3_small_compare: supervoxels with a near-tie 1-NN swap
         # are left out. Besides, a supervoxel's robust re-fit test
         # (>= 5 inliers under the residual median) can fall the other way
         # on the two devices' float32 sums, and then all its members
@@ -2396,17 +2549,24 @@ def production_tile_run(runner, cfg: dict, models, tile, dev, here: str,
     return res[0], secs, timings, launches, peak, written
 
 
-def bf16_small_parity(dev) -> dict:
-    """Phase (u) on a small tile: bf16 descriptors (kernel 1, patch 128)
-    on the card against the CPU path (descriptor error, source -> target
-    1-NN agreement)."""
-    sb, sm, tb, tm, ns, nt = padded_small_tile(1.5, 1.5)
+def bf16_small_run(d):
+    """Phase (u)'s small tile's bf16 descriptors (kernel 1, patch 128) on
+    device ``d``, numpy."""
     from fusion4landslide_tpu_torch.ops.hashgrid import median_nn_distance_traced
 
+    sb, sm, tb, tm, ns, nt = padded_small_tile(1.5, 1.5)
     med, _ = median_nn_distance_traced(torch.from_numpy(sb), torch.from_numpy(sm))
     radius = float(np.sqrt(3.0) * 10.0 * float(med))
-    rows = {"bfloat16": dips_descriptor_parity(dev, "knn", sb, sm, tb, tm, ns, nt, radius,
-                                               dtype="bfloat16")}
+    return tuple(f.numpy() for f in descriptor_pair(d, "knn", sb, sm, tb, tm, ns, nt, radius,
+                                                    dtype="bfloat16"))
+
+
+def bf16_small_compare(state: dict) -> dict:
+    """Phase (u) on a small tile: bf16 descriptors on the card against
+    the CPU path (descriptor error, source -> target 1-NN agreement)."""
+    _, _, _, _, ns, nt = padded_small_tile(1.5, 1.5)
+    pairs = [tuple(torch.from_numpy(f) for f in x) for x in (state["card"], state["cpu"].result())]
+    rows = {"bfloat16": descriptor_readings(*pairs, ns, nt)}
     log(f"# phase (u) small-tile DIPs descriptors, card vs CPU path ({card()}): "
         f"{json.dumps(rows)}")
     check(rows["bfloat16"]["feat_max_abs_err"] <= 1e-2, rows)
@@ -2610,6 +2770,100 @@ def hard_scene_phase(dev, dips, agg, here: str) -> dict:
     return launches
 
 
+def padded_cloud(dev, cloud: np.ndarray, centre: np.ndarray):
+    """(bucket, 3) float32 on the card, ``cloud - centre`` then zeros, and
+    its row mask."""
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+
+    n = cloud.shape[0]
+    N = bucket_size(n)
+    pts = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    pts[:n] = torch.from_numpy(cloud - centre).to(dev)
+    return pts, torch.arange(N, device=dev) < n
+
+
+def grid_knn_bound(w, chunk: int) -> tuple[float, str, int]:
+    """Kernel 2's bound on window ``w``: each block reads its window once
+    (x, y, z, |r|^2, index: 20 B per position), each query its position
+    and row, each output 8 B; ``OPS_GRID_KNN`` per candidate. Returns
+    (ms, what bounds it, candidate evaluations)."""
+    positions, cands = window_work(w, chunk)
+    b = bound(positions * 20 + w.n_pad * (12 + 4) + w.n_pad * 8, cands * OPS_GRID_KNN)
+    return b[0], b[1], cands
+
+
+def sampler_phase(pts, mask, chunk: int, tag: str, *, plain: bool) -> dict:
+    """Kernel 1 on a padded cloud at its DIPs patch radius (sqrt(3) * 10 *
+    median resolution, the window fitted as the step fits it), against
+    its plain version: P = 256 ``'random'`` and P = 128 ``'distance'`` on
+    every 8th block and the widest one. Timed at the main path's launch
+    shapes: one range of 128 query blocks at P = 256 ``'random'`` (the
+    DIPs patch sampler) and every block at P = 128 ``'distance'`` (the
+    supervoxel graph); with ``plain`` the plain version is timed on the
+    128 blocks too. Returns the ``kernels`` row's numbers."""
+    from fusion4landslide_tpu_torch.checks import sample_agreement, sampler_borderline_rows
+    from fusion4landslide_tpu_torch.ops import hashgrid_cuda as hc
+    from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, median_nn_distance_traced
+
+    dev = pts.device
+    med, _ = median_nn_distance_traced(pts, mask)
+    radius = float(torch.sqrt(torch.tensor(3.0)) * 10.0 * med.cpu())
+    win = hc.window_prologue(pts, build_hash_grid(pts, radius, mask), 512, 32768,
+                             fit_chunk=chunk)
+    cen = hc.block_centres(win)
+    r2 = torch.tensor(radius, dtype=torch.float32, device=dev) ** 2
+    wide = int(win.wmeta[1].argmax())
+    log(f"# sampler {tag}: radius {radius:.4f} m, {win.nb} blocks, window {win.window} "
+        f"({int((win.wmeta[1] > 32768).sum())} blocks past 32768), overflow "
+        f"{int(win.overflow)}")
+    check(int(win.overflow) == 0, (tag, "sampler window overflow"))
+    sub = sorted(set(range(0, win.nb, 8)) | {wide})
+    rows = torch.cat([torch.arange(b * 512, (b + 1) * 512, device=dev) for b in sub])
+    worst = 0.0
+    for P, prio in ((256, "random"), (128, "distance")):
+        i_k, v_k, x_k = hc._radius_sample_cuda(win, cen, r2, P, 0, prio, chunk=chunk, b0=0,
+                                               b1=win.nb)
+        i_k, v_k, x_k = i_k[rows], v_k[rows], x_k[rows]
+        i_p, v_p, x_p = hc.radius_sample_plain(win, cen, r2, P, 0, prio, chunk=chunk, blocks=sub)
+        border = sampler_borderline_rows(win, cen, r2, P, prio, chunk=chunk, blocks=sub)
+        agr = sample_agreement(i_p, v_p, i_k, v_k, border)
+        same = v_p & v_k & (i_p == i_k)
+        err = float((x_p - x_k).abs()[same].max()) if bool(same.any()) else 0.0
+        agr["max_abs_err_xyz"] = err
+        agr["valid_slots_per_query"] = float(v_k.sum()) / rows.numel()
+        log(f"# sampler {tag} P={P} {prio}: {json.dumps(agr)}")
+        check(agr["exact_frac"] >= 0.999 and agr["unexplained_rows"] == 0, agr)
+        worst = max(worst, err)
+        del i_k, v_k, x_k
+
+    def sampler_bound(b1: int, P: int) -> tuple[float, str]:
+        positions, cands = window_work(win, chunk, 0, b1)
+        rows_out = b1 * 512
+        return bound(positions * 20 + rows_out * 12 + rows_out * P * 20,
+                     cands * OPS_RADIUS_SAMPLE + positions * OPS_RADIUS_STAGE)
+
+    b1 = min(128, win.nb)
+    ms = cuda_ms(lambda: hc._radius_sample_cuda(win, cen, r2, 256, 0, "random", chunk=chunk,
+                                                b0=0, b1=b1))
+    plain_ms = (cuda_ms(lambda: hc.radius_sample_plain(win, cen, r2, 256, 0, "random",
+                                                       chunk=chunk, blocks=range(b1)), reps=1)
+                if plain else None)
+    b_ms, b_by = sampler_bound(b1, 256)
+    sv_ms = cuda_ms(lambda: hc._radius_sample_cuda(win, cen, r2, 128, 0, "distance",
+                                                   chunk=chunk, b0=0, b1=win.nb))
+    sv_b_ms, sv_b_by = sampler_bound(win.nb, 128)
+    plain_txt = f", plain {plain_ms:.1f} ms" if plain else ""
+    log(f"# phase sampler {tag}: kernel {ms:.3f} ms per {b1}-block P = 256 'random' launch "
+        f"(before {MS_BEFORE['radius_sample']} ms){plain_txt}, bound "
+        f"{b_ms:.3f} ms ({b_by}, {window_work(win, chunk, 0, b1)[1]} evaluations x "
+        f"{OPS_RADIUS_SAMPLE} + {window_work(win, chunk, 0, b1)[0]} block positions x "
+        f"{OPS_RADIUS_STAGE} f32 ops); supervoxel-graph launch ({win.nb} blocks, P = 128 "
+        f"'distance') {sv_ms:.3f} ms, bound {sv_b_ms:.3f} ms ({sv_b_by}, "
+        f"{window_work(win, chunk)[1]} evaluations)")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                graph_ms=sv_ms, graph_bound_ms=sv_b_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2635,6 +2889,18 @@ def main() -> int:
     from fusion4landslide_tpu_torch.synth import IMG_SIZE, PLANTED_SHIFT, synth_rgb_tile, synth_split_tile
 
     dev = resolve_device("cuda")
+    # bench.py's RGB headline tile (phase 7; its launches in phases 2 and
+    # 3) is built on a thread while the kernels build.
+    rgb_built_s = [0.0]
+
+    def build_rgb_tile():
+        t0 = time.perf_counter()
+        tile = synth_rgb_tile(**RGB_TILE)
+        rgb_built_s[0] = time.perf_counter() - t0
+        return tile
+
+    tile_pool = ThreadPoolExecutor(max_workers=1)
+    rgb_future = tile_pool.submit(build_rgb_tile)
     log(f"# card: {card()}")
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -2657,25 +2923,18 @@ def main() -> int:
     log(f"# phase build: {len(cuda_build.SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # The production tile (phases 6 and 7) also supplies the
+    # The production tile (phases 6 and 8) also supplies the
     # production-density cloud for the kernel checks.
     halo, density, margin, n_core = 20.0, 100.0, 10.0, 250_000
     src, tgt, core, moving = synth_split_tile(n_core, margin, margin, halo=halo, density=density)
     n = src.shape[0]
     N = bucket_size(n)
-    centre = src.mean(axis=0)
-    pts = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    pts[:n] = torch.from_numpy(src - centre).to(dev)
-    mask = torch.arange(N, device=dev) < n
+    pts, mask = padded_cloud(dev, src, src.mean(axis=0))
     log(f"# tile: src {n} pts, tgt {tgt.shape[0]} pts, bucket {N}")
-    # bench.py's RGB headline tile (phase 7; its pixel-space window in phase 2).
-    r_src, r_tgt, r_core, r_moving, pix, K_img, E_img, m_per_px = synth_rgb_tile(
-        n_core, margin / 2, margin, halo=halo
-    )
-    log(f"# RGB tile: src {r_src.shape[0]} pts, tgt {r_tgt.shape[0]} pts, "
-        f"{pix.shape[0]} pixel matches, {m_per_px:.5f} m per pixel")
 
     kernels: dict[str, dict] = {}
+
+    log_elapsed(t_start, "the build")
 
     # ---- 2. kernel 2: grid kNN -------------------------------------------
     chunk = 2048
@@ -2695,104 +2954,81 @@ def main() -> int:
     dup_t = torch.from_numpy(dup.astype(np.float32)).to(dev)
     win_tie = hc.window_prologue(dup_t, build_hash_grid(dup_t, 0.3), 512, 32768)
     grid_knn_bit_check(win_tie, "near_tie", all_cases, chunk)
-    # The RGB tile's pixel-space launch (kernel 2 on 2D points).
+    # bench.py's RGB headline tile (phase 7), built on a thread since the
+    # start: its source cloud's median-resolution launch and its
+    # pixel-space launch (kernel 2 on 2D points), windows fitted as the
+    # step fits them.
+    r_src, r_tgt, r_core, r_moving, pix, K_img, E_img, m_per_px = rgb_future.result()
+    tile_pool.shutdown()
+    log(f"# RGB tile ({RGB_TILE}): src {r_src.shape[0]} pts in bucket {bucket_size(len(r_src))}, "
+        f"tgt {r_tgt.shape[0]} pts in bucket {bucket_size(len(r_tgt))}, {pix.shape[0]} pixel "
+        f"matches in bucket {bucket_size(len(pix))}, {m_per_px:.5f} m per pixel, built in "
+        f"{rgb_built_s[0]:.2f} s off the card's path")
+    pts1, mask1 = padded_cloud(dev, r_src, r_src.mean(axis=0))
+    win1 = hc.window_prologue(pts1, build_hash_grid(pts1, _density_radius(pts1, mask1), mask1),
+                              512, 32768, fit_chunk=chunk)
+    log(f"# grid kNN RGB tile source: {win1.nb} blocks, window {win1.window}, overflow "
+        f"{int(win1.overflow)}")
+    grid_knn_bit_check(win1, "RGB tile", [(1, True), (1, False)], chunk)
     win_pix, n_vox = pixel_window(dev, r_src, r_tgt, pix, K_img, E_img, IMG_SIZE)
     log(f"# grid kNN pixel space: {n_vox} source voxels as queries, {pix.shape[0]} pixel "
-        f"matches as refs, {win_pix.nb} blocks, overflow {int(win_pix.overflow)}")
+        f"matches as refs, {win_pix.nb} blocks, window {win_pix.window}, overflow "
+        f"{int(win_pix.overflow)}")
     grid_knn_bit_check(win_pix, "pixel", all_cases, chunk)
     ms = cuda_ms(lambda: hc._grid_knn_cuda(win, 1, chunk=chunk, exclude_self=True), reps=10)
     plain_ms = cuda_ms(lambda: hc.grid_knn_plain(win, 1, chunk=chunk, exclude_self=True), reps=1)
+    ms_1m = cuda_ms(lambda: hc._grid_knn_cuda(win1, 1, chunk=chunk, exclude_self=True), reps=5)
     pix_ms = cuda_ms(lambda: hc._grid_knn_cuda(win_pix, 1, chunk=chunk, exclude_self=False), reps=10)
-
-    def grid_knn_bound(w) -> tuple[float, str, int]:
-        # Each block reads its window once (x, y, z, |r|^2, index: 20 B per
-        # position), each query its position and row, each output 8 B.
-        positions, cands = window_work(w, chunk)
-        b = bound(positions * 20 + w.n_pad * (12 + 4) + w.n_pad * 8, cands * OPS_GRID_KNN)
-        return b[0], b[1], cands
-
-    b_ms, b_by, cands = grid_knn_bound(win)
-    pix_b_ms, pix_b_by, pix_cands = grid_knn_bound(win_pix)
+    b_ms, b_by, cands = grid_knn_bound(win, chunk)
+    b_1m, b_1m_by, cands_1m = grid_knn_bound(win1, chunk)
+    pix_b_ms, pix_b_by, pix_cands = grid_knn_bound(win_pix, chunk)
     kernels["grid_knn"] = dict(
         name="grid_knn", route="cuda",
         source="fusion4landslide_tpu_torch/csrc/grid_knn.cu",
         replaces="fusion4landslide_tpu/ops/hashgrid_pallas.py:43",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, pixel_ms=pix_ms, pixel_bound_ms=pix_b_ms,
+        rgb_tile_ms=ms_1m, rgb_tile_bound_ms=b_1m,
     )
     log(f"# phase grid kNN: kernel {ms:.3f} ms (before {MS_BEFORE['grid_knn']} ms), plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), {cands} candidate evaluations; "
-        f"pixel-space launch {pix_ms:.3f} ms, bound {pix_b_ms:.3f} ms ({pix_b_by}), "
-        f"{pix_cands} candidate evaluations")
-    del win_tie, win_pix, dup_t
+        f"RGB tile source launch ({win1.n_pad} queries) {ms_1m:.3f} ms, bound {b_1m:.3f} ms "
+        f"({b_1m_by}), {cands_1m} candidate evaluations; pixel-space launch ({win_pix.n_pad} "
+        f"queries) {pix_ms:.3f} ms, bound {pix_b_ms:.3f} ms ({pix_b_by}), {pix_cands} candidate "
+        "evaluations")
+    del win, grid, win_tie, win_pix, dup_t, win1
 
     # ---- 3. kernel 1: radius sampler -------------------------------------
-    # The DIPs patch radius of this cloud: sqrt(3) * 10 * median resolution.
-    med, _ = median_nn_distance_traced(pts, mask)
-    radius = float(torch.sqrt(torch.tensor(3.0)) * 10.0 * med.cpu())
-    grid_r = build_hash_grid(pts, radius, mask)
-    win_r = hc.window_prologue(pts, grid_r, 512, 32768)
-    cen = hc.block_centres(win_r)
-    r2 = torch.tensor(radius, dtype=torch.float32, device=dev) ** 2
-    log(f"# sampler: radius {radius:.4f} m, {win_r.nb} blocks, overflow {int(win_r.overflow)}")
-    sub_r = list(range(0, win_r.nb, 8))
-    worst = 0.0
-    for P, prio in ((256, "random"), (128, "distance")):
-        i_k, v_k, x_k = hc._radius_sample_cuda(win_r, cen, r2, P, 0, prio, chunk=chunk, b0=0, b1=win_r.nb)
-        i_p, v_p, x_p = hc.radius_sample_plain(win_r, cen, r2, P, 0, prio, chunk=chunk, blocks=sub_r)
-        rows = torch.cat([torch.arange(b * 512, (b + 1) * 512, device=dev) for b in sub_r])
-        border = sampler_borderline_rows(win_r, cen, r2, P, prio, chunk=chunk, blocks=sub_r)
-        agr = sample_agreement(i_p, v_p, i_k[rows], v_k[rows], border)
-        same = v_p & v_k[rows] & (i_p == i_k[rows])
-        err = float((x_p - x_k[rows]).abs()[same].max()) if bool(same.any()) else 0.0
-        agr["max_abs_err_xyz"] = err
-        agr["valid_slots_per_query"] = float(v_k.sum()) / win_r.n_pad
-        log(f"# sampler P={P} {prio}: {json.dumps(agr)}")
-        check(agr["exact_frac"] >= 0.999 and agr["unexplained_rows"] == 0, agr)
-        worst = max(worst, err)
-    # Timed at the main path's launch shapes: one range of 128 query blocks,
-    # P = 256 'random' (the DIPs patch sampler), and every block at
-    # P = 128 'distance' (the F2S3 supervoxel graph, at the patch radius).
-    def sampler_bound(b1: int, P: int) -> tuple[float, str]:
-        positions, cands = window_work(win_r, chunk, 0, b1)
-        rows_out = b1 * 512
-        return bound(positions * 20 + rows_out * 12 + rows_out * P * 20,
-                     cands * OPS_RADIUS_SAMPLE + positions * OPS_RADIUS_STAGE)
-
-    b1 = min(128, win_r.nb)
-    ms = cuda_ms(lambda: hc._radius_sample_cuda(win_r, cen, r2, 256, 0, "random", chunk=chunk, b0=0, b1=b1))
-    plain_ms = cuda_ms(lambda: hc.radius_sample_plain(win_r, cen, r2, 256, 0, "random", chunk=chunk, blocks=range(b1)), reps=1)
-    b_ms, b_by = sampler_bound(b1, 256)
-    sv_ms = cuda_ms(lambda: hc._radius_sample_cuda(win_r, cen, r2, 128, 0, "distance", chunk=chunk, b0=0, b1=win_r.nb))
-    sv_b_ms, sv_b_by = sampler_bound(win_r.nb, 128)
+    # The production cloud's windows (the plain version timed there), then
+    # the RGB tile's source cloud, windows fitted as the step fits them.
     kernels["radius_sample"] = dict(
         name="radius_sample", route="cuda",
         source="fusion4landslide_tpu_torch/csrc/radius_sample.cu",
-        replaces="fusion4landslide_tpu/ops/hashgrid_pallas.py:288",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, graph_ms=sv_ms, graph_bound_ms=sv_b_ms,
-    )
-    log(f"# phase sampler: kernel {ms:.3f} ms per {b1}-block P = 256 'random' launch "
-        f"(before {MS_BEFORE['radius_sample']} ms), plain {plain_ms:.1f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by}, {window_work(win_r, chunk, 0, b1)[1]} evaluations x "
-        f"{OPS_RADIUS_SAMPLE} + {window_work(win_r, chunk, 0, b1)[0]} block positions x "
-        f"{OPS_RADIUS_STAGE} f32 ops); supervoxel-graph launch ({win_r.nb} blocks, P = 128 "
-        f"'distance') {sv_ms:.3f} ms, bound {sv_b_ms:.3f} ms ({sv_b_by}, "
-        f"{window_work(win_r, chunk)[1]} evaluations)")
-    del win, win_r, grid, grid_r, cen
+        replaces="fusion4landslide_tpu/ops/hashgrid_pallas.py:288", library_ms=None,
+        **sampler_phase(pts, mask, chunk, "production", plain=True))
+    rgb_row = sampler_phase(pts1, mask1, chunk, "RGB tile", plain=False)
+    kernels["radius_sample"].update(
+        max_abs_err=max(kernels["radius_sample"]["max_abs_err"], rgb_row["max_abs_err"]),
+        rgb_tile_ms=rgb_row["ms"], rgb_tile_bound_ms=rgb_row["bound_ms"],
+        rgb_tile_graph_ms=rgb_row["graph_ms"], rgb_tile_graph_bound_ms=rgb_row["graph_bound_ms"])
+    del pts1, mask1
     torch.cuda.empty_cache()
 
     # ---- 4. kernel 3: feature-space kNN ----------------------------------
     kernels["knn"] = knn_phase(dev, N, n)
     torch.cuda.empty_cache()
 
+    log_elapsed(t_start, "the kernel checks")
+
     # ---- 12. (a) nn1_spatial's exact rerun on the F1 witness -------------
     f1_launches = nn1_overflow_phase(dev)
 
     # ---- 5. small tiles: card vs the port's CPU path ---------------------
-    # The small fusion steps' and phase (s)'s CPU paths run in a process of
-    # their own while the card works on; they are scored after the
-    # production fusion tiles.
+    # Every small tile's CPU path runs in a worker process while the card
+    # works on: the fusion steps', (r)'s and (s)'s are scored after the
+    # production fusion tiles, the rest (phase 5's F2S3 tiles, (u)'s
+    # descriptors, (j)'s and (l)'s small tiles, queued behind them) after
+    # phase 7.
     cpu_pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
     fusion_states = {
         "fusion3d_small": fusion_small_card_side(dev, cpu_pool, global_gated=True),
@@ -2802,9 +3038,7 @@ def main() -> int:
         "fusion_rgb_interp_small": fusion_small_card_side(dev, cpu_pool, global_gated=True,
                                                           lifting="interpolation"),
     }
-    by_path = {"f2s3_small": f2s3_small_parity(dev),
-               "f2s3_host_small": f2s3_host_small_parity(dev),
-               "nn1_spatial_f1": f1_launches}
+    by_path = {"nn1_spatial_f1": f1_launches}
 
     # ---- (r) nested_levels=False on the small tile -------------------------
     t_new = time.perf_counter()
@@ -2812,23 +3046,30 @@ def main() -> int:
         dev, cpu_pool, global_gated=True, nested_levels=False, levels=(1, 2, 3))
     PHASES_N_R_S[0] += time.perf_counter() - t_new
 
-    # ---- (s) the DIPs grid branches at patch 96; (u) bf16 on a small tile --
+    # ---- (s) the DIPs grid branches at patch 96 ----------------------------
     t_new = time.perf_counter()
     branch_states = [
         dips_branch_card_side(dev, pipeline, priority, cpu_pool,
                               descriptors=(pipeline, priority) == ("f2s3", "random"))
         for pipeline in ("fusion", "f2s3") for priority in ("knn", "random")]
-    bf16_small_parity(dev)
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
-    # ---- (j) the superpoint generator; (l) the ICP types on small tiles --
+    # ---- 5. the F2S3 tiles; (u) bf16 descriptors; (j), (l) small tiles ----
+    late_states = {"f2s3_small": split_run(dev, cpu_pool, f2s3_small_run),
+                   "f2s3_host_small": split_run(dev, cpu_pool, f2s3_host_small_run)}
     t_new = time.perf_counter()
-    by_path.update(superpoint_phase(dev))
-    for icp_type in ("point2plane", "generalized"):
-        for host in (False, True):
-            by_path[f"{icp_type}_{'host' if host else 'step'}_small"] = icp_small_parity(
-                dev, icp_type, host)
+    late_states["bf16_small"] = split_run(dev, cpu_pool, bf16_small_run)
+    PHASES_S_V_S[0] += time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    late_states["superpoint_small"] = split_run(dev, cpu_pool, superpoint_small_run)
+    icp_cases = [(icp_type, host) for icp_type in ("point2plane", "generalized")
+                 for host in (False, True)]
+    for icp_type, host in icp_cases:
+        late_states[f"{icp_type}_{'host' if host else 'step'}_small"] = split_run(
+            dev, cpu_pool, icp_small_run, icp_type, host)
+    by_path["superpoint_rgb_epoch"] = superpoint_epoch_phase(dev)
     new_phase_s = time.perf_counter() - t_new
+    log_elapsed(t_start, "the small tiles' card sides")
     torch.cuda.empty_cache()
 
     # ---- 6. the production tile through the fusion runner ---------------
@@ -2839,29 +3080,7 @@ def main() -> int:
 
     render_pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
     scene_future = render_pool.submit(Scene, EVAL_IMAGE, EVAL_EXTENT, EVAL_SHIFT_PX)
-    cfg = {
-        "dataset": "brienz_tls",
-        "voxel_size_init": 0.1,
-        "level_of_superpoint": [1, 2, 3],
-        "num_min_matches_for_small_patch": 10,
-        "remove_low_quality_patch_matches": True,
-        "num_min_matches_for_quality_check": 10,
-        "thres_dist_diff": 0.5,
-        "thres_inlier_ratio": 0.15,
-        "coarse_refinement_3d_type": "nn_mutual",
-        "num_min_fine_match": 10,
-        "icp_refine": True,
-        "output_tgt2src": False,
-        "assign_type": "assign_then_nn",
-        "icp_threshold": 0.1,
-        "max_magnitude": 5,
-        "feat_patch_points": 256,
-        "feat_chunk": 2048,
-        "member_cap": 512,
-        "agg_max_points": 512,
-        "fine_max_matches": 256,
-        "global_matching_gated": True,
-    }
+    cfg = FUSION_CFG
     dips, agg = seeded_models(0, dev)
     here = os.path.dirname(os.path.abspath(__file__))
     static = core & ~moving
@@ -2879,6 +3098,8 @@ def main() -> int:
     production_recovery(out, n, core, moving, static, "phase 6 production fusion tile",
                         RECOVERY)
     ok = out["valid"]
+
+    log_elapsed(t_start, "phase 6")
 
     # ---- (w) the host tile against phase 6's runner tile -----------------
     t_new = time.perf_counter()
@@ -2926,6 +3147,8 @@ def main() -> int:
         by_path["fusion3d_patch192_knn" if "192" in label else "fusion3d_bf16"] = v_l
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
+    log_elapsed(t_start, "phases (w), (l), (t) and (u)")
+
     # ---- 5., (r), (s) scored: the CPU paths from the worker process -------
     t_new = time.perf_counter()
     for key, st in fusion_states.items():
@@ -2933,17 +3156,19 @@ def main() -> int:
     check(by_path["fusion3d_ungated_small"]["knn"] > 0, by_path)
     for st in branch_states:
         by_path[f"{st['pipeline']}_patch96_{st['priority']}_small"] = dips_branch_compare(st)
-    cpu_pool.shutdown()
     log(f"# the CPU paths of phases 5, (r) and (s) scored after {time.perf_counter() - t_new:.1f} "
         "s of waiting")
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
     # ---- 7. bench.py's RGB tile through the fusion runner ----------------
+    log_elapsed(t_start, "phase 7")
     by_path["fusion_rgb"] = fusion_rgb_tile(
         dev, dict(cfg, **RGB_CFG), dips, agg,
         (r_src, r_tgt, r_core, r_moving, pix, K_img, E_img, m_per_px),
     )
+    del r_src, r_tgt, r_core, r_moving, pix
     torch.cuda.empty_cache()
+    log_elapsed(t_start, "phase 7 done")
 
     # ---- 8. the production tile through the F2S3 runner -----------------
     filt = seeded_filter(0, dev)
@@ -2985,6 +3210,20 @@ def main() -> int:
         training_phase(dev, tmp)
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
+    # ---- 5., (u), (j), (l) scored: the rest of the worker's CPU paths -------
+    t_wait = time.perf_counter()
+    by_path["f2s3_small"] = f2s3_small_compare(late_states.pop("f2s3_small"))
+    by_path["f2s3_host_small"] = f2s3_host_small_compare(late_states.pop("f2s3_host_small"))
+    bf16_small_compare(late_states.pop("bf16_small"))
+    by_path["superpoint_small"] = superpoint_small_compare(late_states.pop("superpoint_small"))
+    for icp_type, host in icp_cases:
+        key = f"{icp_type}_{'host' if host else 'step'}_small"
+        by_path[key] = icp_small_compare(late_states.pop(key), icp_type, host)
+    cpu_pool.shutdown()
+    log(f"# the CPU paths of phases 5, (u), (j) and (l) scored after "
+        f"{time.perf_counter() - t_wait:.1f} s of waiting")
+    log_elapsed(t_start, "the small tiles scored")
+
     # A quarter-size tile through the host tile (main_f2s3 on one device:
     # unpadded clouds, uncapped supervoxel buckets); phase 11 runs it at
     # full size from the driver.
@@ -3019,6 +3258,8 @@ def main() -> int:
     check(keep.any() and np.isfinite(out["dvfs"]).all() and np.isfinite(out["magnitudes"]).all(),
           "host F2S3 outputs empty or not finite")
 
+    log_elapsed(t_start, "the host F2S3 tile")
+
     # ---- (q) two tile streams on the one card: the F2S3 runner -------------
     t_new = time.perf_counter()
     by_path.update(f2s3_streams_phase(dev, dips, filt, n_core // 16, margin / 2, halo, density))
@@ -3032,6 +3273,8 @@ def main() -> int:
     by_path["hard_host"] = hard_scene_phase(dev, dips, agg, here)
     PHASES_W_Y_S[0] += time.perf_counter() - t_new
 
+    log_elapsed(t_start, "phases (q), (x) and (y)")
+
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))
     log(f"# phases (j)-(m) in the main script: {new_phase_s + NEW_PHASE_S[0]:.1f} s ({card()})")
@@ -3044,7 +3287,11 @@ def main() -> int:
         "included")
     for name, row in kernels.items():
         row["ms_before"] = MS_BEFORE[name]
-        row["launches"] = by_path["cli_f2s3"][name]
+        # Launches on the main path, bench.py's RGB tile through the fusion
+        # runner (phase 7); kernel 3 is not on it (the gated match is plain,
+        # as in JAX), so its count is the F2S3 production tile's (phase 8).
+        row["launches_path"] = "fusion_rgb" if by_path["fusion_rgb"][name] else "f2s3"
+        row["launches"] = by_path[row["launches_path"]][name]
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -8,10 +8,14 @@ gives each cell's run. The join itself is the grid-window kernel
 
 The radius-growing loops (``knn_grid_traced``, ``median_nn_distance_traced``)
 are Python ``while`` loops over tensors; each attempt's control value is
-read back once. They keep a truncated window's result, as the JAX package's
-traced callers do. ``nn1_spatial`` is the JAX package's eager caller: a
-radius step whose kernel call reports overflow reruns every query through
-the exact gather join ``hash_grid_knn_join`` (the JAX ``_hash_grid_knn_xla``).
+read back once. They run kernel 2 on a fitted window
+(``hashgrid_cuda.fitted_window``), so no query block is truncated: the JAX
+package's traced callers keep a truncated window's result (its window is a
+static TPU shape), and on tiles whose blocks fit the default 32 768
+positions the two are equal. ``nn1_spatial`` is the JAX package's eager
+caller: a radius step whose kernel call reports overflow reruns every query
+through the exact gather join ``hash_grid_knn_join`` (the JAX
+``_hash_grid_knn_xla``).
 A search for more than 32 neighbours takes that join too, as JAX's does:
 the DIPs 'knn' branch (k = ``feat_k_max``, 512 by default).
 
@@ -117,14 +121,16 @@ def build_hash_grid(ref: torch.Tensor, cell, ref_mask=None, *,
 
 
 def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 32,
-                  query_block: int = 8192, exclude_self: bool = False):
+                  query_block: int = 8192, exclude_self: bool = False,
+                  fit_window: bool = False):
     """k nearest reference points within ``radius`` (grid.cell >= radius).
 
     k <= 32 runs kernel 2: the query count is padded to ``bucket_size``
     (padded queries ride along in the kernel's blocks and are sliced off).
     Blocks whose window overflowed are truncated, as under the JAX
-    package's traced callers; a caller that must stay exact reruns through
-    ``hash_grid_knn_join``. k > 32 runs that join with ``cap`` and
+    package's traced callers, unless ``fit_window`` grows the window to
+    the largest block's; a caller that must stay exact without it reruns
+    through ``hash_grid_knn_join``. k > 32 runs that join with ``cap`` and
     ``query_block``, as the JAX function does.
 
     Returns ((n, k) squared distances, +inf past radius; (n, k) original
@@ -139,7 +145,8 @@ def hash_grid_knn(query, grid: HashGrid, radius, k: int = 1, *, cap: int = 32,
     qp = query
     if nb != n:
         qp = torch.cat([query, query.new_zeros((nb - n, 3))])
-    d, i, ov = hash_grid_knn_window(qp, grid, radius, k, exclude_self=exclude_self)
+    d, i, ov = hash_grid_knn_window(qp, grid, radius, k, exclude_self=exclude_self,
+                                    fit=fit_window)
     return d[:n], i[:n], ov
 
 
@@ -284,7 +291,7 @@ def knn_grid_traced(query, ref, k: int, r0=None, ref_mask=None,
             break
         grid = build_hash_grid(ref, radius, rv)
         d, i, ov = hash_grid_knn(query, grid, radius, k, cap=cap, query_block=query_block,
-                                 exclude_self=exclude_self)
+                                 exclude_self=exclude_self, fit_window=True)
         todo = ~torch.isfinite(best_d[:, k - 1])
         best_d[todo] = d[todo]
         best_i[todo] = i[todo]
@@ -314,7 +321,7 @@ def median_nn_distance_traced(points, mask=None, *, max_doublings: int = 8):
     found, it = 0, 0
     while 2 * found <= cnt and it < max_doublings:
         grid = build_hash_grid(points, radius, valid)
-        d, _, ov = hash_grid_knn(points, grid, radius, 1, exclude_self=True)
+        d, _, ov = hash_grid_knn(points, grid, radius, 1, exclude_self=True, fit_window=True)
         dd = torch.sqrt(d[:, 0])
         ok = valid & torch.isfinite(dd)
         med = _masked_median(dd, ok)

@@ -17,7 +17,20 @@ and runs the plain PyTorch version, kept beside it, for tensors on the
 CPU. ``LAUNCHES`` (``cuda_build.LAUNCHES``) counts kernel launches. Every
 window function returns its overflow count: the blocks whose true window
 exceeded ``window`` (those results are truncated, as on the TPU, where the
-traced callers cannot fall back either).
+window is a static VMEM shape and the traced callers cannot fall back
+either).
+
+A block's window is the run of cells between its queries' componentwise
+lowest and highest cells, and the linear cell id puts x first: a block
+whose queries cross from one x-slab of cells to the next spans four whole
+slabs, so its window grows with the tile's y extent, not only with the
+density. Callers that must not truncate ask for a fitted window
+(``window_prologue(fit_chunk=...)``, ``hash_grid_knn_window(fit=True)``;
+``radius_sample_window`` always fits): the scan window grows,
+in whole chunks, to the largest block's true window
+(``fitted_window``). Blocks within the default 32 768 positions scan
+exactly as before (same positions, same strata, same block centres), so
+the results equal the fixed window's wherever that window holds.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ __all__ = [
     "LAUNCHES",
     "Window",
     "window_prologue",
+    "fitted_window",
     "hash_grid_knn_window",
     "grid_knn_blocks",
     "grid_knn_plain",
@@ -77,11 +91,21 @@ def _lin(c: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
     return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
 
 
-def window_prologue(query, grid, block: int = 512, window: int = 32768) -> Window:
+def fitted_window(w_len_max: int, window: int, chunk: int) -> int:
+    """The scan window that holds every block: ``window``, or the largest
+    block's true window length rounded up to whole ``chunk``s when that
+    is longer."""
+    return max(int(window), -(-int(w_len_max) // chunk) * chunk)
+
+
+def window_prologue(query, grid, block: int = 512, window: int = 32768, *,
+                    fit_chunk: int | None = None) -> Window:
     """Sort queries by linear cell id (stable), pad to whole blocks by
     repeating the last sorted query, derive each block's contiguous
     window from its componentwise cell bounds, and pack the cell-sorted
-    references (``_window_prologue`` in the JAX package)."""
+    references (``_window_prologue`` in the JAX package). With
+    ``fit_chunk`` the window grows to ``fitted_window(max true window,
+    window, fit_chunk)``, so no block overflows (one read-back)."""
     n = query.shape[0]
     m = grid.points.shape[0]
     dev = query.device
@@ -105,6 +129,8 @@ def window_prologue(query, grid, block: int = 512, window: int = 32768) -> Windo
     w_hi = grid.starts[_lin(cmax, dims).long() + 1]
     w_lo_al = torch.div(w_lo, _LANES, rounding_mode="floor") * _LANES
     w_len = w_hi - w_lo_al
+    if fit_chunk is not None:
+        window = fitted_window(int(w_len.max()), window, fit_chunk)
     overflow = (w_len > window).sum().to(torch.int32)
 
     m_pad = (-(-max(m, 1) // _LANES)) * _LANES + window
@@ -256,14 +282,15 @@ def grid_knn_blocks(win: Window, k: int, *, chunk: int = 2048,
 
 def hash_grid_knn_window(query, grid, radius, k: int = 1, *, block: int = 512,
                          window: int = 32768, chunk: int = 2048,
-                         exclude_self: bool = False):
+                         exclude_self: bool = False, fit: bool = False):
     """k nearest references within ``radius`` of each query: ((n, k)
     squared distances ascending, +inf past radius; (n, k) original ref
-    indices, 0 where invalid; () overflow count)."""
+    indices, 0 where invalid; () overflow count). ``fit``: the window
+    grows to the largest block's (module docstring), overflow 0."""
     if window % chunk:
         raise ValueError("window must be a multiple of chunk")
     n = query.shape[0]
-    win = window_prologue(query, grid, block, window)
+    win = window_prologue(query, grid, block, window, fit_chunk=chunk if fit else None)
     d, i = grid_knn_blocks(win, k, chunk=chunk, exclude_self=exclude_self)
     radius = torch.as_tensor(radius, dtype=torch.float32, device=query.device)
     bad = d > radius * radius
@@ -429,13 +456,15 @@ def radius_sample_window(query, grid, radius, num_points: int = 256,
                          priority: str = "random"):
     """Up to ``num_points`` in-radius references per query (the query
     point itself excluded): ((n, P) idx, (n, P) bool valid, (n, P, 3)
-    xyz, () overflow). ``radius`` is a runtime value."""
+    xyz, () overflow). ``radius`` is a runtime value. The scan window is
+    fitted to the largest block's (module docstring; ``window`` is the
+    least it scans), so the overflow count is 0."""
     if num_points % _LANES:
         raise ValueError(f"num_points must be a multiple of {_LANES}")
     if window % chunk:
         raise ValueError("window must be a multiple of chunk")
     n = query.shape[0]
-    win = window_prologue(query, grid, block, window)
+    win = window_prologue(query, grid, block, window, fit_chunk=chunk)
     r2 = torch.as_tensor(radius, dtype=torch.float32, device=query.device) ** 2
     i, v, x = radius_sample_blocks(
         win, block_centres(win), r2, num_points, seed, priority, chunk=chunk

@@ -44,9 +44,10 @@ def supervoxel_graph(points, resolution, mask=None, *, k_neighbors: int = 15):
     ``resolution``.
 
     n <= 8192: exact brute force. Larger clouds: the grid-window sampler
-    (kernel 1, ``'distance'`` priority, 128 candidates) on the cloud
-    padded to ``bucket_size(n)``, then the k nearest candidates (stable
-    sort: ties to the lower candidate slot, as ``lax.top_k``).
+    (kernel 1, ``'distance'`` priority, 128 candidates, a window fitted to
+    the largest query block's) on the cloud padded to ``bucket_size(n)``,
+    then the k nearest candidates (stable sort: ties to the lower
+    candidate slot, as ``lax.top_k``).
     """
     n = points.shape[0]
     dev = points.device

@@ -8,7 +8,10 @@ Port of ``fusion4landslide_tpu.pipelines.f2s3`` (reference
   the JAX function's accelerator branch: one radius sampler sweep (kernel
   1, ``'random'`` priority, seed 0 — the sampler's fixed seed matches the
   reference's ``setup_seed(0)``) draws each patch's in-radius subset, then
-  LRF + PointNet run in chunks. The whole padded query cloud is sorted and
+  LRF + PointNet run in chunks. The sampler's window is fitted to the
+  largest query block's (``hashgrid_cuda.fitted_window``: no block is
+  truncated; JAX's TPU window truncates the blocks that exceed it, on
+  tiles of ~1M core points). The whole padded query cloud is sorted and
   blocked ONCE, exactly as the window prologue does (kernel 1 centres on
   each 512-query block's mean, so re-blocking per chunk would move
   borderline radius decisions); the kernel and the network then run over
@@ -76,6 +79,9 @@ __all__ = [
 
 #: Query blocks per sampler launch (65536 queries at block 512).
 _SAMPLE_BLOCKS = 128
+#: Window positions per sampler scan step; the fitted window is a whole
+#: number of them.
+_SAMPLE_CHUNK = 2048
 
 
 class DipsDraws(NamedTuple):
@@ -132,7 +138,7 @@ def compute_dips_features(model, core_pts, halo_pts, radius, *, k_max: int = 512
     radius_q = torch.as_tensor(radius, dtype=torch.float32, device=dev)
 
     grid = build_hash_grid(halo_p, radius_q, hmask_p)
-    win = window_prologue(q, grid)
+    win = window_prologue(q, grid, fit_chunk=_SAMPLE_CHUNK)
     cen = block_centres(win)
     r2 = radius_q**2
     n_valid = n if n_core is None else int(n_core)
@@ -144,7 +150,7 @@ def compute_dips_features(model, core_pts, halo_pts, radius, *, k_max: int = 512
         if not bool(keep.any()):
             continue
         _, valid, xyz = radius_sample_blocks(
-            win, cen, r2, patch_points, 0, "random", b0=b0, b1=b1
+            win, cen, r2, patch_points, 0, "random", chunk=_SAMPLE_CHUNK, b0=b0, b1=b1
         )
         sel = torch.nonzero(keep).squeeze(1)
         qpos = win.qpos[b0 * win.block:b1 * win.block]
