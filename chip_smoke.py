@@ -45,7 +45,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    (r), (s) and (u)) runs in a worker process of its own (``spawn``, two
    cores left to the card's process) while the card goes on: the fusion
    steps', (r)'s and (s)'s are scored after phase (u)'s production fusion
-   tile, the F2S3 tiles', (j)'s, (l)'s and (u)'s after phase (v);
+   tile, the F2S3 tiles', (j)'s, (l)'s and (u)'s after phases (q), (x)
+   and (y), before the driver phases;
 6. one production-shaped tile (a 250 000-point core at 100 pts/m^2 with
    symmetric 10 m margins, ~490 k points per cloud, bucket 524288) through
    ``run_fusion3d_tiles`` with the ``fusion_3d_brienz.yaml`` statics and
@@ -81,10 +82,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    1.45 M points per epoch that the tiler cuts into two tiles (kernels 1
    and 2 launched, every tile's ``c2f_*`` tables, recovery per tile
    between the floors ``RECOVERY_CLI``, then a second run that skips
-   both tiles); ``main_fusion`` RGB+3D (``fusion_brienz.yaml``) on a
-   one-tile epoch seen by ``bench.py``'s 4096^2 nadir camera, with its
-   pixel matches in ``img_matching_results/`` (``bench.py``'s targets,
-   ``RECOVERY_RGB``); ``main_f2s3`` (``f2s3_brienz.yaml``) on the
+   both tiles); ``main_fusion`` RGB+3D (``fusion_brienz.yaml``, phase
+   10) on ``FULL_TILE_EPOCH``, which the shipped config keeps as one tile
+   of 972 456 / 972 286 points after its 0.1 m voxel filter (the shipped
+   tile size, on the host tile), seen by ``bench.py``'s 4096^2 nadir
+   camera, with pixel matches for half the source points in
+   ``img_matching_results/`` (``bench.py``'s targets, ``RECOVERY_RGB``;
+   window overflow 0; the tile's points and buckets, process start, the
+   host tile's main stages, peak and free memory after the run);
+   ``main_f2s3`` (``f2s3_brienz.yaml``) on the
    two-tile epoch (all three kernels, the ``f2s3_*`` tables,
    ``RECOVERY_CLI_F2S3``); each prints seconds per tile with the host
    tile's stage times, tiling and reading seconds, peak memory and
@@ -216,6 +222,7 @@ from __future__ import annotations
 import json
 import multiprocessing as mp
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -759,7 +766,9 @@ def fusion_rgb_tile(dev, cfg: dict, dips, agg, tile: tuple, label: str = "RGB ti
     out = res[0]
     log(f"# {label}: {step_s:.2f} s, peak {peak:.2f} GiB, after the step {free / 2**30:.2f} of "
         f"{total / 2**30:.2f} GiB free, overflow {out['overflow_by_source']}, n_dropped "
-        f"{out['n_dropped']}, n_c2d {out['n_c2d']}, launches {launches} ({card()})")
+        f"{out['n_dropped']}, n_c2d {out['n_c2d']}, voxels {out['n_vox']} (DIPs "
+        f"{1e6 * timings['dips_features'] / sum(out['n_vox']):.2f} us a voxel), launches "
+        f"{launches} ({card()})")
     log(f"# {label} stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
     log(f"# {label} tables: {written}")
     check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
@@ -957,10 +966,17 @@ CLI_EPOCH_HEIGHT = 50.0
 CLI_TILE_PTS = 400_000
 #: The shipped configs' ``min_pts_per_tile`` (phase (p) tiles with it).
 CLI_TILE_MIN_PTS = 5000
-#: The RGB driver phase's one-tile epoch (m): ~353 k points after the
-#: voxel filter, near ``bench.py``'s RGB tile; zero offset, since the
-#: camera projects world coordinates in float32.
+#: The one-tile epoch (m) of the superpoint driver phase (k) and of the
+#: rgb_guided phases: ~353 k points after the voxel filter; zero offset,
+#: since the cameras project world coordinates in float32.
 RGB_EPOCH = (70.0, 70.0)
+#: The RGB+3D driver phase's epoch (m, phase 10), at zero offset for the
+#: same reason: 1 345 600 points an epoch, which the shipped
+#: ``fusion_brienz.yaml`` keeps whole, one tile of 972 456 / 972 286
+#: points after its 0.1 m voxel filter, under its ``max_pts_per_tile`` of
+#: 1 000 000 (117 m gives 989 355, 118 m two tiles):
+#: ``tests/test_torch_full_tile.py`` holds it to 950 000-1 000 000.
+FULL_TILE_EPOCH = (116.0, 116.0)
 
 
 def write_epoch(root: str, width: float, height: float, offset) -> tuple:
@@ -974,6 +990,94 @@ def write_epoch(root: str, width: float, height: float, offset) -> tuple:
     write_ply(os.path.join(root, "raw_pcd", "epoch1.ply"), src)
     write_ply(os.path.join(root, "raw_pcd", "epoch2.ply"), tgt)
     return src, tgt, offset[1] + height / 2
+
+
+def write_rgb_epoch(root: str, width: float, height: float) -> tuple:
+    """``write_epoch`` at zero offset with the RGB+3D driver's image inputs
+    under ``root``: the 4096^2 nadir camera's intrinsics and poses, and
+    pixel matches for half the source points (``synth_image_channel``,
+    ``bench.py``'s recipe) as precomputed matches. Returns (src,
+    moving_y, (M, 4) pixel matches, metres per pixel)."""
+    from fusion4landslide_tpu_torch.synth import IMG_SIZE, PLANTED_SHIFT, synth_image_channel
+
+    src, _, moving_y = write_epoch(root, width, height, (0.0, 0.0, 0.0))
+    tgt_of_src = src.copy()
+    tgt_of_src[src[:, 1] > moving_y] += PLANTED_SHIFT
+    pix, K, E, m_per_px = synth_image_channel(src.astype(np.float32),
+                                              tgt_of_src.astype(np.float32),
+                                              len(src) // 2, IMG_SIZE)
+    os.makedirs(os.path.join(root, "image", "transformations"))
+    os.makedirs(os.path.join(root, "img_matching_results"))
+    np.savetxt(os.path.join(root, "image", "camera_intrinsic.txt"), K, delimiter=" ")
+    for epoch in (1, 2):
+        np.savetxt(os.path.join(root, "image", "transformations", f"pose_epoch{epoch}.txt"),
+                   np.linalg.inv(E.astype(np.float64)), delimiter=" ")
+    np.savetxt(os.path.join(root, "img_matching_results", "pixel_matches.txt"), pix,
+               fmt="%.6f")
+    return src, moving_y, pix, m_per_px
+
+
+#: The stages of the host RGB+3D tile phase 10 prints on a line of their own.
+RGB_DRIVER_STAGES = ("median_resolution", "dips_features", "global_3d_matches", "rgb_2d",
+                     "partition_l1", "sparse_assign", "write_tables")
+
+
+def fusion_rgb_driver_phase(tmp: str, weights: str) -> dict:
+    """Phase 10: ``main_fusion`` RGB+3D with ``fusion_brienz.yaml`` (only
+    paths, file names and the camera's ``image_size`` changed) on
+    ``FULL_TILE_EPOCH``, one tile at the shipped size on the host tile;
+    returns its launches."""
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+    from fusion4landslide_tpu_torch.ops.segments import bucket_size
+    from fusion4landslide_tpu_torch.synth import IMG_SIZE
+
+    data = os.path.join(tmp, "full_tile_epoch")
+    t0 = time.perf_counter()
+    src, moving_y, pix, m_per_px = write_rgb_epoch(data, *FULL_TILE_EPOCH)
+    changes = {"input_root": data, "output_dir": os.path.join(tmp, "fusion_rgb"),
+               "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply",
+               "image_size": list(IMG_SIZE)}
+    cfg = driver_config(DRIVER_CONFIGS["cli_fusion_rgb"], os.path.join(tmp, "rgb.yaml"), changes)
+    log(f"# phase main_fusion RGB+3D: {DRIVER_CONFIGS['cli_fusion_rgb']} with "
+        f"{sorted(changes)} changed; {FULL_TILE_EPOCH[0]:g} x {FULL_TILE_EPOCH[1]:g} m epoch, "
+        f"{len(src)} points, written in {time.perf_counter() - t0:.2f} s; {len(pix)} pixel "
+        f"matches, a {IMG_SIZE[0]}^2 camera, {m_per_px:.5f} m per pixel")
+    summary, stdout = run_driver("main_fusion", cfg)
+    log_driver("main_fusion RGB+3D", summary)
+    check(summary["launches"]["grid_knn"] > 0 and summary["launches"]["radius_sample"] > 0,
+          summary["launches"])
+    check(sum(summary["overflow"].values()) == 0, f"window overflow {summary['overflow']}")
+    vox = re.search(r"median_res=([\d.]+), voxels src=(\d+) tgt=(\d+)", stdout)
+    check(vox, "main_fusion logged no voxel counts")
+    n_vox = [int(vox.group(2)), int(vox.group(3))]
+    out_root = os.path.join(tmp, "fusion_rgb", "demo_run")
+    check(list(summary["tile_s"]) == ["0"], summary["tile_s"])
+    sizes = [len(read_ply(os.path.join(out_root, "tiled_data", "non_overlap",
+                                       f"{side}_tile_0.ply")).points)
+             for side in ("source", "target")]
+    check(all(950_000 <= k <= 1_000_000 for k in sizes), f"tile sizes {sizes}")
+    stages = summary["stages_s"]["0"]
+    log(f"# main_fusion RGB+3D tile 0 ({card()}): source / target {sizes[0]} / {sizes[1]} "
+        f"points in buckets {bucket_size(sizes[0])} / {bucket_size(sizes[1])}; tile "
+        f"{summary['tile_s']['0']:.2f} s, tiling {summary.get('tiling_s', 0.0):.2f} s, reading "
+        f"tiles {summary['read_tiles_s']:.2f} s, process start "
+        f"{summary['wall_s'] - summary['total_s']:.2f} s; stages (s) "
+        + json.dumps({k: round(stages[k], 2) for k in RGB_DRIVER_STAGES if k in stages})
+        + f"; median resolution {vox.group(1)} m, voxels {n_vox} (DIPs "
+        f"{1e6 * stages['dips_features'] / sum(n_vox):.2f} us a voxel); peak "
+        f"{summary['peak_mem_gib']:.2f} GiB, free / total after the run "
+        f"{summary['mem_free_total_gib']} GiB")
+    tables = tile_tables(out_root, "0", "c2f_")
+    check("c2f_dvfms_from_global_2d_src2tgt_wo_pruning_visualize_tile_0.txt" in tables, tables)
+    rec = driver_recovery(out_root, "0", "c2f_dvfs_src2tgt_tile_0.txt", moving_y)
+    tol = RECOVERY_RGB["err_floor_m"] + RECOVERY_RGB["err_per_m_per_px"] * m_per_px
+    log(f"# main_fusion RGB+3D tables {tables}; recovery {json.dumps(rec)} (bench.py's "
+        f"targets: core assigned > {RECOVERY_RGB['core_assigned']}, median errors < "
+        f"{tol:.5f} m)")
+    check(rec["core_assigned"] > RECOVERY_RGB["core_assigned"], rec)
+    check(rec["moving_err_m"] is not None and rec["moving_err_m"] < tol, rec)
+    check(rec["static_err_m"] is not None and rec["static_err_m"] < tol, rec)
+    return summary["launches"]
 
 
 #: The keys a driver phase may add to a shipped config: no shipped YAML
@@ -1028,8 +1132,6 @@ def run_driver(module: str, cfg_path: str) -> tuple[dict, str]:
 
 def tile_tables(out_root: str, tid: str, prefix: str) -> list[str]:
     """The result tables of one tile whose names start with ``prefix``."""
-    import re
-
     results = os.path.join(out_root, "results")
     own = re.compile(rf"tile_{tid}(\D|$)")
     return sorted(os.path.relpath(os.path.join(d, f), results)
@@ -1071,7 +1173,7 @@ def driver_phases(dips, agg, filt) -> dict:
     """Phases 9-11: the drivers from files on disk, as subprocesses on
     the card; returns their launches by path."""
     from fusion4landslide_tpu_torch.models.convert import write_reference_checkpoints
-    from fusion4landslide_tpu_torch.synth import DRIVER_EPOCH, IMG_SIZE, PLANTED_SHIFT, synth_image_channel
+    from fusion4landslide_tpu_torch.synth import DRIVER_EPOCH
 
     here = os.path.dirname(os.path.abspath(__file__))
     by_path = {}
@@ -1125,47 +1227,10 @@ def driver_phases(dips, agg, filt) -> dict:
         native_tiler_phase(tmp, data, summary.get("tiling_s"))
         PHASES_N_R_S[0] += time.perf_counter() - t_new
 
-        # ---- 10. main_fusion, RGB+3D, one tile ----------------------------
+        # ---- 10. main_fusion, RGB+3D, one tile at the shipped size ---------
+        by_path["cli_fusion_rgb"] = fusion_rgb_driver_phase(tmp, weights)
         rgb_data = os.path.join(tmp, "rgb_epoch")
-        r_src, _, r_moving_y = write_epoch(rgb_data, *RGB_EPOCH, (0.0, 0.0, 0.0))
-        tgt_of_src = r_src.copy()
-        tgt_of_src[r_src[:, 1] > r_moving_y] += PLANTED_SHIFT
-        pix, K, E, m_per_px = synth_image_channel(r_src.astype(np.float32),
-                                                  tgt_of_src.astype(np.float32),
-                                                  len(r_src) // 2, IMG_SIZE)
-        os.makedirs(os.path.join(rgb_data, "image", "transformations"))
-        os.makedirs(os.path.join(rgb_data, "img_matching_results"))
-        np.savetxt(os.path.join(rgb_data, "image", "camera_intrinsic.txt"), K, delimiter=" ")
-        for epoch in (1, 2):
-            np.savetxt(os.path.join(rgb_data, "image", "transformations", f"pose_epoch{epoch}.txt"),
-                       np.linalg.inv(E.astype(np.float64)), delimiter=" ")
-        np.savetxt(os.path.join(rgb_data, "img_matching_results", "pixel_matches.txt"), pix,
-                   fmt="%.6f")
-        changes = {"input_root": rgb_data, "output_dir": os.path.join(tmp, "fusion_rgb"),
-                   "weight_dir": weights, "src_pcd": "epoch1.ply", "tgt_pcd": "epoch2.ply",
-                   "image_size": list(IMG_SIZE)}
-        cfg = driver_config(DRIVER_CONFIGS["cli_fusion_rgb"], os.path.join(tmp, "rgb.yaml"),
-                            changes)
-        log(f"# phase main_fusion RGB+3D: {DRIVER_CONFIGS['cli_fusion_rgb']} with "
-            f"{sorted(changes)} changed; {len(pix)} pixel matches, a {IMG_SIZE[0]}^2 camera, "
-            f"{m_per_px:.5f} m per pixel")
-        summary, _ = run_driver("main_fusion", cfg)
-        log_driver("main_fusion RGB+3D", summary)
-        by_path["cli_fusion_rgb"] = summary["launches"]
-        check(summary["launches"]["grid_knn"] > 0 and summary["launches"]["radius_sample"] > 0,
-              summary["launches"])
-        out_root = os.path.join(tmp, "fusion_rgb", "demo_run")
-        check(list(summary["tile_s"]) == ["0"], summary["tile_s"])
-        tables = tile_tables(out_root, "0", "c2f_")
-        check("c2f_dvfms_from_global_2d_src2tgt_wo_pruning_visualize_tile_0.txt" in tables, tables)
-        rec = driver_recovery(out_root, "0", "c2f_dvfs_src2tgt_tile_0.txt", r_moving_y)
-        tol = RECOVERY_RGB["err_floor_m"] + RECOVERY_RGB["err_per_m_per_px"] * m_per_px
-        log(f"# main_fusion RGB+3D tables {tables}; recovery {json.dumps(rec)} (bench.py's "
-            f"targets: core assigned > {RECOVERY_RGB['core_assigned']}, median errors < "
-            f"{tol:.5f} m)")
-        check(rec["core_assigned"] > RECOVERY_RGB["core_assigned"], rec)
-        check(rec["moving_err_m"] is not None and rec["moving_err_m"] < tol, rec)
-        check(rec["static_err_m"] is not None and rec["static_err_m"] < tol, rec)
+        _, _, r_moving_y = write_epoch(rgb_data, *RGB_EPOCH, (0.0, 0.0, 0.0))
 
         # ---- (k) main_fusion 3D-only with partition_type: superpoint ------
         t_new = time.perf_counter()
@@ -3028,7 +3093,7 @@ def main() -> int:
     # works on: the fusion steps', (r)'s and (s)'s are scored after the
     # production fusion tiles, the rest (phase 5's F2S3 tiles, (u)'s
     # descriptors, (j)'s and (l)'s small tiles, queued behind them) after
-    # phase 7.
+    # phases (q), (x) and (y).
     cpu_pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
     fusion_states = {
         "fusion3d_small": fusion_small_card_side(dev, cpu_pool, global_gated=True),
@@ -3210,20 +3275,6 @@ def main() -> int:
         training_phase(dev, tmp)
     PHASES_S_V_S[0] += time.perf_counter() - t_new
 
-    # ---- 5., (u), (j), (l) scored: the rest of the worker's CPU paths -------
-    t_wait = time.perf_counter()
-    by_path["f2s3_small"] = f2s3_small_compare(late_states.pop("f2s3_small"))
-    by_path["f2s3_host_small"] = f2s3_host_small_compare(late_states.pop("f2s3_host_small"))
-    bf16_small_compare(late_states.pop("bf16_small"))
-    by_path["superpoint_small"] = superpoint_small_compare(late_states.pop("superpoint_small"))
-    for icp_type, host in icp_cases:
-        key = f"{icp_type}_{'host' if host else 'step'}_small"
-        by_path[key] = icp_small_compare(late_states.pop(key), icp_type, host)
-    cpu_pool.shutdown()
-    log(f"# the CPU paths of phases 5, (u), (j) and (l) scored after "
-        f"{time.perf_counter() - t_wait:.1f} s of waiting")
-    log_elapsed(t_start, "the small tiles scored")
-
     # A quarter-size tile through the host tile (main_f2s3 on one device:
     # unpadded clouds, uncapped supervoxel buckets); phase 11 runs it at
     # full size from the driver.
@@ -3274,6 +3325,20 @@ def main() -> int:
     PHASES_W_Y_S[0] += time.perf_counter() - t_new
 
     log_elapsed(t_start, "phases (q), (x) and (y)")
+
+    # ---- 5., (u), (j), (l) scored: the rest of the worker's CPU paths -------
+    t_wait = time.perf_counter()
+    by_path["f2s3_small"] = f2s3_small_compare(late_states.pop("f2s3_small"))
+    by_path["f2s3_host_small"] = f2s3_host_small_compare(late_states.pop("f2s3_host_small"))
+    bf16_small_compare(late_states.pop("bf16_small"))
+    by_path["superpoint_small"] = superpoint_small_compare(late_states.pop("superpoint_small"))
+    for icp_type, host in icp_cases:
+        key = f"{icp_type}_{'host' if host else 'step'}_small"
+        by_path[key] = icp_small_compare(late_states.pop(key), icp_type, host)
+    cpu_pool.shutdown()
+    log(f"# the CPU paths of phases 5, (u), (j) and (l) scored after "
+        f"{time.perf_counter() - t_wait:.1f} s of waiting")
+    log_elapsed(t_start, "the small tiles scored")
 
     # ---- 9.-11. the drivers from files on disk ---------------------------
     by_path.update(driver_phases(dips, agg, filt))

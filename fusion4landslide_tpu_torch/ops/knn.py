@@ -17,9 +17,16 @@ ties go to the lower reference index, as ``lax.top_k`` breaks them. Above
 blocks, each against the references in its bounding box grown until every
 row's k-th distance lies inside it: the same distances and keys over a
 candidate set that provably holds every row's k nearest, so the answer is
-the brute-force one.
+the brute-force one. A 1-NN above ``_LOCAL_PAIRS`` (the host RGB tiles'
+pixel chaining) takes the same blocks with the distances of its own
+slabs (``pairwise_sqdist``), so it returns their (distance, index)
+minimum.
 ``median_nn_distance`` is the host tiles' point-cloud resolution: the
-grid loop above 4096 points, brute force below.
+grid loop above 4096 points, brute force below. Its grid search fits
+kernel 2's window to the largest query block (``hash_grid_knn(
+fit_window=True)``), so no block is truncated and the median is the exact
+one, as the JAX function's on the CPU; blocks within the default window
+scan as they would without fitting.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from fusion4landslide_tpu_torch.ops.knn_cuda import MAX_K, knn_feature
 from fusion4landslide_tpu_torch.ops.segments import bucket_size
 
 __all__ = ["pairwise_sqdist", "knn", "nn1", "nn1_xla_rounded", "median_nn_distance",
-           "radius_neighbors"]
+           "median_nn_distance_counted", "radius_neighbors"]
 
 _DIFF_DIM_MAX = 8
 _QUERY_BLOCK = 4096  # query rows per distance slab, at most
@@ -74,10 +81,15 @@ def knn(query, ref, k: int, ref_mask=None, *, exclude_self: bool = False):
         if ref_mask is None
         else ref_mask.to(torch.bool)
     )
+    local = query.dim() == ref.dim() == 2 and query.shape[0] * m > _LOCAL_PAIRS
     if k > 1:
-        if query.dim() == 2 and query.shape[0] * m > _LOCAL_PAIRS:
+        if local:
             return _knn_local(query, ref, k, mask, exclude_self)
         return _knn_topk_merge(query, ref, k, mask, exclude_self)
+    if local:
+        # The same (distance, index) minimum as the slabs below, the
+        # distances formed as ``pairwise_sqdist`` forms them.
+        return _knn_local(query, ref, 1, mask, exclude_self, dist=pairwise_sqdist)
     block = max(1, min(_QUERY_BLOCK, _SLAB_ELEMS // max(m, 1)))
     outs_d, outs_i = [], []
     for s in range(0, max(query.shape[-2], 1), block):
@@ -106,24 +118,29 @@ def _bad(mask, r0: int, nr: int, c0: int, nc: int, exclude_self: bool):
 _INF_KEY = 0x7F800000 << 32  # the key of (+inf, index 0)
 
 
-def _topk_keys(q, r, k: int, bad_fn, r_cols):
+def _xla_sqdist(q, r):
+    """(..., nq, nr) squared distances in the JAX CPU build's rounding."""
+    diff = q[..., :, None, :] - r[..., None, :, :]
+    return xla_sqnorm(diff) if q.shape[-1] in (2, 3) else (diff * diff).sum(-1)
+
+
+def _topk_keys(q, r, k: int, bad_fn, r_cols, dist=_xla_sqdist):
     """(..., nq, k) smallest int64 keys (float32 bits of the squared
-    distance << 32) | reference index, over ``r`` in chunks with a running
-    merge. The key order equals (distance, index) order for distances >= 0,
-    so ``torch.topk`` selects exactly what ``lax.top_k`` does and no two
-    keys tie. ``bad_fn(c0, nc)`` masks candidates; ``r_cols`` (m,) are the
-    references' indices in the caller's numbering."""
+    distance ``dist(q, chunk)`` << 32) | reference index, over ``r`` in
+    chunks with a running merge. The key order equals (distance, index)
+    order for distances >= 0, so ``torch.topk`` selects exactly what
+    ``lax.top_k`` does and no two keys tie. ``bad_fn(c0, nc)`` masks
+    candidates; ``r_cols`` (m,) are the references' indices in the
+    caller's numbering."""
     lead = torch.broadcast_shapes(q.shape[:-2], r.shape[:-2])
-    m, d = r.shape[-2], q.shape[-1]
+    m = r.shape[-2]
     chunk = max(1, min(_REF_CHUNK, m))
     best = torch.tensor(_INF_KEY, dtype=torch.int64, device=q.device).expand(
         *lead, q.shape[-2], k)
     for c0 in range(0, m, chunk):
         rc = r[..., c0:c0 + chunk, :]
-        diff = q[..., :, None, :] - rc[..., None, :, :]
-        dist = xla_sqnorm(diff) if d in (2, 3) else (diff * diff).sum(-1)
-        dist = torch.where(bad_fn(c0, rc.shape[-2]), torch.inf, dist)
-        key = (dist.view(torch.int32).to(torch.int64) << 32) | r_cols[c0:c0 + chunk]
+        dc = torch.where(bad_fn(c0, rc.shape[-2]), torch.inf, dist(q, rc))
+        key = (dc.view(torch.int32).to(torch.int64) << 32) | r_cols[c0:c0 + chunk]
         best = torch.topk(torch.cat([best, key], dim=-1), k, dim=-1, largest=False).values
     return best
 
@@ -151,8 +168,9 @@ def _knn_topk_merge(query, ref, k: int, mask, exclude_self: bool):
     return _decode(torch.cat(outs, dim=-2))
 
 
-def _knn_local(query, ref, k: int, mask, exclude_self: bool):
-    """The k > 1 search in spatially compact query blocks (2-d inputs).
+def _knn_local(query, ref, k: int, mask, exclude_self: bool, dist=_xla_sqdist):
+    """The search in spatially compact query blocks (2-d inputs: (n, d)
+    points; squared distances by ``dist``, see ``_topk_keys``).
     Queries are ordered along a serpentine path through a grid of cells
     holding ~``_LOCAL_BLOCK`` points each; a block's candidates are the
     valid references in its bounding box grown by r (1.25x the 90th
@@ -184,7 +202,7 @@ def _knn_local(query, ref, k: int, mask, exclude_self: bool):
     probe = torch.linspace(0, n - 1, min(n, _PROBE_ROWS), device=dev).long()
     best = _topk_keys(query[probe], ref[cand], k,
                       lambda c0, nc: (probe[:, None] == cand[None, c0:c0 + nc]) & exclude_self,
-                      cand)
+                      cand, dist)
     kth = (best[:, -1] >> 32).to(torch.int32).view(torch.float32)
     kth = kth[torch.isfinite(kth)]
     span = float(ext.max())
@@ -207,7 +225,7 @@ def _knn_local(query, ref, k: int, mask, exclude_self: bool):
                     return torch.zeros((1, nc), dtype=torch.bool, device=dev)
                 return todo[:, None] == cand[None, c0:c0 + nc]
 
-            best = _topk_keys(q, ref[cand], k, bad, cand)
+            best = _topk_keys(q, ref[cand], k, bad, cand, dist)
             if r > span:
                 out[todo] = best
                 break
@@ -248,8 +266,17 @@ def median_nn_distance(points, mask=None):
     search: the radius starts at 4 sqrt(area / n) of the bounding box and
     doubles until over half the points have an in-radius neighbour, when
     the median is exact. Brute force below (or if 8 doublings fail)."""
+    return median_nn_distance_counted(points, mask)[0]
+
+
+def median_nn_distance_counted(points, mask=None):
+    """``median_nn_distance`` and the window overflow count (an int) of
+    its grid search, summed over the radius attempts: 0, since each
+    attempt fits its window, and reported so that the host tiles' run
+    summary counts every grid caller."""
     n = points.shape[0]
     dev = points.device
+    overflow = 0
     if n > 4096:
         valid = (
             torch.ones((n,), dtype=torch.bool, device=dev)
@@ -268,21 +295,23 @@ def median_nn_distance(points, mask=None):
         for _ in range(8):
             r = torch.tensor(radius, dtype=points.dtype, device=dev)
             grid = build_hash_grid(pts_b, r, valid_b)
-            sqd, _, _ = hash_grid_knn(pts_b, grid, r, 1, exclude_self=True)
+            sqd, _, ov = hash_grid_knn(pts_b, grid, r, 1, exclude_self=True, fit_window=True)
+            overflow += int(ov)
             d = torch.sqrt(sqd[:, 0])
             found = valid_b & torch.isfinite(d)
             med = _median_of_first(torch.sort(torch.where(found, d, torch.inf)).values, cnt)
             if 2 * int(found.sum()) > cnt:
-                return med
+                return med, overflow
             radius *= 2.0
     # The median feeds the voxel grid, where one ulp can move a point
     # across a cell boundary.
     sqd, _ = nn1_xla_rounded(points, points, mask, exclude_self=True)
     d = torch.sqrt(sqd)
     if mask is None:
-        return _median_of_first(torch.sort(d).values, n)
+        return _median_of_first(torch.sort(d).values, n), overflow
     valid = mask.to(torch.bool) & torch.isfinite(d)
-    return _median_of_first(torch.sort(torch.where(valid, d, torch.inf)).values, valid.sum())
+    return (_median_of_first(torch.sort(torch.where(valid, d, torch.inf)).values, valid.sum()),
+            overflow)
 
 
 def radius_neighbors(query, ref, radius, k_max: int, ref_mask=None, **kw):

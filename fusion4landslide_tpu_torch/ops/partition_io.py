@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from fusion4landslide_tpu_torch.io.results import save_txt
+
 __all__ = [
     "write_supervoxel_txt",
     "read_supervoxel_txt",
@@ -46,7 +48,7 @@ def write_supervoxel_txt(
         colors = palette[np.clip(labels, 0, None)]
         colors[labels < 0] = 0
     table = np.column_stack([points, colors, labels])
-    np.savetxt(path, table, fmt="%.6f %.6f %.6f %d %d %d %d")
+    save_txt(path, table, fmt="%.6f %.6f %.6f %d %d %d %d")
 
 
 def read_supervoxel_txt(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -79,8 +81,7 @@ def write_superpoint_partition(
         rgb[lab < 0] = 0
         cols += [rgb, lab[:, None]]
     table = np.hstack(cols)
-    fmt = "%.6f %.6f %.6f" + " %d %d %d %d" * 3
-    np.savetxt(path, table, fmt=fmt)
+    save_txt(path, table, fmt="%.6f %.6f %.6f" + " %d %d %d %d" * 3)
 
 
 def read_superpoint_partition(path: str, level: int) -> tuple[np.ndarray, np.ndarray]:

@@ -416,6 +416,7 @@ def run_fusion3d_tiles(cfg: dict, dips, agg, tiles, *, device=None, devices=None
             "valid": valid,
             "assigned_fraction": float(valid.mean()) if n else 0.0,
             "n_dropped": n_dropped,
+            "n_vox": [int(out.n_vox_src), int(out.n_vox_tgt)],
             "overflow": int(out.overflow),
             "overflow_by_source": out.overflow_by_source,
             "n_c2d": int(out.n_c2d),

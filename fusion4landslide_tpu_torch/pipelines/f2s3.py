@@ -60,7 +60,7 @@ from fusion4landslide_tpu_torch.ops.hashgrid_cuda import (
     window_prologue,
 )
 from fusion4landslide_tpu_torch.ops.kabsch import transform_points
-from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1
+from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted, nn1
 from fusion4landslide_tpu_torch.ops.lrf import extract_lrf_patches, lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
@@ -383,7 +383,9 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     s_d, t_d = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
 
     # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
-    median_res = max(float(median_nn_distance(s_d)), float(median_nn_distance(t_d)))
+    med_s, mov_s = median_nn_distance_counted(s_d)
+    med_t, mov_t = median_nn_distance_counted(t_d)
+    median_res = max(float(med_s), float(med_t))
     radius = float(np.sqrt(3) * 10.0 * median_res)
     timer.mark("median_res")
     if logger:
@@ -454,8 +456,9 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
         "magnitudes": written["magnitudes"],
         "keep": keep,
         "labels": labels,
-        "overflow": int(ov_s) + int(ov_t) + int(seg.overflow),
-        "overflow_by_source": {"sampler": int(ov_s) + int(ov_t) + int(seg.overflow), "grid_knn": 0},
+        "overflow": int(ov_s) + int(ov_t) + int(seg.overflow) + mov_s + mov_t,
+        "overflow_by_source": {"sampler": int(ov_s) + int(ov_t) + int(seg.overflow),
+                               "grid_knn": mov_s + mov_t},
         "src_feat": src_feat.cpu().numpy(),
         "tgt_feat": tgt_feat.cpu().numpy(),
     }

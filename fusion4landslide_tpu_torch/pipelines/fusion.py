@@ -62,7 +62,7 @@ from fusion4landslide_tpu_torch.io.results import dvf_magnitudes, save_txt, visu
 from fusion4landslide_tpu_torch.ops.gated_match import gated_feature_nn1
 from fusion4landslide_tpu_torch.ops.hashgrid import build_hash_grid, hash_grid_knn
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
-from fusion4landslide_tpu_torch.ops.knn import median_nn_distance, nn1, nn1_xla_rounded
+from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted, nn1, nn1_xla_rounded
 from fusion4landslide_tpu_torch.ops.merge import merge_correspondences_by_priority
 from fusion4landslide_tpu_torch.ops.normals import pca_normals
 from fusion4landslide_tpu_torch.ops.partition_io import load_or_generate_partition_labels
@@ -93,6 +93,7 @@ __all__ = [
     "global_matches_3d",
     "run_fusion3d_tile",
     "run_fusion_tile",
+    "sparse_assign_core",
 ]
 
 
@@ -285,6 +286,19 @@ def fine_match_pairs(src_members, src_member_mask, pair_tgt_label,
         )
         R[idx], t[idx], rmse[idx], valid[idx], n_match[idx] = out
     return FinePairResult(R=R, t=t, rmse=rmse, valid=valid, n_matches=n_match)
+
+
+def sparse_assign_core(tgt_pts: torch.Tensor, moved_q: torch.Tensor, radius_nn: float):
+    """Grid-bounded 1-NN of the moved points among the target cloud (JAX
+    ``_sparse_assign_core``): ((n,) squared distances, +inf past
+    ``radius_nn``; (n,) target indices; the window overflow count, an
+    int). Kernel 2's window is fitted to the largest query block, so the
+    1-NN is exact, as JAX's gather join is on the CPU; blocks within the
+    default window scan as they would without fitting."""
+    r_nn = torch.tensor(radius_nn, dtype=torch.float32, device=tgt_pts.device)
+    grid = build_hash_grid(tgt_pts, r_nn)
+    d2, nn_idx, ov = hash_grid_knn(moved_q, grid, r_nn, 1, fit_window=True)
+    return d2[:, 0], nn_idx[:, 0], int(ov)
 
 
 def _first_point_of_voxel(p2v: np.ndarray, n_vox: int) -> np.ndarray:
@@ -487,7 +501,10 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     # 1. median resolution and voxel subsampling on the clouds' shared min
     # corner (base:1012-1030).
-    median_res = max(float(median_nn_distance(s_d)), float(median_nn_distance(t_d)))
+    med_s, mov_s = median_nn_distance_counted(s_d)
+    med_t, mov_t = median_nn_distance_counted(t_d)
+    median_res = max(float(med_s), float(med_t))
+    overflow["grid_knn"] += mov_s + mov_t
     timer.mark("median_resolution")
     grid0 = on_dev(np.minimum(s.min(axis=0), t.min(axis=0)).astype(np.float32))
     s_cent, s_p2v, _, s_nv = voxel_downsample(s_d, median_res, origin=grid0)
@@ -868,13 +885,11 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         nq = int(merged_valid.sum())
         q = np.zeros((bucket_size(nq), 3), np.float32)
         q[:nq] = moved[merged_valid]
-        r_nn = torch.tensor(radius_nn, dtype=torch.float32, device=dev)
-        grid = build_hash_grid(t_d, r_nn)
-        d2, nn_idx, ov = hash_grid_knn(on_dev(q), grid, r_nn, 1)
-        overflow["grid_knn"] += int(ov)
-        d = np.sqrt(d2[:nq, 0].cpu().numpy())
+        d2, nn_idx, ov = sparse_assign_core(t_d, on_dev(q), radius_nn)
+        overflow["grid_knn"] += ov
+        d = np.sqrt(d2[:nq].cpu().numpy())
         ok = np.isfinite(d) & (d < adaptive)
-        nn_idx = nn_idx[:nq, 0].cpu().numpy()
+        nn_idx = nn_idx[:nq].cpu().numpy()
         dvfs_sparse = level_merge(np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center]),
                                   merged_level[merged_valid][ok])
         sparse_ms = np.hstack([dvfs_sparse[:, :3], dvf_magnitudes(dvfs_sparse)[:, None]])

@@ -32,7 +32,7 @@ from fusion4landslide_tpu_torch.io.results import (
     visual_clamp_magnitude,
 )
 from fusion4landslide_tpu_torch.ops.kabsch import weighted_kabsch
-from fusion4landslide_tpu_torch.ops.knn import median_nn_distance
+from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
@@ -188,9 +188,10 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
 
     # 4. Segmentation (rgb_guided.py:868-931); segments with > 10 matches.
     s_d = torch.from_numpy(s).to(dev)
-    median_res = float(median_nn_distance(s_d))
+    med, med_overflow = median_nn_distance_counted(s_d)
+    median_res = float(med)
     clustering = str(cfg.get("clustering_type", "supervoxel")).lower()
-    overflow = dict(none)
+    overflow = dict(none, grid_knn=med_overflow)
     if clustering == "hdbscan":
         from fusion4landslide_tpu_torch.ops.clustering import hdbscan_labels
 

@@ -2,8 +2,9 @@
 stage times, seconds of tiling, weight loading and tile reading (the
 reader thread's time the loop waited for), peak device memory, the
 kernel launches of the run (``ops.cuda_build.LAUNCHES``, counted from the
-summary's creation) and the grid-window overflow summed over the run's
-tiles, by kernel (``sampler``: kernel 1, ``grid_knn``: kernel 2)."""
+summary's creation), the grid-window overflow summed over the run's
+tiles, by kernel (``sampler``: kernel 1, ``grid_knn``: kernel 2), and the
+device's free and total memory at the end (``torch.cuda.mem_get_info``)."""
 
 from __future__ import annotations
 
@@ -90,6 +91,8 @@ class RunSummary:
             "overflow": self.overflow,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(self.device) / 2**30
                              if self.device.type == "cuda" else None),
+            "mem_free_total_gib": ([b / 2**30 for b in torch.cuda.mem_get_info(self.device)]
+                                   if self.device.type == "cuda" else None),
         }
         logger.info("run summary: %s", json.dumps(out))
         logger.info("Displacement estimation done. Results in '%s'. Total time: %.2f hours "

@@ -24,10 +24,20 @@ tile (a 1 000 000-point core, source margin 5 m, target margin 10 m, the
   block and leaves in-radius references unscanned, the fitted one scans
   every one of them; kernel 2's fitted window gives the exact 1-NN where
   the fixed one does not; and the main path's callers ask for the fitted
-  window.
+  window;
+- the host tile's grid callers (ROADMAP queue 3, F6): its median
+  resolution (``ops.knn.median_nn_distance``) and its sparse
+  re-association (``pipelines.fusion.sparse_assign_core``) fit kernel 2's
+  window too, so both are exact where a fixed window truncates a block,
+  and bit-equal to the fixed window's where it holds;
+- ``chip_smoke.py``'s phase-10 epoch (``FULL_TILE_EPOCH``): the shipped
+  ``fusion_brienz.yaml``'s tiler and 0.1 m voxel filter keep it as one
+  tile of 950 000-1 000 000 points a cloud, with pixel matches for half
+  the source points from ``bench.py``'s recipe.
 """
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -173,13 +183,13 @@ def test_fitted_window_sizes(w_len_max, want):
     assert got == want and got % CHUNK == 0 and got >= max(w_len_max, WINDOW)
 
 
-def _strip(seed: int = 0):
-    """A 4 m x 130 m strip of the synthetic slope at 100 points per m^2
-    (52 000 points, centred): its x-slabs of patch-radius cells are a
-    whole 130 m long, as a 1M tile's are."""
+def _strip(seed: int = 0, length: float = 130.0):
+    """A 4 m x ``length`` strip of the synthetic slope at 100 points per
+    m^2 (52 000 points at 130 m, centred): its x-slabs of patch-radius
+    cells are a whole 130 m long, as a 1M tile's are."""
     rng = np.random.default_rng(seed)
-    n = 52_000
-    xy = rng.uniform(0, [4.0, 130.0], size=(n, 2))
+    n = int(round(400 * length))
+    xy = rng.uniform(0, [4.0, length], size=(n, 2))
     z = np.sin(xy[:, 0] * 0.31) * 2.0 + np.cos(xy[:, 1] * 0.17) * 3.0
     z = z + rng.normal(scale=0.02, size=n)
     pts = np.column_stack([xy, z]).astype(np.float32)
@@ -283,3 +293,160 @@ def test_main_path_callers_fit_their_windows(monkeypatch):
     dips, _ = seeded_models(0, "cpu")
     f2s3.compute_dips_features(dips, pts[:600], pts, 0.3, patch_points=128, chunk=512)
     assert len(seen) >= 4 and all(c == CHUNK for c in seen), seen
+
+
+# ---- F6: the host tile's grid callers ------------------------------------
+
+#: A 4 m x 30 m piece of the strip (12 000 points within 15 m of the
+#: origin, where kernel 2's uncentred score rounds at ~6e-5 m^2). Its
+#: windows at the median's first radius (0.4 m) reach 5 004 positions;
+#: the 32 768 of a real launch needs a strip of ~200 m, whose 100 m
+#: coordinates round the score at the size of a neighbour's own d^2, so
+#: the witness shrinks the window instead, as the kernel-2 test above does.
+PIECE_M = 30.0
+SHRUNK = dict(window=2048, chunk=512)
+
+
+def _launch_window(monkeypatch, *, fixed: bool, **size):
+    """Kernel 2's window behind ``ops.hashgrid.hash_grid_knn`` resized by
+    ``size``; ``fixed`` drops the callers' ``fit``, as before the repair."""
+    from fusion4landslide_tpu_torch.ops import hashgrid
+
+    def launch(*a, fit=False, **kw):
+        return hc.hash_grid_knn_window(*a, fit=fit and not fixed, **{**kw, **size})
+
+    monkeypatch.setattr(hashgrid, "hash_grid_knn_window", launch)
+
+
+def _uncentred_atol(*clouds: torch.Tensor) -> float:
+    """Two ulps of the largest |r|^2 (``tests/test_torch_kernels.py``'s
+    bound off the terrain): kernel 2 rounds its uncentred score there."""
+    return 2 * 2.0**-23 * max(float((c.double() ** 2).sum(1).max()) for c in clouds)
+
+
+def _jax_median(pts: torch.Tensor) -> float:
+    """The JAX package's median resolution on the CPU: its exact
+    brute-force 1-NN, no grid."""
+    import jax.numpy as jnp
+
+    from fusion4landslide_tpu.ops.knn import median_nn_distance
+
+    return float(median_nn_distance(jnp.asarray(pts.numpy())))
+
+
+def test_host_median_is_exact_past_the_window(monkeypatch):
+    from fusion4landslide_tpu_torch.ops.knn import median_nn_distance
+
+    pts = _strip(length=PIECE_M)
+    exact, atol = _jax_median(pts), _uncentred_atol(pts)
+    _launch_window(monkeypatch, fixed=False, **SHRUNK)
+    got = float(median_nn_distance(pts))
+    assert abs(got**2 - exact**2) <= atol
+
+    from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted
+
+    assert median_nn_distance_counted(pts)[1] == 0
+    _launch_window(monkeypatch, fixed=True, **SHRUNK)
+    cut, cut_ov = median_nn_distance_counted(pts)
+    # A truncated block misses in-radius neighbours: far past rounding.
+    assert cut_ov > 0 and abs(float(cut) ** 2 - exact**2) > 10 * atol
+
+
+def test_host_median_unchanged_where_the_window_holds(monkeypatch):
+    from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted
+
+    pts = _strip(length=PIECE_M)
+    got, ov = median_nn_distance_counted(pts)
+    _launch_window(monkeypatch, fixed=True)
+    before, before_ov = median_nn_distance_counted(pts)
+    assert ov == before_ov == 0 and torch.equal(got, before)
+    assert abs(float(got) ** 2 - _jax_median(pts) ** 2) <= _uncentred_atol(pts)
+
+
+#: The re-association's radius: at the 1M tile its grid's cell grows to
+#: 0.45-0.51 m whatever the radius (the cell table holds 2^21 cells).
+REASSOC_RADIUS = 0.4
+
+
+def _reassociation_case():
+    """Moved points (another draw of the same slope) against the target
+    piece, and the exact answer: the JAX gather join, with every cell run
+    inside its cap."""
+    import jax.numpy as jnp
+
+    from fusion4landslide_tpu.ops import hashgrid as jhg
+
+    tgt = _strip(length=PIECE_M)
+    q = _strip(seed=1, length=PIECE_M)
+    jgrid = jhg.build_hash_grid(jnp.asarray(tgt.numpy()), REASSOC_RADIUS)
+    jd, ji, jov = jhg._hash_grid_knn_xla(jnp.asarray(q.numpy()), jgrid, REASSOC_RADIUS, 1,
+                                         cap=64)
+    assert int(jov) == 0
+    return tgt, q, torch.from_numpy(np.array(jd)[:, 0]), torch.from_numpy(np.array(ji)[:, 0])
+
+
+def _reassociation_misses(tgt, q, d2, idx, jd, ji, atol: float) -> int:
+    """Rows whose pick is not the exact 1-NN: found where the join finds
+    none or the reverse (away from the radius by more than ``atol``), or a
+    neighbour farther (float64) than the join's by more than ``atol``."""
+    p64, q64 = tgt.double(), q.double()
+    d_got = ((p64[idx.long()] - q64) ** 2).sum(1)
+    d_exact = ((p64[ji.long()] - q64) ** 2).sum(1)
+    found, j_found = torch.isfinite(d2), torch.isfinite(jd)
+    edge = (d_exact - REASSOC_RADIUS**2).abs() <= atol
+    both = found & j_found
+    return int(((found != j_found) & ~edge).sum() + (d_got[both] > d_exact[both] + atol).sum())
+
+
+def test_sparse_reassociation_is_exact_past_the_window(monkeypatch):
+    from fusion4landslide_tpu_torch.pipelines.fusion import sparse_assign_core
+
+    tgt, q, jd, ji = _reassociation_case()
+    atol = _uncentred_atol(tgt, q)
+    _launch_window(monkeypatch, fixed=True, **SHRUNK)
+    d2_cut, i_cut, cut_ov = sparse_assign_core(tgt, q, REASSOC_RADIUS)
+    _launch_window(monkeypatch, fixed=False, **SHRUNK)
+    d2, idx, ov = sparse_assign_core(tgt, q, REASSOC_RADIUS)
+    assert cut_ov > 0 and ov == 0
+    assert _reassociation_misses(tgt, q, d2_cut, i_cut, jd, ji, atol) > 100
+    assert _reassociation_misses(tgt, q, d2, idx, jd, ji, atol) == 0
+
+
+def test_sparse_reassociation_unchanged_where_the_window_holds(monkeypatch):
+    from fusion4landslide_tpu_torch.pipelines.fusion import sparse_assign_core
+
+    tgt, q, jd, ji = _reassociation_case()
+    d2, idx, ov = sparse_assign_core(tgt, q, REASSOC_RADIUS)
+    _launch_window(monkeypatch, fixed=True)
+    d2_before, i_before, before_ov = sparse_assign_core(tgt, q, REASSOC_RADIUS)
+    assert ov == before_ov == 0
+    assert torch.equal(d2, d2_before) and torch.equal(idx, i_before)
+    assert _reassociation_misses(tgt, q, d2, idx, jd, ji, _uncentred_atol(tgt, q)) == 0
+
+
+# ---- phase 10's epoch: one tile at the shipped size ------------------------
+
+
+def test_driver_epoch_is_one_shipped_size_tile(smoke, tmp_path):
+    """The tiler and voxel filter ``main_fusion`` runs on phase 10's epoch
+    files, with ``fusion_brienz.yaml``'s settings (no tile step)."""
+    from fusion4landslide_tpu_torch.io.ply import read_ply
+    from fusion4landslide_tpu_torch.synth import IMG_SIZE
+    from fusion4landslide_tpu_torch.tiling import tile_point_clouds
+
+    cfg = load_yaml(str(ROOT / "configs" / "landslide" / "fusion_brienz.yaml"))
+    assert int(cfg["max_pts_per_tile"]) == 1_000_000
+    src, _, pix, m_per_px = smoke.write_rgb_epoch(str(tmp_path), *smoke.FULL_TILE_EPOCH)
+    raw = [str(tmp_path / "raw_pcd" / f"epoch{e}.ply") for e in (1, 2)]
+    tiles = str(tmp_path / "tiles")
+    n = tile_point_clouds(*raw, int(cfg["max_pts_per_tile"]), int(cfg["min_pts_per_tile"]),
+                          True, float(cfg["voxel_size_init"]), 0.0, -1, tiles, halo=20.0)
+    assert n == 1
+    for side in ("source", "target"):
+        k = len(read_ply(os.path.join(tiles, "non_overlap", f"{side}_tile_0.ply")).points)
+        assert 950_000 <= k <= 1_000_000, (side, k)
+    assert len(src) == 1_345_600 and 0.3 < len(pix) / len(src) < 0.6
+    assert np.isfinite(pix).all() and (pix >= 0).all() and (pix < IMG_SIZE[0]).all()
+    assert 0.02 < m_per_px < 0.05
+    saved = np.loadtxt(tmp_path / "img_matching_results" / "pixel_matches.txt", ndmin=2)
+    assert saved.shape == pix.shape and np.abs(saved - pix).max() <= 1e-6 + 1e-6 * IMG_SIZE[0]

@@ -458,3 +458,28 @@ def test_knn_kernel_matches_plain_on_card():
         pd_, pi = knn_plain(x, x, k, sq_norms(x), sq_norms(x), exclude_self=True)
         assert torch.equal(kd, pd_) and torch.equal(ki, pi), ("near-tie", k)
 
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_block_local_1nn_equals_the_slabs(monkeypatch, d, masked, exclude_self):
+    """Above 2^28 pairs a 1-NN (the host RGB tiles' pixel chaining) takes
+    the block-local search; forced here with 512-row blocks, it returns
+    the brute-force slabs' distances and indices bit for bit, exact
+    duplicates (ties to the lower index) and masked references included."""
+    import fusion4landslide_tpu_torch.ops.knn as tk
+
+    rng = np.random.default_rng(d)
+    n = 3000
+    ref = rng.uniform(0, 60, size=(n, d)).astype(np.float32)
+    ref[1500:1700] = ref[:200]
+    query = ref.copy() if exclude_self else rng.uniform(0, 60, size=(2000, d)).astype(np.float32)
+    mask = torch.from_numpy(np.arange(n) % 7 != 0) if masked else None
+    q, r = torch.from_numpy(query), torch.from_numpy(ref)
+    slab_d, slab_i = tk.knn(q, r, 1, mask, exclude_self=exclude_self)
+    monkeypatch.setattr(tk, "_LOCAL_PAIRS", 0)
+    monkeypatch.setattr(tk, "_LOCAL_BLOCK", 512)
+    local_d, local_i = tk.knn(q, r, 1, mask, exclude_self=exclude_self)
+    assert torch.equal(local_i, slab_i) and torch.equal(local_d, slab_d)
+    assert torch.isfinite(local_d).all()

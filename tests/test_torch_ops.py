@@ -352,3 +352,42 @@ def test_nested_levels_false_segments_each_level_afresh(monkeypatch):
     fd.fusion3d_tile_step(*args, **kw)
     assert len(calls) == 6 and all(c[0].shape[0] < N and "normals" not in c[3]
                                    for c in calls[2:])
+
+
+def _txt_table(case: str) -> tuple[np.ndarray, str]:
+    rng = np.random.default_rng(3)
+    if case == "dvfs":
+        return rng.normal(size=(1000, 6)) * 100.0, "%.6f"
+    if case == "float32":
+        return (rng.normal(size=(500, 4)) * 50.0).astype(np.float32), "%.6f"
+    if case == "special":
+        t = rng.normal(size=(40, 4))
+        t[0] = [-0.0, np.nan, np.inf, -np.inf]
+        t[1] = [1e20, -1e-9, 5e-7, -5e-7]
+        return t, "%.6f"
+    if case == "one_d":
+        return rng.normal(size=300), "%.6f"
+    if case == "empty":
+        return np.zeros((0, 4)), "%.6f"
+    # The partition tables' row format: float coordinates, integer colours
+    # and labels in one float array.
+    cols = [rng.normal(size=(200, 3)) * 30.0, rng.integers(0, 256, size=(200, 3)),
+            rng.integers(-1, 40, size=(200, 1))]
+    return np.column_stack(cols), "%.6f %.6f %.6f %d %d %d %d"
+
+
+@pytest.mark.parametrize("case", ["dvfs", "float32", "special", "one_d", "empty", "row_fmt"])
+@pytest.mark.parametrize("rows", [1 << 16, 7])
+def test_save_txt_writes_the_bytes_of_np_savetxt(tmp_path, monkeypatch, case, rows):
+    """The table writer formats blocks of ``rows`` rows at a time and
+    writes the bytes ``np.savetxt`` writes (the JAX package's writer)."""
+    from fusion4landslide_tpu.io.results import save_txt as jax_save_txt
+    from fusion4landslide_tpu_torch.io import results
+
+    monkeypatch.setattr(results, "_TXT_ROWS", rows)
+    table, fmt = _txt_table(case)
+    results.save_txt(str(tmp_path / "port.txt"), table, fmt=fmt)
+    jax_save_txt(str(tmp_path / "jax.txt"), table, fmt=fmt)
+    got = (tmp_path / "port.txt").read_bytes()
+    assert got == (tmp_path / "jax.txt").read_bytes()
+    assert len(got) > 0 or case == "empty"

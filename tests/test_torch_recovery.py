@@ -23,7 +23,23 @@ CPU path), ``port:no_icp`` (fine stage without ICP refinement),
 ``port:tgt_seed`` (the target cloud's patch sampler draws with another
 seed, so the two epochs' descriptors stop corresponding) and ``stages``
 (each stage of the port's step replayed through its JAX twin on the
-same inputs, see ``stages``).
+same inputs, see ``stages``; the median resolution is the first).
+
+Three readings of the median resolution, which the voxel grid and every
+later stage follow: ``port:jax_median`` (the port's step fed the JAX
+step's median of the same clouds, its ``median_nn_distance_traced`` with
+the TPU branch emulated; CPU only, as it runs JAX),
+``port:exact_median`` (the median through the gather join
+``hash_grid_knn_join``, squared distances from coordinate differences,
+where kernel 2 forms the uncentred score) and ``port:median_nudge`` (the
+sound run's median scaled by 1 + 3e-4, ``NUDGE``; ``port:median_nudge=-3e-4``
+scales it by 1 - 3e-4):
+
+    PYTHONPATH=. python tests/test_torch_recovery.py --n-core 10000 \
+        --margin 10 --halo 20 --runs jax port port:jax_median stages
+    PYTHONPATH=. python tests/test_torch_recovery.py --device cuda \
+        --n-core 1000000 --margin 10 --halo 20 --chunk 2048 --runs port \
+        port:exact_median port:median_nudge port:median_nudge=-3e-4
 
 ``--pipeline f2s3`` runs the F2S3 step instead (``f2s3_brienz.yaml``
 statics, ``seeded_models(0)`` and ``seeded_filter(0)``); "assigned" then
@@ -290,9 +306,81 @@ def _fault(name: str | None):
 
             for mod in (f2s3, fusion):
                 mp.setattr(mod, "compute_dips_features", host_shuffled(mod.compute_dips_features))
+        elif name in ("jax_median", "exact_median") or str(name).startswith("median_nudge"):
+            from fusion4landslide_tpu_torch.pipelines import fusion_device
+
+            if name == "jax_median":
+                median = jax_median_traced
+            elif name == "exact_median":
+                median = exact_median_traced
+            else:
+                rel = float(name.partition("=")[2] or NUDGE)
+                median = functools.partial(nudged_median_traced, rel=rel,
+                                           median=fusion_device.median_nn_distance_traced)
+            mp.setattr(fusion_device, "median_nn_distance_traced", median)
         elif name not in (None, "no_icp", "no_refine"):
             raise ValueError(f"unknown fault {name!r}")
         yield
+
+
+#: The relative parting of the two packages' median resolutions on the
+#: 10 000-point core's split tile (0.0561162 m against JAX's 0.0561332 m),
+#: by which ``port:median_nudge`` scales the port's.
+NUDGE = 3e-4
+
+
+def jax_median_traced(points, mask=None):
+    """The JAX step's median resolution of the same cloud (its
+    ``median_nn_distance_traced``, TPU branch emulated), in the port's
+    return form (median, overflow 0)."""
+    import jax.numpy as jnp
+
+    from fusion4landslide_tpu.ops.hashgrid import median_nn_distance_traced
+
+    with tpu_branch_emulated():
+        med = float(median_nn_distance_traced(jnp.asarray(points.cpu().numpy()),
+                                              jnp.asarray(mask.cpu().numpy())))
+    return (torch.tensor(med, dtype=points.dtype, device=points.device),
+            torch.zeros((), dtype=torch.int32, device=points.device))
+
+
+def exact_median_traced(points, mask=None, *, max_doublings: int = 8):
+    """``median_nn_distance_traced``'s radius loop with each 1-NN through
+    the gather join ``hash_grid_knn_join`` (squared distances from
+    coordinate differences, no window), its cap the longest cell run, so
+    no run is cut and every in-radius neighbour is scored."""
+    from fusion4landslide_tpu_torch.ops.hashgrid import (
+        _density_radius,
+        _masked_median,
+        build_hash_grid,
+        hash_grid_knn_join,
+    )
+
+    valid = mask.to(torch.bool)
+    cnt = int(torch.clamp(valid.sum(), min=1))
+    radius = _density_radius(points, valid)
+    med = torch.tensor(torch.inf, dtype=points.dtype, device=points.device)
+    found, it = 0, 0
+    while 2 * found <= cnt and it < max_doublings:
+        grid = build_hash_grid(points, radius, valid)
+        runs = grid.starts[1:-1].long() - grid.starts[:-2].long()  # the dump cell left out
+        cap = -(-int(runs.max()) // 32) * 32
+        d, _, ov = hash_grid_knn_join(points, grid, radius, 1, cap=cap, exclude_self=True)
+        assert int(ov) == 0, ov
+        dd = torch.sqrt(d[:, 0])
+        ok = valid & torch.isfinite(dd)
+        med = _masked_median(dd, ok)
+        found = int(ok.sum())
+        radius = radius * 2.0
+        it += 1
+    return med, torch.zeros((), dtype=torch.int32, device=points.device)
+
+
+def nudged_median_traced(points, mask=None, *, rel: float, median):
+    """``median`` (the port's ``median_nn_distance_traced``) scaled by
+    (1 + ``rel``)."""
+    med, overflow = median(points, mask)
+    return med * (1.0 + rel), overflow
 
 
 def run(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> dict:
@@ -401,6 +489,7 @@ def run_f2s3(kind: str, tile: dict, device: str = "cpu", chunk: int = 512) -> di
 #: Stages of the port's step held against their JAX twins by ``stages``:
 #: name in the port's ``fusion_device`` -> JAX module of the same name.
 _STAGES = {
+    "median_nn_distance_traced": "ops.hashgrid",
     "gated_feature_nn1": "ops.gated_match",
     "supervoxel_graph": "ops.supervoxel",
     "supervoxel_segmentation": "ops.supervoxel",
@@ -420,7 +509,7 @@ def _outputs(name: str, out, port: bool) -> list:
         return [out.labels]
     if name == "fine_match_pairs":
         return [out.valid]  # R, t: compared on the pairs valid on both sides
-    if port and name in ("supervoxel_graph", "_segment_centroids"):
+    if port and name in ("median_nn_distance_traced", "supervoxel_graph", "_segment_centroids"):
         out = out[:-1]
     return list(out) if isinstance(out, tuple) else [out]
 
@@ -452,9 +541,10 @@ def _seed_refit_singular_values(args, kw, pair: int) -> list:
 
 
 def stages(tile: dict, chunk: int = 512) -> dict:
-    """The port's CPU step once, every call of ``_STAGES`` recorded; each
-    is then replayed through the JAX function of the same name (TPU branch
-    emulated) on the SAME inputs, so a disagreement is that stage's own.
+    """The port's CPU step once, every call of ``_STAGES`` recorded (the
+    median resolution first, one call per cloud); each is then replayed
+    through the JAX function of the same name (TPU branch emulated) on the
+    SAME inputs, so a disagreement is that stage's own.
     Returns per stage and call: mismatching entries of discrete outputs,
     max |diff| of float outputs; for the fine pairs, mismatches of
     ``valid``, max |dR| and |dt| over the pairs valid on both sides, and

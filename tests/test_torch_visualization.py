@@ -146,7 +146,7 @@ def test_figures_without_matplotlib_raise_before_tile_work(tmp_path, monkeypatch
 
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     stages = []
-    monkeypatch.setattr(fusion, "median_nn_distance", lambda *a: stages.append(a))
+    monkeypatch.setattr(fusion, "median_nn_distance_counted", lambda *a: stages.append(a))
     monkeypatch.setattr(rgb_guided, "project_points", lambda *a, **k: stages.append(a))
     pts = np.random.default_rng(0).uniform(0, 2, size=(50, 3))
     K, E = np.eye(3), np.eye(4)
