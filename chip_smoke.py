@@ -233,6 +233,8 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from fusion4landslide_tpu_torch.utils.timing import for_log
+
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: FLOP/s, dense TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -769,7 +771,7 @@ def fusion_rgb_tile(dev, cfg: dict, dips, agg, tile: tuple, label: str = "RGB ti
         f"{out['n_dropped']}, n_c2d {out['n_c2d']}, voxels {out['n_vox']} (DIPs "
         f"{1e6 * timings['dips_features'] / sum(out['n_vox']):.2f} us a voxel), launches "
         f"{launches} ({card()})")
-    log(f"# {label} stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log(f"# {label} stages (s): " + json.dumps(for_log(timings)))
     log(f"# {label} tables: {written}")
     check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
     check(out["overflow"] == 0, ("window overflow", out["overflow_by_source"]))
@@ -1156,8 +1158,7 @@ def driver_recovery(out_root: str, tid: str, table: str, moving_y: float) -> dic
 def log_driver(label: str, summary: dict) -> None:
     """The run's per-tile seconds and stage times, peak memory, tiling and
     reading seconds, launches."""
-    stages = {tid: {k: round(v, 3) for k, v in st.items()}
-              for tid, st in summary["stages_s"].items()}
+    stages = {tid: for_log(st) for tid, st in summary["stages_s"].items()}
     log(f"# {label}: wall {summary['wall_s']:.2f} s (process start included), driver "
         f"{summary['total_s']:.2f} s, runner {summary.get('runner_s', 0.0):.2f} s, tiling "
         f"{summary.get('tiling_s', 0.0):.2f} s, reading "
@@ -1820,7 +1821,7 @@ def full_size_readings(runs=("fusion3d", "f2s3")) -> dict:
                "overflow": res["overflow_by_source"], "n_dropped": res["n_dropped"],
                "tables": len(written), "recovery": rec, "floors_held": held}
         log(f"# {label} ({card()}): {json.dumps(row)}; stages (s): "
-            + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+            + json.dumps(for_log(timings)))
         readings[name] = row
         del res
         torch.cuda.empty_cache()
@@ -2773,7 +2774,7 @@ def host_parity_phase(dev, cfg: dict, models, tile, runner_table: str, runner_s:
                host_peak_gib=peak, host_overflow=out["overflow_by_source"], launches=launches)
     log(f"# phase (w) host tile vs runner on phase 6's production tile ({card()}): "
         f"{json.dumps(rec)}; host stages (s): "
-        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+        + json.dumps(for_log(timings)))
     check(launches["radius_sample"] > 0 and launches["grid_knn"] > 0, launches)
     check(rec["common"] > 0 and rec["host_assigned"] > 0.1 * len(tile[0]), rec)
     check(all(np.isfinite(rec[k]) for k in ("median_delta_disp_m", "max_delta_disp_m",
@@ -2828,7 +2829,7 @@ def hard_scene_phase(dev, dips, agg, here: str) -> dict:
                n_vox=list(out["n_vox"]), tile_s=secs, overflow=out["overflow_by_source"],
                launches=launches)
     log(f"# phase (y) hard scene host tile ({card()}): {json.dumps(rec)}; stages (s): "
-        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+        + json.dumps(for_log(timings)))
     check(launches["radius_sample"] > 0 and launches["grid_knn"] > 0, launches)
     check(rec["assigned"] > 0.7 and rec["static_err_m"] < 5e-3 and rec["moving_err_m"] < 1e-2,
           rec)
@@ -3156,7 +3157,7 @@ def main() -> int:
     by_path["fusion3d"] = launches
     log(f"# tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}")
-    log("# stages (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log("# stages (s): " + json.dumps(for_log(timings)))
     log(f"# tables: {written}")
     check(launches["grid_knn"] > 0 and launches["radius_sample"] > 0, launches)
     check("c2f_dvfs_src2tgt_tile_0.txt" in written, written)
@@ -3184,7 +3185,7 @@ def main() -> int:
     g_rec = {"tile_s": g_s, "fine_s": g_t.get("fine"), "point2point_tile_s": step_s,
              "point2point_fine_s": timings.get("fine"), "launches": g_l}
     log(f"# phase (l) production tile, icp_type generalized ({card()}): {json.dumps(g_rec)}; "
-        "stages (s): " + json.dumps({k: round(v, 3) for k, v in g_t.items()}))
+        "stages (s): " + json.dumps(for_log(g_t)))
     # The fine pairs' validity is decided before ICP: the same points are
     # assigned whatever the ICP type.
     check(bool((g_out["valid"] == ok).all()), g_rec)
@@ -3206,7 +3207,7 @@ def main() -> int:
                timings.get("dips_features"), "peak_gib": v_peak, "float32_256_peak_gib": peak,
                "overflow": v_out["overflow_by_source"], "launches": v_l}
         log(f"# phase {label}, production fusion tile ({card()}): {json.dumps(row)}; stages "
-            "(s): " + json.dumps({k: round(v, 3) for k, v in v_t.items()}))
+            "(s): " + json.dumps(for_log(v_t)))
         check(v_l["radius_sample"] > 0 and v_l["grid_knn"] > 0, v_l)
         production_recovery(v_out, n, core, moving, static, f"phase {label}", RECOVERY)
         by_path["fusion3d_patch192_knn" if "192" in label else "fusion3d_bf16"] = v_l
@@ -3243,7 +3244,7 @@ def main() -> int:
     log(f"# F2S3 tile step: {step_s:.2f} s, peak {peak:.2f} GiB, overflow "
         f"{out['overflow']}, n_dropped {out['n_dropped']}, launches {launches}, "
         f"kernel 3 rescored {int(kc.RESCORED[0]) / N:.2f} candidates per row")
-    log("# F2S3 stages (s): " + json.dumps({k: round(v, 3) for k, v in f_timings.items()}))
+    log("# F2S3 stages (s): " + json.dumps(for_log(f_timings)))
     log(f"# F2S3 tables: {written}")
     check(min(launches.values()) > 0, launches)
     for name in ("f2s3_dvfs_of_tile_0.txt", "f2s3_dvfms_of_tile_0.txt",
@@ -3266,7 +3267,7 @@ def main() -> int:
            "float32_peak_gib": peak, "launches": u_l,
            "keep_equal_float32_frac": float((u_out["keep"] == out["keep"]).mean())}
     log(f"# phase (u) feat_dtype bfloat16, production F2S3 tile ({card()}): {json.dumps(row)}; "
-        "stages (s): " + json.dumps({k: round(v, 3) for k, v in u_t.items()}))
+        "stages (s): " + json.dumps(for_log(u_t)))
     check(min(u_l.values()) > 0, u_l)
     production_recovery(u_out, n, core, moving, static, "phase (u) F2S3 bfloat16",
                         RECOVERY_F2S3, kept_key="keep")

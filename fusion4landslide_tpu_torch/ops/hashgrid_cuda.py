@@ -14,11 +14,14 @@ under componentwise order). Two kernels scan those windows:
 
 Each wrapper launches its CUDA kernel for tensors on the card (or raises)
 and runs the plain PyTorch version, kept beside it, for tensors on the
-CPU. ``LAUNCHES`` (``cuda_build.LAUNCHES``) counts kernel launches. Every
-window function returns its overflow count: the blocks whose true window
-exceeded ``window`` (those results are truncated, as on the TPU, where the
-window is a static VMEM shape and the traced callers cannot fall back
-either).
+CPU. ``LAUNCHES`` (``cuda_build.LAUNCHES``) counts kernel launches; while
+a tile's record is active (``utils.profiling``), ``grid_knn_blocks`` and
+``radius_sample_blocks`` count the work of each call, on either path: the
+window positions scanned, the candidate evaluations, the output rows and
+slots. Every window function returns its overflow count: the blocks whose
+true window exceeded ``window`` (those results are truncated, as on the
+TPU, where the window is a static VMEM shape and the traced callers cannot
+fall back either).
 
 A block's window is the run of cells between its queries' componentwise
 lowest and highest cells, and the linear cell id puts x first: a block
@@ -42,6 +45,7 @@ import torch
 
 from fusion4landslide_tpu_torch.ops import cuda_build
 from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES, count_launch
+from fusion4landslide_tpu_torch.utils import profiling
 
 __all__ = [
     "LAUNCHES",
@@ -191,6 +195,20 @@ def _scan_len(w_len: torch.Tensor, chunk: int, window: int) -> torch.Tensor:
     return torch.clamp(-(-w_len // chunk) * chunk, max=window)
 
 
+def _count_work(kernel: str, win: Window, chunk: int, b0: int, b1: int, per_row: int) -> None:
+    """Add one call's work over blocks [b0, b1) to the active tile's
+    record (``utils.profiling``); without one, nothing runs."""
+    rec = profiling.record()
+    if rec is None:
+        return
+    positions = _scan_len(win.wmeta[1, b0:b1], chunk, win.window).sum()
+    rows = (b1 - b0) * win.block
+    profiling.count(rec, f"{kernel}.positions", positions)
+    profiling.count(rec, f"{kernel}.evaluations", positions * win.block)
+    profiling.count(rec, f"{kernel}.rows", rows)
+    profiling.count(rec, f"{kernel}.slots", rows * per_row)
+
+
 # --------------------------------------------------------------------------
 # Kernel 2: grid kNN
 # --------------------------------------------------------------------------
@@ -275,6 +293,7 @@ def grid_knn_blocks(win: Window, k: int, *, chunk: int = 2048,
                     exclude_self: bool = False):
     """Sorted-order (n_pad, k) squared distances and original indices —
     the CUDA kernel on the card, the plain version on the CPU."""
+    _count_work("grid_knn", win, chunk, 0, win.nb, k)
     if win.qpos.is_cuda:
         return _grid_knn_cuda(win, k, chunk=chunk, exclude_self=exclude_self)
     return grid_knn_plain(win, k, chunk=chunk, exclude_self=exclude_self)
@@ -440,6 +459,7 @@ def radius_sample_blocks(win: Window, cen, r2, num_points: int = 256,
     if priority not in ("random", "distance"):
         raise ValueError(f"unknown priority {priority!r}")
     b1 = win.nb if b1 is None else b1
+    _count_work("radius_sample", win, chunk, b0, b1, num_points)
     if win.qpos.is_cuda:
         return _radius_sample_cuda(
             win, cen, r2, num_points, seed, priority, chunk=chunk, b0=b0, b1=b1

@@ -36,6 +36,7 @@ import torch
 
 from fusion4landslide_tpu_torch.ops import cuda_build
 from fusion4landslide_tpu_torch.ops.cuda_build import count_launch
+from fusion4landslide_tpu_torch.utils import profiling
 
 __all__ = [
     "MARGIN_EPS", "MARGIN_EPS_RAW", "MAX_K", "RESCORED", "FilterTerms",
@@ -61,7 +62,8 @@ MARGIN_EPS_RAW = 2.0 ** -16
 _CENTRE_FRACTION = 15.0 / 16.0
 #: The last launch's count of rescored candidates (of whichever tile stream
 #: launched last), a () int64 tensor on the
-#: card (read it with ``.item()`` off the main path).
+#: card (read it with ``.item()`` off the main path). The same tensor is
+#: added to the active tile's ``knn.rescored`` counter (``utils.profiling``).
 RESCORED: list = [None]
 #: Plain version: query rows and ref columns per score slab.
 _QUERY_BLOCK = 2048
@@ -226,7 +228,8 @@ def _knn_cuda(query, ref, k: int, q2, r2, *, exclude_self: bool):
     rescoring only when a certified lower bound of its exact score
     (``filter_terms``) can still reach row i's current k-th best. The
     launch's rescored-candidate count stays on the card in ``RESCORED[0]``
-    (no host sync)."""
+    (no host sync); with a tile's record active (``utils.profiling``) it
+    is added to ``knn.rescored``, and the query rows to ``knn.rows``."""
     n, width = query.shape
     m = ref.shape[0]
     if width > _WIDTH:
@@ -263,6 +266,10 @@ def _knn_cuda(query, ref, k: int, q2, r2, *, exclude_self: bool):
         raise RuntimeError(f"knn CUDA launch failed (cudaError {err})")
     count_launch("knn")
     RESCORED[0] = rescored
+    rec = profiling.record()
+    if rec is not None:
+        profiling.count(rec, "knn.rows", n)
+        profiling.count(rec, "knn.rescored", rescored)
     zero = (ft.row_p[:n] < 0)[:, None]
     zd, zi = _zero_rows(n, k, r2, exclude_self=exclude_self)
     return torch.where(zero, zd, out_d), torch.where(zero, zi, out_i)

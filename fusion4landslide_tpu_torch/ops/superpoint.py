@@ -118,38 +118,38 @@ def superpoint_hierarchy(points, *, levels: int = 3, base_resolution: float | No
     ``superpoint_merge``."""
     dev = resolve_device(device)
     timer = StageTimer({} if timings is None else timings, dev)
-    pts = np.asarray(points, np.float32)
-    p = pts - pts.mean(axis=0)
-    p_d = torch.as_tensor(p, device=dev)
-    if base_resolution is None:
-        base_resolution = float(np.sqrt(3) * 10.0 * float(median_nn_distance(p_d)))
-    k_graph = min(k_neighbors, 15)
-    # One search serves both: the first k_graph columns of the exact,
-    # (distance, index)-ordered k_neighbors-NN are the k_graph-NN.
-    nn_feat = knn(p_d, p_d, k_neighbors)
-    timer.mark("superpoint_knn")
-    feats = geometric_features(p_d, k_neighbors, neighbours=nn_feat).cpu().numpy()
-    neigh = nn_feat[1][:, :k_graph].cpu().numpy()
-    timer.mark("superpoint_features")
-    seg = supervoxel_segmentation(p_d, float(base_resolution), k_neighbors=k_graph)
-    _, lab = np.unique(seg.labels.cpu().numpy(), return_inverse=True)
-    timer.mark("superpoint_vccs")
-    if intensity is not None:
-        inten = np.asarray(intensity, np.float32).reshape(-1, 1)
-        inten = inten / max(float(np.abs(inten).max()), 1e-9)
-        feats = np.concatenate([feats, inten], axis=1)
+    with timer.stage("superpoint_knn"):
+        pts = np.asarray(points, np.float32)
+        p = pts - pts.mean(axis=0)
+        p_d = torch.as_tensor(p, device=dev)
+        if base_resolution is None:
+            base_resolution = float(np.sqrt(3) * 10.0 * float(median_nn_distance(p_d)))
+        k_graph = min(k_neighbors, 15)
+        # One search serves both: the first k_graph columns of the exact,
+        # (distance, index)-ordered k_neighbors-NN are the k_graph-NN.
+        nn_feat = knn(p_d, p_d, k_neighbors)
+    with timer.stage("superpoint_features"):
+        feats = geometric_features(p_d, k_neighbors, neighbours=nn_feat).cpu().numpy()
+        neigh = nn_feat[1][:, :k_graph].cpu().numpy()
+    with timer.stage("superpoint_vccs"):
+        seg = supervoxel_segmentation(p_d, float(base_resolution), k_neighbors=k_graph)
+        _, lab = np.unique(seg.labels.cpu().numpy(), return_inverse=True)
+    with timer.stage("superpoint_merge"):
+        if intensity is not None:
+            inten = np.asarray(intensity, np.float32).reshape(-1, 1)
+            inten = inten / max(float(np.abs(inten).max()), 1e-9)
+            feats = np.concatenate([feats, inten], axis=1)
 
-    out = [lab]
-    cur = lab
-    # A spatial term scaled to the data extent: features dominate, ties
-    # break spatially.
-    extent = float((p.max(0) - p.min(0)).max())
-    sw = spatial_weight / max(extent, 1e-9)
-    for _ in range(1, levels):
-        target = max(int(np.ceil((int(cur.max()) + 1) / coarsening)), 1)
-        cur = _region_merge(cur, neigh, feats, p, target, sw)[cur]
-        out.append(cur.copy())
-    timer.mark("superpoint_merge")
+        out = [lab]
+        cur = lab
+        # A spatial term scaled to the data extent: features dominate, ties
+        # break spatially.
+        extent = float((p.max(0) - p.min(0)).max())
+        sw = spatial_weight / max(extent, 1e-9)
+        for _ in range(1, levels):
+            target = max(int(np.ceil((int(cur.max()) + 1) / coarsening)), 1)
+            cur = _region_merge(cur, neigh, feats, p, target, sw)[cur]
+            out.append(cur.copy())
     return out
 
 

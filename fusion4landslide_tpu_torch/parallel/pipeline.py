@@ -51,7 +51,7 @@ from fusion4landslide_tpu_torch.pipelines.piecewise_icp import (
 )
 from fusion4landslide_tpu_torch.pipelines.rgb_guided import write_rgb_guided_tables
 from fusion4landslide_tpu_torch.pipelines.rgb_guided_device import rgb_guided_tile_step
-from fusion4landslide_tpu_torch.utils.timing import StageTimer
+from fusion4landslide_tpu_torch.utils.timing import StageTimer, add_timings
 
 __all__ = [
     "f2s3_statics",
@@ -132,8 +132,8 @@ def _run_streams(tiles, devs: list[torch.device], make_state, run_tile,
     stream of its own (ordered after the caller's work on that device),
     builds its state with ``make_state(dev, True)`` (its own model copies)
     and pulls the next tile under a lock until none is left or a stream
-    failed; stage seconds are summed over the streams into ``timings``.
-    Kernels are built before the workers start."""
+    failed; stage seconds and counters are summed over the streams into
+    ``timings``. Kernels are built before the workers start."""
     if len(devs) == 1:
         state = make_state(devs[0], False)
         return {tile[0]: run_tile(state, devs[0], tile, timings) for tile in tiles}
@@ -178,8 +178,7 @@ def _run_streams(tiles, devs: list[torch.device], make_state, run_tile,
         raise errors[0]
     if timings is not None:
         for st in per_stream:
-            for k, v in st.items():
-                timings[k] = timings.get(k, 0.0) + v
+            add_timings(timings, st)
     return dict(done[i] for i in sorted(done))
 
 
@@ -534,11 +533,11 @@ def run_rgb_guided_tiles(cfg: dict, tiles, src_image, tgt_image, intrinsic, src_
     if N == 0:
         return {}
     timer = StageTimer(timings, dev)
-    if corres_2d is None:
-        corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg), logger=logger,
-                                       device=dev)
-    corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
-    timer.mark("match_2d")
+    with timer.stage("match_2d"):
+        if corres_2d is None:
+            corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg),
+                                           logger=logger, device=dev)
+        corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
     C = max(bucket_size(max(len(corres_2d), 1)), 64)
     c2 = torch.zeros((C, 4), dtype=torch.float32, device=dev)
     c2[:len(corres_2d)] = torch.from_numpy(corres_2d).to(dev)

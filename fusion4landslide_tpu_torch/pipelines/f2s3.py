@@ -64,6 +64,7 @@ from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted, nn1
 from fusion4landslide_tpu_torch.ops.lrf import extract_lrf_patches, lrf_patches_from_neighbors
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
+from fusion4landslide_tpu_torch.utils.profiling import span, tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -149,15 +150,18 @@ def compute_dips_features(model, core_pts, halo_pts, radius, *, k_max: int = 512
         keep = (rows >= 0) & (rows < n_valid)
         if not bool(keep.any()):
             continue
-        _, valid, xyz = radius_sample_blocks(
-            win, cen, r2, patch_points, 0, "random", chunk=_SAMPLE_CHUNK, b0=b0, b1=b1
-        )
+        with span("dips.sample"):
+            _, valid, xyz = radius_sample_blocks(
+                win, cen, r2, patch_points, 0, "random", chunk=_SAMPLE_CHUNK, b0=b0, b1=b1
+            )
         sel = torch.nonzero(keep).squeeze(1)
         qpos = win.qpos[b0 * win.block:b1 * win.block]
         for c0 in range(0, sel.shape[0], chunk):
             s = sel[c0:c0 + chunk]
-            patches = lrf_patches_from_neighbors(qpos[s], xyz[s], valid[s], radius_q)
-            feats[rows[s]] = model(patches, tdt)
+            with span("dips.lrf"):
+                patches = lrf_patches_from_neighbors(qpos[s], xyz[s], valid[s], radius_q)
+            with span("dips.pointnet"):
+                feats[rows[s]] = model(patches, tdt)
     return feats, win.overflow
 
 
@@ -172,10 +176,13 @@ def _dips_features_knn(model, core_pts, halo_pts, radius, *, k_max, patch_points
     q = torch.cat([core_pts, core_pts.new_zeros(((-n) % chunk, 3))])
     feats = torch.zeros((n, 64), dtype=torch.float32, device=core_pts.device)
     for c0 in range(0, min(n_valid, n), chunk):
-        patches = extract_lrf_patches(
-            q[c0:c0 + chunk], halo_pts, radius, chunk_priorities(draws, c0, chunk), k_max=k_max,
-            num_points=patch_points, support_mask=halo_mask, generator=generator)
-        feats[c0:c0 + chunk] = model(patches, dtype)[:n - c0]
+        with span("dips.lrf"):
+            patches = extract_lrf_patches(
+                q[c0:c0 + chunk], halo_pts, radius, chunk_priorities(draws, c0, chunk),
+                k_max=k_max, num_points=patch_points, support_mask=halo_mask,
+                generator=generator)
+        with span("dips.pointnet"):
+            feats[c0:c0 + chunk] = model(patches, dtype)[:n - c0]
     feats[n_valid:] = 0.0
     return feats, 0
 
@@ -254,25 +261,27 @@ def prune_supervoxel_correspondences(filt, correspondences: np.ndarray,
     if n_labels == 0:
         return correspondences, np.zeros(len(labels), bool)
     dev = resolve_device(device)
-    counts = np.bincount(labels[labels >= 0], minlength=n_labels)
-    P = bucket_size(int(counts.max()))
-    S = bucket_size(n_labels)
-    member_idx, member_mask = label_members(
-        torch.from_numpy(labels.astype(np.int32)).to(dev), S, P
-    )
-    corr = torch.from_numpy(np.asarray(correspondences, np.float32)).to(dev)
+    with span("filter.members"):
+        counts = np.bincount(labels[labels >= 0], minlength=n_labels)
+        P = bucket_size(int(counts.max()))
+        S = bucket_size(n_labels)
+        member_idx, member_mask = label_members(
+            torch.from_numpy(labels.astype(np.int32)).to(dev), S, P
+        )
+        corr = torch.from_numpy(np.asarray(correspondences, np.float32)).to(dev)
     new_tgt, keep, scores, _ = filter_supervoxel_buckets(
         filt.to(dev), corr, member_idx, member_mask, rockfall=rockfall
     )
     if not refine_results:
         keep = member_mask & (scores > _KEEP_SCORE)
         new_tgt = corr[member_idx.long()][..., 3:6]
-    mm = member_mask.cpu().numpy()
-    flat_idx = member_idx.cpu().numpy()[mm]
-    out = correspondences.copy()
-    keep_pts = np.zeros(len(labels), bool)
-    out[flat_idx, 3:6] = new_tgt.cpu().numpy()[mm]
-    keep_pts[flat_idx] = keep.cpu().numpy()[mm]
+    with span("filter.readback"):
+        mm = member_mask.cpu().numpy()
+        flat_idx = member_idx.cpu().numpy()[mm]
+        out = correspondences.copy()
+        keep_pts = np.zeros(len(labels), bool)
+        out[flat_idx, 3:6] = new_tgt.cpu().numpy()[mm]
+        keep_pts[flat_idx] = keep.cpu().numpy()[mm]
     return out, keep_pts
 
 
@@ -290,15 +299,15 @@ def write_f2s3_outputs(cfg, tile_id, center: np.ndarray, s: np.ndarray,
     results_dir = osp.join(out_root, "results")
     os.makedirs(results_dir, exist_ok=True)
 
-    filtered = pruned[keep]
-    mags = np.linalg.norm(filtered[:, 3:6] - filtered[:, :3], axis=1)
-    # Max-magnitude gate (f2s3.py:392-394).
-    max_disp = float(cfg.get("max_disp_magnitude", 0) or 0)
-    if max_disp > 0:
-        sel = mags <= max_disp
-        filtered, mags = filtered[sel], mags[sel]
-
-    final = np.hstack([filtered[:, :3] + center, filtered[:, 3:6] + center])
+    with span("tables.gate"):
+        filtered = pruned[keep]
+        mags = np.linalg.norm(filtered[:, 3:6] - filtered[:, :3], axis=1)
+        # Max-magnitude gate (f2s3.py:392-394).
+        max_disp = float(cfg.get("max_disp_magnitude", 0) or 0)
+        if max_disp > 0:
+            sel = mags <= max_disp
+            filtered, mags = filtered[sel], mags[sel]
+        final = np.hstack([filtered[:, :3] + center, filtered[:, 3:6] + center])
     save_txt(osp.join(results_dir, f"f2s3_dvfs_of_tile_{tile_id}.txt"), final)
     dvfms = save_dvfms(osp.join(results_dir, f"f2s3_dvfms_of_tile_{tile_id}.txt"), final, mags)
     if dvfms.shape[0] > 2:
@@ -319,18 +328,20 @@ def write_f2s3_outputs(cfg, tile_id, center: np.ndarray, s: np.ndarray,
     # C2C gap fill: C2C distance everywhere, learned magnitudes at kept
     # points (f2s3.py:452-477).
     if cfg.get("fill_gaps_c2c", False):
-        if c2c is None:
-            dev = resolve_device(device)
-            c2c_sq, _ = nn1_spatial(torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
-            c2c = np.sqrt(c2c_sq.cpu().numpy())
-        else:
-            c2c = np.asarray(c2c).copy()
-        kept_idx = np.where(keep)[0]
-        kmags = np.linalg.norm(pruned[kept_idx][:, 3:6] - pruned[kept_idx][:, :3], axis=1)
-        if max_disp > 0:
-            ksel = kmags <= max_disp
-            kept_idx, kmags = kept_idx[ksel], kmags[ksel]
-        c2c[kept_idx] = kmags
+        with span("tables.c2c"):
+            if c2c is None:
+                dev = resolve_device(device)
+                c2c_sq, _ = nn1_spatial(torch.from_numpy(s).to(dev),
+                                        torch.from_numpy(t).to(dev))
+                c2c = np.sqrt(c2c_sq.cpu().numpy())
+            else:
+                c2c = np.asarray(c2c).copy()
+            kept_idx = np.where(keep)[0]
+            kmags = np.linalg.norm(pruned[kept_idx][:, 3:6] - pruned[kept_idx][:, :3], axis=1)
+            if max_disp > 0:
+                ksel = kmags <= max_disp
+                kept_idx, kmags = kept_idx[ksel], kmags[ksel]
+            c2c[kept_idx] = kmags
         save_txt(
             osp.join(results_dir, "combined_with_c2c",
                      f"f2s3_dvfms_combined_with_c2c_of_tile_{tile_id}.txt"),
@@ -347,6 +358,7 @@ def is_rockfall(cfg) -> bool:
     ).lower().startswith("rockfall")
 
 
+@tile("tile.f2s3")
 @torch.inference_mode()
 def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *,
                   src_halo: np.ndarray | None = None,
@@ -356,8 +368,10 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     centre, median resolution, DIPs, supervoxels with small-patch removal,
     feature 1-NN (kernel 3), the pre-pruning table, learned pruning and
     the result tables. ``cfg`` keys as in ``configs/landslide/f2s3_brienz.yaml``.
-    Runs on ``device`` (default ``cuda``); ``timings`` (optional dict)
-    collects per-stage seconds, synchronised at each stage boundary.
+    Runs on ``device`` (default ``cuda``). Each stage is a span
+    (``utils.timing``); ``timings`` (optional dict) collects per-stage
+    seconds, synchronised at each stage boundary, and the kernels' work
+    under ``counters`` (``utils.profiling``).
 
     ``feat_compute: false`` loads the tile's descriptors from its cache
     file where it exists (stage ``feature_cache`` in place of
@@ -372,22 +386,22 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     feat_torch_dtype(feat_kw["dtype"])  # an unknown dtype raises before tile work
     dev = resolve_device(device)
     timer = StageTimer(timings, dev)
-    dips, filt = dips.to(dev).eval(), filt.to(dev).eval()
-    src_halo = src_core if src_halo is None else src_halo
-    tgt_halo = tgt_core if tgt_halo is None else tgt_halo
-    center = src_core.mean(axis=0)
-    s = (src_core - center).astype(np.float32)
-    t = (tgt_core - center).astype(np.float32)
-    sh = torch.from_numpy((src_halo - center).astype(np.float32)).to(dev)
-    th = torch.from_numpy((tgt_halo - center).astype(np.float32)).to(dev)
-    s_d, t_d = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
 
     # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
-    med_s, mov_s = median_nn_distance_counted(s_d)
-    med_t, mov_t = median_nn_distance_counted(t_d)
-    median_res = max(float(med_s), float(med_t))
-    radius = float(np.sqrt(3) * 10.0 * median_res)
-    timer.mark("median_res")
+    with timer.stage("median_res"):
+        dips, filt = dips.to(dev).eval(), filt.to(dev).eval()
+        src_halo = src_core if src_halo is None else src_halo
+        tgt_halo = tgt_core if tgt_halo is None else tgt_halo
+        center = src_core.mean(axis=0)
+        s = (src_core - center).astype(np.float32)
+        t = (tgt_core - center).astype(np.float32)
+        sh = torch.from_numpy((src_halo - center).astype(np.float32)).to(dev)
+        th = torch.from_numpy((tgt_halo - center).astype(np.float32)).to(dev)
+        s_d, t_d = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
+        med_s, mov_s = median_nn_distance_counted(s_d)
+        med_t, mov_t = median_nn_distance_counted(t_d)
+        median_res = max(float(med_s), float(med_t))
+        radius = float(np.sqrt(3) * 10.0 * median_res)
     if logger:
         logger.info("tile %s: median_res=%.4f, patch radius=%.4f", tile_id, median_res, radius)
 
@@ -396,69 +410,72 @@ def run_f2s3_tile(cfg, dips, filt, src_core: np.ndarray, tgt_core: np.ndarray, *
     out_root = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")))
     feat_cache = osp.join(out_root, "features", f"features_tile_{tile_id}.npz")
     if not cfg.get("feat_compute", True) and osp.exists(feat_cache):
-        with np.load(feat_cache) as cached:
-            src_feat, tgt_feat = (torch.from_numpy(np.asarray(cached[k], np.float32)).to(dev)
-                                  for k in ("src_feat", "tgt_feat"))
-        ov_s = ov_t = 0
-        timer.mark("feature_cache")
+        with timer.stage("feature_cache"):
+            with np.load(feat_cache) as cached:
+                src_feat, tgt_feat = (torch.from_numpy(np.asarray(cached[k], np.float32)).to(dev)
+                                      for k in ("src_feat", "tgt_feat"))
+            ov_s = ov_t = 0
         if logger:
             logger.info("tile %s: features loaded from %s", tile_id, feat_cache)
     else:
-        src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius, **feat_kw)
-        tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius, **feat_kw)
-        timer.mark("dips_features")
+        with timer.stage("dips_features"):
+            src_feat, ov_s = compute_dips_features(dips, s_d, sh, radius, **feat_kw)
+            tgt_feat, ov_t = compute_dips_features(dips, t_d, th, radius, **feat_kw)
         if cfg.get("save_interim", False):
-            os.makedirs(osp.dirname(feat_cache), exist_ok=True)
-            np.savez_compressed(feat_cache, src_feat=src_feat.cpu().numpy(),
-                                tgt_feat=tgt_feat.cpu().numpy())
-            timer.mark("feature_cache")
+            with timer.stage("feature_cache"):
+                os.makedirs(osp.dirname(feat_cache), exist_ok=True)
+                np.savez_compressed(feat_cache, src_feat=src_feat.cpu().numpy(),
+                                    tgt_feat=tgt_feat.cpu().numpy())
 
     # 3. Supervoxels of the source, small patches removed, labels compacted
     # (f2s3.py:183-225).
-    svl_radius = max(radius, float(cfg.get("voxel_size", 0.0)))
-    if is_rockfall(cfg):
-        svl_radius = 0.1
-    seg = supervoxel_segmentation(s_d, svl_radius, k_neighbors=int(cfg.get("n_normals", 30)))
-    min_count = 10 if cfg.get("small_patch_removal", True) else 1
-    labels, n_kept = drop_small_and_compact(
-        seg.labels, torch.ones_like(seg.labels, dtype=torch.bool), min_count
-    )
-    labels = labels.cpu().numpy()
-    timer.mark("supervoxels")
+    with timer.stage("supervoxels"):
+        svl_radius = max(radius, float(cfg.get("voxel_size", 0.0)))
+        if is_rockfall(cfg):
+            svl_radius = 0.1
+        seg = supervoxel_segmentation(s_d, svl_radius, k_neighbors=int(cfg.get("n_normals", 30)))
+        min_count = 10 if cfg.get("small_patch_removal", True) else 1
+        labels, n_kept = drop_small_and_compact(
+            seg.labels, torch.ones_like(seg.labels, dtype=torch.bool), min_count
+        )
+        with span("partition.readback"):
+            labels = labels.cpu().numpy()
     if logger:
         logger.info("tile %s: %d supervoxels kept", tile_id, int(n_kept))
 
     # 4. Feature-space 1-NN correspondences (f2s3.py:273-285), kernel 3.
-    _, nn_idx = nn1(src_feat, tgt_feat)
-    correspondences = np.hstack([s, t[nn_idx.cpu().numpy()]])
-    timer.mark("feature_nn1")
+    with timer.stage("feature_nn1"):
+        _, nn_idx = nn1(src_feat, tgt_feat)
+        with span("matching.readback"):
+            correspondences = np.hstack([s, t[nn_idx.cpu().numpy()]])
 
-    # Pre-pruning table (f2s3.py:286-294).
-    results_dir = osp.join(out_root, "results")
-    mag0 = np.linalg.norm(correspondences[:, 3:6] - correspondences[:, :3], axis=1)
-    save_txt(
-        osp.join(results_dir, f"f2s3_dvfms_without_pruning_of_tile_{tile_id}.txt"),
-        np.hstack([correspondences[:, :3] + center, mag0[:, None]]),
-    )
-
-    # 5. Per-supervoxel pruning (f2s3.py:321-366).
-    pruned, keep = prune_supervoxel_correspondences(
-        filt, correspondences, labels, rockfall=svl_radius == 0.1,
-        refine_results=bool(cfg.get("refine_results", True)), device=dev,
-    )
-    timer.mark("filter")
+    with timer.stage("filter"):
+        # Pre-pruning table (f2s3.py:286-294).
+        results_dir = osp.join(out_root, "results")
+        with span("tables.pre_pruning"):
+            mag0 = np.linalg.norm(correspondences[:, 3:6] - correspondences[:, :3], axis=1)
+            save_txt(
+                osp.join(results_dir, f"f2s3_dvfms_without_pruning_of_tile_{tile_id}.txt"),
+                np.hstack([correspondences[:, :3] + center, mag0[:, None]]),
+            )
+        # 5. Per-supervoxel pruning (f2s3.py:321-366).
+        pruned, keep = prune_supervoxel_correspondences(
+            filt, correspondences, labels, rockfall=svl_radius == 0.1,
+            refine_results=bool(cfg.get("refine_results", True)), device=dev,
+        )
     # 6.-8. Gates, dvf(m)s, median filter, C2C fill.
-    written = write_f2s3_outputs(cfg, tile_id, center, s, t, pruned, keep,
-                                 logger=logger, device=dev)
-    timer.mark("tables")
-    return {
-        "dvfs": written["dvfs"],
-        "magnitudes": written["magnitudes"],
-        "keep": keep,
-        "labels": labels,
-        "overflow": int(ov_s) + int(ov_t) + int(seg.overflow) + mov_s + mov_t,
-        "overflow_by_source": {"sampler": int(ov_s) + int(ov_t) + int(seg.overflow),
-                               "grid_knn": mov_s + mov_t},
-        "src_feat": src_feat.cpu().numpy(),
-        "tgt_feat": tgt_feat.cpu().numpy(),
-    }
+    with timer.stage("tables"):
+        written = write_f2s3_outputs(cfg, tile_id, center, s, t, pruned, keep,
+                                     logger=logger, device=dev)
+    with span("tile.result"):
+        return {
+            "dvfs": written["dvfs"],
+            "magnitudes": written["magnitudes"],
+            "keep": keep,
+            "labels": labels,
+            "overflow": int(ov_s) + int(ov_t) + int(seg.overflow) + mov_s + mov_t,
+            "overflow_by_source": {"sampler": int(ov_s) + int(ov_t) + int(seg.overflow),
+                                   "grid_knn": mov_s + mov_t},
+            "src_feat": src_feat.cpu().numpy(),
+            "tgt_feat": tgt_feat.cpu().numpy(),
+        }

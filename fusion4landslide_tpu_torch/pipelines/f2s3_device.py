@@ -50,6 +50,7 @@ from fusion4landslide_tpu_torch.pipelines.f2s3 import (
     drop_small_and_compact,
     filter_supervoxel_buckets,
 )
+from fusion4landslide_tpu_torch.utils.profiling import tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -163,6 +164,7 @@ def _count_bound(mask: torch.Tensor) -> int:
     return int(torch.where(mask, idx, 0).max())
 
 
+@tile("tile.f2s3_step")
 @torch.inference_mode()
 def f2s3_tile_step(
     dips,
@@ -205,9 +207,10 @@ def f2s3_tile_step(
     PointNet trunks in bf16. The JAX step splits its PRNG key into the two
     clouds' draws: here ``dips_draws`` (source, target) gives them, and
     draws not given come from one ``torch.Generator`` on the device seeded
-    with ``rng_seed`` (the source's first). ``timings`` (optional dict)
-    accumulates per-stage seconds, synchronising the device at each stage
-    boundary.
+    with ``rng_seed`` (the source's first). Each stage is a span
+    (``utils.timing``); ``timings`` (optional dict) accumulates per-stage
+    seconds, synchronising the device at each stage boundary, and the
+    kernels' work under ``counters`` (``utils.profiling``).
     """
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
@@ -217,84 +220,84 @@ def f2s3_tile_step(
     dips, filt = dips.to(dev), filt.to(dev)
     f32 = src.dtype
     stages = StageTimer(timings, dev)
-    n = src.shape[0]
+    with stages.stage("median_res"):
+        n = src.shape[0]
 
-    # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
-    med_s, ov_s = median_nn_distance_traced(src, smask)
-    med_t, ov_t = median_nn_distance_traced(tgt, tmask)
-    median_res = torch.maximum(med_s, med_t)
-    ov_grid = ov_s + ov_t
-    radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
-    stages.mark("median_res")
+        # 1. median resolution -> patch radius (f2s3.py:106, 481-507).
+        med_s, ov_s = median_nn_distance_traced(src, smask)
+        med_t, ov_t = median_nn_distance_traced(tgt, tmask)
+        median_res = torch.maximum(med_s, med_t)
+        ov_grid = ov_s + ov_t
+        radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
 
-    # 2. DIPs descriptors (f2s3.py:91-154); rows past the last valid one
-    # skip the network.
-    feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
-                   sample_priority=sample_priority, dtype=feat_dtype,
-                   generator=torch.Generator(device=dev).manual_seed(rng_seed))
-    draws_s, draws_t = dips_draws or (None, None)
-    src_feat, ov_s = dips_features_device(dips, src, src, smask, radius, draws=draws_s,
-                                          query_count=_count_bound(smask), **feat_kw)
-    tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius, draws=draws_t,
-                                          query_count=_count_bound(tmask), **feat_kw)
-    ov_sampler = ov_s + ov_t
-    stages.mark("dips_features")
+    with stages.stage("dips_features"):
+        # 2. DIPs descriptors (f2s3.py:91-154); rows past the last valid one
+        # skip the network.
+        feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
+                       sample_priority=sample_priority, dtype=feat_dtype,
+                       generator=torch.Generator(device=dev).manual_seed(rng_seed))
+        draws_s, draws_t = dips_draws or (None, None)
+        src_feat, ov_s = dips_features_device(dips, src, src, smask, radius, draws=draws_s,
+                                              query_count=_count_bound(smask), **feat_kw)
+        tgt_feat, ov_t = dips_features_device(dips, tgt, tgt, tmask, radius, draws=draws_t,
+                                              query_count=_count_bound(tmask), **feat_kw)
+        ov_sampler = ov_s + ov_t
 
-    # 3. Supervoxels of the source (f2s3.py:183-189), small patches out.
-    if rockfall:
-        svl_radius = torch.tensor(0.1, dtype=f32, device=dev)
-    else:
-        svl_radius = torch.clamp(radius, min=float(voxel_size))
-    gi, gm, ov = supervoxel_graph(src, svl_radius, smask, k_neighbors=k_neighbors)
-    ov_sampler = ov_sampler + ov
-    seg = supervoxel_segmentation(src, svl_radius, smask, neigh_idx=gi, neigh_mask=gm)
-    labels, _ = drop_small_and_compact(seg.labels, smask, 10 if small_patch_removal else 1)
-    stages.mark("supervoxels")
+    with stages.stage("supervoxels"):
+        # 3. Supervoxels of the source (f2s3.py:183-189), small patches out.
+        if rockfall:
+            svl_radius = torch.tensor(0.1, dtype=f32, device=dev)
+        else:
+            svl_radius = torch.clamp(radius, min=float(voxel_size))
+        gi, gm, ov = supervoxel_graph(src, svl_radius, smask, k_neighbors=k_neighbors)
+        ov_sampler = ov_sampler + ov
+        seg = supervoxel_segmentation(src, svl_radius, smask, neigh_idx=gi, neigh_mask=gm)
+        labels, _ = drop_small_and_compact(seg.labels, smask, 10 if small_patch_removal else 1)
 
-    # 4. Feature-space 1-NN (f2s3.py:273-285) through kernel 3; padded
-    # target rows masked.
-    nn_sq, nn_idx = nn1(src_feat, tgt_feat, tmask)
-    nn_tgt = tgt[nn_idx.long()]
-    nn_ok = smask & torch.isfinite(nn_sq)
-    correspondences = torch.cat([src, nn_tgt], dim=1)
-    stages.mark("feature_nn1")
+    with stages.stage("feature_nn1"):
+        # 4. Feature-space 1-NN (f2s3.py:273-285) through kernel 3; padded
+        # target rows masked.
+        nn_sq, nn_idx = nn1(src_feat, tgt_feat, tmask)
+        nn_tgt = tgt[nn_idx.long()]
+        nn_ok = smask & torch.isfinite(nn_sq)
+        correspondences = torch.cat([src, nn_tgt], dim=1)
 
-    # 5. Per-supervoxel learned pruning (f2s3.py:321-366).
-    member_idx, member_mask = label_members(labels, sv_cap, member_cap)
-    new_tgt_b, keep_b, scores_b, _ = filter_supervoxel_buckets(
-        filt, correspondences, member_idx, member_mask, rockfall=rockfall
-    )
-    if not refine_results:
-        keep_b = member_mask & (scores_b > 0.99999)
-        new_tgt_b = correspondences[member_idx.long()][..., 3:6]
-    rows = member_idx[member_mask].long()
-    new_tgt = nn_tgt.clone()
-    new_tgt[rows] = new_tgt_b[member_mask]
-    keep = torch.zeros((n,), dtype=torch.bool, device=dev)
-    keep[rows] = keep_b[member_mask]
-    keep = keep & nn_ok
-    in_filter = torch.zeros((n,), dtype=torch.bool, device=dev)
-    in_filter[rows] = True
-    n_dropped = (smask & (labels >= 0) & ~in_filter).sum()
-    stages.mark("filter")
-
-    # 6. Max-magnitude gate (f2s3.py:392-394).
-    mag = torch.linalg.norm(new_tgt - src, dim=-1)
-    keep = keep & ((max_disp <= 0) | (mag <= max_disp))
-    mag = torch.where(keep, mag, 0.0)
-    stages.mark("gates")
-
-    # 7. C2C spatial 1-NN for the gap fill (f2s3.py:452-477).
-    if with_c2c:
-        c2c_sq, _, ov = knn_grid_traced(
-            src, tgt, 1, r0=4.0 * median_res, ref_mask=tmask, query_mask=smask,
-            max_doublings=10,
+    with stages.stage("filter"):
+        # 5. Per-supervoxel learned pruning (f2s3.py:321-366).
+        member_idx, member_mask = label_members(labels, sv_cap, member_cap)
+        new_tgt_b, keep_b, scores_b, _ = filter_supervoxel_buckets(
+            filt, correspondences, member_idx, member_mask, rockfall=rockfall
         )
-        ov_grid = ov_grid + ov
-        c2c = torch.sqrt(c2c_sq[:, 0])
-    else:
-        c2c = torch.full((n,), torch.inf, dtype=f32, device=dev)
-    stages.mark("c2c")
+        if not refine_results:
+            keep_b = member_mask & (scores_b > 0.99999)
+            new_tgt_b = correspondences[member_idx.long()][..., 3:6]
+        rows = member_idx[member_mask].long()
+        new_tgt = nn_tgt.clone()
+        new_tgt[rows] = new_tgt_b[member_mask]
+        keep = torch.zeros((n,), dtype=torch.bool, device=dev)
+        keep[rows] = keep_b[member_mask]
+        keep = keep & nn_ok
+        in_filter = torch.zeros((n,), dtype=torch.bool, device=dev)
+        in_filter[rows] = True
+        n_dropped = (smask & (labels >= 0) & ~in_filter).sum()
+
+    with stages.stage("gates"):
+        # 6. Max-magnitude gate (f2s3.py:392-394).
+        mag = torch.linalg.norm(new_tgt - src, dim=-1)
+        keep = keep & ((max_disp <= 0) | (mag <= max_disp))
+        mag = torch.where(keep, mag, 0.0)
+
+    with stages.stage("c2c"):
+        # 7. C2C spatial 1-NN for the gap fill (f2s3.py:452-477).
+        if with_c2c:
+            c2c_sq, _, ov = knn_grid_traced(
+                src, tgt, 1, r0=4.0 * median_res, ref_mask=tmask, query_mask=smask,
+                max_doublings=10,
+            )
+            ov_grid = ov_grid + ov
+            c2c = torch.sqrt(c2c_sq[:, 0])
+        else:
+            c2c = torch.full((n,), torch.inf, dtype=f32, device=dev)
 
     return F2S3TileResult(
         new_tgt=new_tgt, keep=keep, mag=mag, nn_tgt=nn_tgt, labels=labels,

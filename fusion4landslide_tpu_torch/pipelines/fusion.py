@@ -74,6 +74,7 @@ from fusion4landslide_tpu_torch.pipelines.driver import load_or_compute_features
 from fusion4landslide_tpu_torch.models.aggregation import aggregate_superpoints
 from fusion4landslide_tpu_torch.models.dips import feat_torch_dtype
 from fusion4landslide_tpu_torch.pipelines.f2s3 import compute_dips_features
+from fusion4landslide_tpu_torch.utils.profiling import span, tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 from fusion4landslide_tpu_torch.utils.visualization import (
     FIGURE_KEYS,
@@ -296,9 +297,11 @@ def sparse_assign_core(tgt_pts: torch.Tensor, moved_q: torch.Tensor, radius_nn: 
     1-NN is exact, as JAX's gather join is on the CPU; blocks within the
     default window scan as they would without fitting."""
     r_nn = torch.tensor(radius_nn, dtype=torch.float32, device=tgt_pts.device)
-    grid = build_hash_grid(tgt_pts, r_nn)
-    d2, nn_idx, ov = hash_grid_knn(moved_q, grid, r_nn, 1, fit_window=True)
-    return d2[:, 0], nn_idx[:, 0], int(ov)
+    with span("grid_search.build"):
+        grid = build_hash_grid(tgt_pts, r_nn)
+    with span("grid_search.query"):
+        d2, nn_idx, ov = hash_grid_knn(moved_q, grid, r_nn, 1, fit_window=True)
+        return d2[:, 0], nn_idx[:, 0], int(ov)
 
 
 def _first_point_of_voxel(p2v: np.ndarray, n_vox: int) -> np.ndarray:
@@ -387,9 +390,11 @@ def run_fusion3d_tile(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     """One tile of the fusion_3d method (use_2d_matches=False), host
     orchestrated: what ``main_fusion.py`` runs per tile on one device.
     ``cfg`` keys follow ``configs/landslide/fusion_3d_brienz.yaml``; runs
-    on ``device`` (default ``cuda``). ``timings`` (optional dict) collects
-    per-stage seconds, synchronised at each stage boundary. ``rng_seed``
-    / ``dips_draws``: the DIPs draws (module docstring)."""
+    on ``device`` (default ``cuda``). Each stage is a span
+    (``utils.timing``); ``timings`` (optional dict) collects per-stage
+    seconds, synchronised at each stage boundary, and the kernels' work
+    under ``counters`` (``utils.profiling``). ``rng_seed`` /
+    ``dips_draws``: the DIPs draws (module docstring)."""
     return _fusion_tile_core(cfg, dips, agg, src_core, tgt_core, image_data=None,
                              src_halo=src_halo, tgt_halo=tgt_halo, tile_id=tile_id,
                              logger=logger, device=device, timings=timings,
@@ -442,6 +447,7 @@ def _interim_table(src_vox, tgt_vox, idx, valid, center, dataset) -> np.ndarray:
     return visual_clamp_magnitude(rows, dataset)
 
 
+@tile("tile.fusion")
 @torch.inference_mode()
 def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray, *,
                       image_data: dict | None, src_halo: np.ndarray | None,
@@ -454,15 +460,14 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     ``features_tile_*.npz`` cache), global 3D matches, the 2D channel,
     then per level: partition, members, aggregation, coarse matching
     (with 2D votes), fine SVD + ICP, priority merge; dense output and the
-    sparse re-association. The JAX key split at its start becomes the two
+    sparse re-association. Each stage is a span (``utils.timing``), and
+    ``timings`` also collects the kernels' work under ``counters``
+    (``utils.profiling``). The JAX key split at its start becomes the two
     clouds' ``dips_draws``, or one generator seeded with ``rng_seed``; only
     the exact-kNN DIPs branch draws."""
     _check_ported(cfg, image_data)
     dev = resolve_device(device)
-    dips, agg = dips.to(dev).eval(), agg.to(dev).eval()
     timer = StageTimer({} if timings is None else timings, dev)
-    src_halo = src_core if src_halo is None else src_halo
-    tgt_halo = tgt_core if tgt_halo is None else tgt_halo
 
     def on_dev(a, dtype=None):
         if torch.is_tensor(a):
@@ -472,11 +477,6 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     def log(msg, *args):
         if logger:
             logger.info(msg, *args)
-
-    center = src_core.mean(axis=0)
-    s = (src_core - center).astype(np.float32)
-    t = (tgt_core - center).astype(np.float32)
-    s_d, t_d = on_dev(s), on_dev(t)
 
     max_mag = float(cfg.get("max_magnitude", 10.0))
     icp_thr = float(cfg.get("icp_threshold", 0.1))
@@ -501,19 +501,27 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
 
     # 1. median resolution and voxel subsampling on the clouds' shared min
     # corner (base:1012-1030).
-    med_s, mov_s = median_nn_distance_counted(s_d)
-    med_t, mov_t = median_nn_distance_counted(t_d)
-    median_res = max(float(med_s), float(med_t))
-    overflow["grid_knn"] += mov_s + mov_t
-    timer.mark("median_resolution")
-    grid0 = on_dev(np.minimum(s.min(axis=0), t.min(axis=0)).astype(np.float32))
-    s_cent, s_p2v, _, s_nv = voxel_downsample(s_d, median_res, origin=grid0)
-    t_cent, t_p2v, _, t_nv = voxel_downsample(t_d, median_res, origin=grid0)
-    s_nv, t_nv = int(s_nv), int(t_nv)
-    src_vox_d, tgt_vox_d = s_cent[:s_nv].contiguous(), t_cent[:t_nv].contiguous()
-    src_vox, tgt_vox = src_vox_d.cpu().numpy(), tgt_vox_d.cpu().numpy()
-    s_p2v, t_p2v = s_p2v.cpu().numpy(), t_p2v.cpu().numpy()
-    timer.mark("voxel_subsampling")
+    with timer.stage("median_resolution"):
+        dips, agg = dips.to(dev).eval(), agg.to(dev).eval()
+        src_halo = src_core if src_halo is None else src_halo
+        tgt_halo = tgt_core if tgt_halo is None else tgt_halo
+        center = src_core.mean(axis=0)
+        s = (src_core - center).astype(np.float32)
+        t = (tgt_core - center).astype(np.float32)
+        s_d, t_d = on_dev(s), on_dev(t)
+        med_s, mov_s = median_nn_distance_counted(s_d)
+        med_t, mov_t = median_nn_distance_counted(t_d)
+        median_res = max(float(med_s), float(med_t))
+        overflow["grid_knn"] += mov_s + mov_t
+    with timer.stage("voxel_subsampling"):
+        grid0 = on_dev(np.minimum(s.min(axis=0), t.min(axis=0)).astype(np.float32))
+        s_cent, s_p2v, _, s_nv = voxel_downsample(s_d, median_res, origin=grid0)
+        t_cent, t_p2v, _, t_nv = voxel_downsample(t_d, median_res, origin=grid0)
+        s_nv, t_nv = int(s_nv), int(t_nv)
+        src_vox_d, tgt_vox_d = s_cent[:s_nv].contiguous(), t_cent[:t_nv].contiguous()
+        with span("grid_search.readback"):
+            src_vox, tgt_vox = src_vox_d.cpu().numpy(), tgt_vox_d.cpu().numpy()
+            s_p2v, t_p2v = s_p2v.cpu().numpy(), t_p2v.cpu().numpy()
     log("tile %s: median_res=%.4f, voxels src=%d tgt=%d", tile_id, median_res, s_nv, t_nv)
 
     # 2. DIPs descriptors of the voxel clouds with patches from the halo
@@ -524,8 +532,6 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
                    chunk=int(cfg.get("feat_chunk", 2048)), dtype=cfg.get("feat_dtype"),
                    generator=torch.Generator(device=dev).manual_seed(rng_seed))
     draws_s, draws_t = dips_draws or (None, None)
-    sh_d = on_dev((src_halo - center).astype(np.float32))
-    th_d = on_dev((tgt_halo - center).astype(np.float32))
     dips_overflow = []
 
     def compute_feats():
@@ -534,37 +540,41 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         dips_overflow.append(int(ov_s) + int(ov_t))
         return {"src_feat": fs, "tgt_feat": ft}
 
-    feats = load_or_compute_features(cfg, tile_id, "features", compute_feats, logger)
-    if feats["src_feat"].shape[0] != s_nv or feats["tgt_feat"].shape[0] != t_nv:
-        if logger:
-            logger.warning("cached features shape mismatch (%d/%d vs %d/%d voxels): recomputing",
-                           feats["src_feat"].shape[0], feats["tgt_feat"].shape[0], s_nv, t_nv)
-        feats = compute_feats()
-    src_feat_d = on_dev(feats["src_feat"], torch.float32)
-    tgt_feat_d = on_dev(feats["tgt_feat"], torch.float32)
-    overflow["sampler"] += sum(dips_overflow)
-    timer.mark("dips_features")
+    with timer.stage("dips_features"):
+        sh_d = on_dev((src_halo - center).astype(np.float32))
+        th_d = on_dev((tgt_halo - center).astype(np.float32))
+        feats = load_or_compute_features(cfg, tile_id, "features", compute_feats, logger)
+        if feats["src_feat"].shape[0] != s_nv or feats["tgt_feat"].shape[0] != t_nv:
+            if logger:
+                logger.warning("cached features shape mismatch (%d/%d vs %d/%d voxels): "
+                               "recomputing", feats["src_feat"].shape[0],
+                               feats["tgt_feat"].shape[0], s_nv, t_nv)
+            feats = compute_feats()
+        src_feat_d = on_dev(feats["src_feat"], torch.float32)
+        tgt_feat_d = on_dev(feats["tgt_feat"], torch.float32)
+        overflow["sampler"] += sum(dips_overflow)
 
     # 3. Global 3D voxel matches: the banded magnitude-gated search by
     # default, the reference's search-then-gate (kernel 3) with
     # global_matching_gated: false (base:2756-2889).
-    if bool(cfg.get("global_matching_gated", True)):
-        nb_, mb_ = bucket_size(s_nv), bucket_size(t_nv)
+    with timer.stage("global_3d_matches"):
+        if bool(cfg.get("global_matching_gated", True)):
+            nb_, mb_ = bucket_size(s_nv), bucket_size(t_nv)
 
-        def pad(x, rows):
-            return torch.cat([x, x.new_zeros((rows - x.shape[0], x.shape[1]))])
+            def pad(x, rows):
+                return torch.cat([x, x.new_zeros((rows - x.shape[0], x.shape[1]))])
 
-        _, g_idx, g_valid = gated_feature_nn1(
-            pad(src_feat_d, nb_), pad(tgt_feat_d, mb_), pad(src_vox_d, nb_),
-            pad(tgt_vox_d, mb_), np.float32(max_mag),
-            torch.arange(nb_, device=dev) < s_nv, torch.arange(mb_, device=dev) < t_nv,
-        )
-        g_idx, g_valid = g_idx[:s_nv], g_valid[:s_nv]
-    else:
-        g_idx, g_valid = global_matches_3d(src_feat_d, tgt_feat_d, src_vox_d, tgt_vox_d,
-                                           max_mag)
-    g_idx, g_valid = g_idx.cpu().numpy(), g_valid.cpu().numpy()
-    timer.mark("global_3d_matches")
+            _, g_idx, g_valid = gated_feature_nn1(
+                pad(src_feat_d, nb_), pad(tgt_feat_d, mb_), pad(src_vox_d, nb_),
+                pad(tgt_vox_d, mb_), np.float32(max_mag),
+                torch.arange(nb_, device=dev) < s_nv, torch.arange(mb_, device=dev) < t_nv,
+            )
+            g_idx, g_valid = g_idx[:s_nv], g_valid[:s_nv]
+        else:
+            g_idx, g_valid = global_matches_3d(src_feat_d, tgt_feat_d, src_vox_d, tgt_vox_d,
+                                               max_mag)
+        with span("matching.readback"):
+            g_idx, g_valid = g_idx.cpu().numpy(), g_valid.cpu().numpy()
 
     out_root = osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")))
     results_dir = osp.join(out_root, "results")
@@ -575,89 +585,98 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     # maps (interpolation), magnitude-gate; image pairs merge by fill-in.
     c2d_idx = c2d_valid = None
     if image_data is not None:
-        image_size = tuple(int(x) for x in (cfg.get("image_size")
-                                            or image_data["src_image"].shape[:2]))
-        pixel_thres = float(cfg.get("pixel_thres", 5))
-        v_flip = str(cfg.get("dataset", "")).lower() != "rockfall_simulator"
-        lifting = str(cfg.get("lifting_type", "nn_search"))
-        mode = str(cfg.get("matches_from_2d_type", "nn_src_only"))
-        if mode == "nn_src_with_tgt_for_visualize":
-            mode = "nn_src_only"
-        K = on_dev(image_data["intrinsic"])
-        center32 = center.astype(np.float32)
-        # Each image's projection once, outside the cross-pair loop.
-        src_projs = [project_points(on_dev(src_vox + center32), on_dev(e), K, image_size,
-                                    v_flip=v_flip) for e in image_data["src_extrinsics"]]
-        tgt_projs = [project_points(on_dev(tgt_vox + center32), on_dev(e), K, image_size,
-                                    v_flip=v_flip) for e in image_data["tgt_extrinsics"]]
-        single_pair = len(image_data["src_images"]) == 1 and len(image_data["tgt_images"]) == 1
-        pair_channels, n_px_total = [], 0
-        for a, simg in enumerate(image_data["src_images"]):
-            for b, timg in enumerate(image_data["tgt_images"]):
-                (uv_s, dep_s, pval_s), (uv_t, dep_t, pval_t) = src_projs[a], tgt_projs[b]
-                if image_data["corres_2d"] is not None and single_pair:
-                    corres_2d = image_data["corres_2d"]
-                else:
-                    corres_2d = match_epoch_images(
-                        simg, timg, **matcher_options(cfg), logger=logger,
-                        weights=cfg.get("img_matcher_weights"), device=dev)
-                if bool(cfg.get("save_img_matching_visualization", False)) and len(corres_2d):
-                    # Reference base:1213-1224 (make_matching_figure JPG).
-                    save_matching_figure(
-                        simg, timg, np.asarray(corres_2d),
-                        osp.join(out_root, "img_matching_results", "visualization",
-                                 f"src_{a}_tgt_{b}_tile_{tile_id}.jpg"),
-                        text=f"tile {tile_id} src img {a} x tgt img {b}")
-                corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
-                n_px_total += len(corres_2d)
-                if not len(corres_2d):
-                    continue
-                c2 = on_dev(corres_2d)
-                sext, text = (on_dev(image_data[k][i]) for k, i in
-                              (("src_extrinsics", a), ("tgt_extrinsics", b)))
-                if lifting == "interpolation":
-                    dmap_s, _ = rasterize_depth(uv_s, dep_s, pval_s, image_size)
-                    dmap_t, _ = rasterize_depth(uv_t, dep_t, pval_t, image_size)
-                    p3d, ok3 = lift_matches_to_3d(c2, dmap_s, dmap_t, sext, text, K,
-                                                  image_size, v_flip=v_flip)
-                    c32 = on_dev(center32)
-                    ds2, i_s = nn1_xla_rounded(p3d[:, 0:3] - c32, src_vox_d)
-                    dt2, i_t = nn1_xla_rounded(p3d[:, 3:6] - c32, tgt_vox_d)
-                    thr3 = 2.0 * max(median_res, 1e-6)
-                    ok = (ok3.cpu().numpy() & (np.sqrt(ds2.cpu().numpy()) < thr3)
-                          & (np.sqrt(dt2.cpu().numpy()) < thr3))
-                    # Duplicate source voxels: the last match wins (numpy
-                    # fancy assignment, as in the JAX host path).
-                    t2d, v2d = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
-                    src_i = i_s.cpu().numpy()[ok]
-                    t2d[src_i] = i_t.cpu().numpy()[ok]
-                    v2d[src_i] = True
-                else:
-                    t2d, v2d = chain_2d_matches_to_3d(c2, uv_s, uv_t, pixel_thres,
-                                                      src_valid=pval_s, tgt_valid=pval_t,
-                                                      mode=mode)
-                    t2d, v2d = t2d.cpu().numpy().astype(np.int64), v2d.cpu().numpy()
-                # Per-pair max-magnitude gate (base:1640-1646).
-                mag2d = np.linalg.norm(tgt_vox[np.clip(t2d, 0, max(t_nv - 1, 0))] - src_vox,
-                                       axis=1)
-                pair_channels.append((t2d, v2d & (mag2d <= max_mag)))
-        # Fill-in merge over image pairs (base:1940-1953): the first pair
-        # is primary, later pairs fill unmatched voxels.
-        c2d_idx, c2d_valid = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
-        for t2d, v2d in pair_channels:
-            fill = ~c2d_valid & v2d
-            c2d_idx[fill] = t2d[fill]
-            c2d_valid |= fill
-        log("tile %s: %d 2D pixel matches over %d image pair(s) -> %d lifted 3D voxel matches",
-            tile_id, n_px_total, max(len(pair_channels), 1), int(c2d_valid.sum()))
-        if c2d_valid.any():
-            save_txt(osp.join(results_dir, "c2f_dvfms_from_global_2d_src2tgt_wo_pruning_"
-                              f"visualize_tile_{tile_id}.txt"),
-                     _interim_table(src_vox, tgt_vox, c2d_idx, c2d_valid, center, dataset))
-        timer.mark("rgb_2d")
-    save_txt(osp.join(results_dir, "c2f_dvfms_from_global_3d_src2tgt_wo_pruning_visualize_"
-                      f"tile_{tile_id}.txt"),
-             _interim_table(src_vox, tgt_vox, g_idx, g_valid, center, dataset))
+        with timer.stage("rgb_2d"):
+            image_size = tuple(int(x) for x in (cfg.get("image_size")
+                                                or image_data["src_image"].shape[:2]))
+            pixel_thres = float(cfg.get("pixel_thres", 5))
+            v_flip = str(cfg.get("dataset", "")).lower() != "rockfall_simulator"
+            lifting = str(cfg.get("lifting_type", "nn_search"))
+            mode = str(cfg.get("matches_from_2d_type", "nn_src_only"))
+            if mode == "nn_src_with_tgt_for_visualize":
+                mode = "nn_src_only"
+            K = on_dev(image_data["intrinsic"])
+            center32 = center.astype(np.float32)
+            # Each image's projection once, outside the cross-pair loop.
+            src_projs = [project_points(on_dev(src_vox + center32), on_dev(e), K, image_size,
+                                        v_flip=v_flip) for e in image_data["src_extrinsics"]]
+            tgt_projs = [project_points(on_dev(tgt_vox + center32), on_dev(e), K, image_size,
+                                        v_flip=v_flip) for e in image_data["tgt_extrinsics"]]
+            single_pair = (len(image_data["src_images"]) == 1
+                           and len(image_data["tgt_images"]) == 1)
+            pair_channels, n_px_total = [], 0
+            for a, simg in enumerate(image_data["src_images"]):
+                for b, timg in enumerate(image_data["tgt_images"]):
+                    (uv_s, dep_s, pval_s), (uv_t, dep_t, pval_t) = src_projs[a], tgt_projs[b]
+                    if image_data["corres_2d"] is not None and single_pair:
+                        corres_2d = image_data["corres_2d"]
+                    else:
+                        corres_2d = match_epoch_images(
+                            simg, timg, **matcher_options(cfg), logger=logger,
+                            weights=cfg.get("img_matcher_weights"), device=dev)
+                    if (bool(cfg.get("save_img_matching_visualization", False))
+                            and len(corres_2d)):
+                        # Reference base:1213-1224 (make_matching_figure JPG).
+                        save_matching_figure(
+                            simg, timg, np.asarray(corres_2d),
+                            osp.join(out_root, "img_matching_results", "visualization",
+                                     f"src_{a}_tgt_{b}_tile_{tile_id}.jpg"),
+                            text=f"tile {tile_id} src img {a} x tgt img {b}")
+                    corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
+                    n_px_total += len(corres_2d)
+                    if not len(corres_2d):
+                        continue
+                    c2 = on_dev(corres_2d)
+                    sext, text = (on_dev(image_data[k][i]) for k, i in
+                                  (("src_extrinsics", a), ("tgt_extrinsics", b)))
+                    if lifting == "interpolation":
+                        dmap_s, _ = rasterize_depth(uv_s, dep_s, pval_s, image_size)
+                        dmap_t, _ = rasterize_depth(uv_t, dep_t, pval_t, image_size)
+                        p3d, ok3 = lift_matches_to_3d(c2, dmap_s, dmap_t, sext, text, K,
+                                                      image_size, v_flip=v_flip)
+                        c32 = on_dev(center32)
+                        ds2, i_s = nn1_xla_rounded(p3d[:, 0:3] - c32, src_vox_d)
+                        dt2, i_t = nn1_xla_rounded(p3d[:, 3:6] - c32, tgt_vox_d)
+                        thr3 = 2.0 * max(median_res, 1e-6)
+                        with span("rgb.readback"):
+                            ok = (ok3.cpu().numpy() & (np.sqrt(ds2.cpu().numpy()) < thr3)
+                                  & (np.sqrt(dt2.cpu().numpy()) < thr3))
+                            # Duplicate source voxels: the last match wins
+                            # (numpy fancy assignment, as in the JAX host path).
+                            t2d, v2d = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
+                            src_i = i_s.cpu().numpy()[ok]
+                            t2d[src_i] = i_t.cpu().numpy()[ok]
+                            v2d[src_i] = True
+                    else:
+                        t2d, v2d = chain_2d_matches_to_3d(c2, uv_s, uv_t, pixel_thres,
+                                                          src_valid=pval_s, tgt_valid=pval_t,
+                                                          mode=mode)
+                        with span("rgb.readback"):
+                            t2d, v2d = t2d.cpu().numpy().astype(np.int64), v2d.cpu().numpy()
+                    # Per-pair max-magnitude gate (base:1640-1646).
+                    with span("rgb.gate"):
+                        mag2d = np.linalg.norm(
+                            tgt_vox[np.clip(t2d, 0, max(t_nv - 1, 0))] - src_vox, axis=1)
+                        pair_channels.append((t2d, v2d & (mag2d <= max_mag)))
+            # Fill-in merge over image pairs (base:1940-1953): the first pair
+            # is primary, later pairs fill unmatched voxels.
+            with span("rgb.merge"):
+                c2d_idx, c2d_valid = np.zeros(s_nv, np.int64), np.zeros(s_nv, bool)
+                for t2d, v2d in pair_channels:
+                    fill = ~c2d_valid & v2d
+                    c2d_idx[fill] = t2d[fill]
+                    c2d_valid |= fill
+            log("tile %s: %d 2D pixel matches over %d image pair(s) -> %d lifted 3D voxel "
+                "matches", tile_id, n_px_total, max(len(pair_channels), 1), int(c2d_valid.sum()))
+            if c2d_valid.any():
+                with span("tables.interim"):
+                    save_txt(osp.join(results_dir, "c2f_dvfms_from_global_2d_src2tgt_wo_pruning_"
+                                      f"visualize_tile_{tile_id}.txt"),
+                             _interim_table(src_vox, tgt_vox, c2d_idx, c2d_valid, center,
+                                            dataset))
+    with span("tables.interim"):
+        save_txt(osp.join(results_dir, "c2f_dvfms_from_global_3d_src2tgt_wo_pruning_visualize_"
+                          f"tile_{tile_id}.txt"),
+                 _interim_table(src_vox, tgt_vox, g_idx, g_valid, center, dataset))
 
     base_svl_radius = max(radius, float(cfg.get("voxel_size_init", 0.0) or 0.0))
     n_src_pts, n_tgt_pts = s.shape[0], t.shape[0]
@@ -666,15 +685,15 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     # its first point's label.
     use_spt = str(cfg.get("partition_type", "supervoxel")) == "superpoint"
     if use_spt:
-        spt_labels = {
-            which: load_or_generate_partition_labels(
-                out_root, "superpoint", tile_id, which, core, levels, logger=logger,
-                device=dev, timings=timings)
-            for which, core in (("src", src_core), ("tgt", tgt_core))
-        }
-        first_pt = {"src": _first_point_of_voxel(s_p2v, s_nv),
-                    "tgt": _first_point_of_voxel(t_p2v, t_nv)}
-        timer.mark("partition_tables")
+        with timer.stage("partition_tables"):
+            spt_labels = {
+                which: load_or_generate_partition_labels(
+                    out_root, "superpoint", tile_id, which, core, levels, logger=logger,
+                    device=dev, timings=timings)
+                for which, core in (("src", src_core), ("tgt", tgt_core))
+            }
+            first_pt = {"src": _first_point_of_voxel(s_p2v, s_nv),
+                        "tgt": _first_point_of_voxel(t_p2v, t_nv)}
     # Per-point transforms merged across levels by priority (list order).
     merged_R = np.tile(np.eye(3, dtype=np.float32), (n_src_pts, 1, 1))
     merged_t = np.zeros((n_src_pts, 3), np.float32)
@@ -690,7 +709,6 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
     t2s_t = np.zeros((n_tgt_pts, 3), np.float32)
     t2s_valid = np.zeros(n_tgt_pts, bool)
     per_level_stats = []
-    lab_t_dev = None
     # return_interim: True returns each level's labels and the global
     # matches beside the result, as the JAX tile does.
     keep_interim = bool(cfg.get("return_interim", False))
@@ -706,149 +724,161 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
             overflow["sampler"] += int(ov)
             graphs[which] = (ni, nm, pca_normals(vox_d, neigh_idx=ni, neigh_mask=nm))
         ni, nm, nrm = graphs[which]
-        return supervoxel_segmentation(vox_d, svl_radius, neigh_idx=ni, neigh_mask=nm,
-                                       normals=nrm).labels.cpu().numpy()
+        labels = supervoxel_segmentation(vox_d, svl_radius, neigh_idx=ni, neigh_mask=nm,
+                                         normals=nrm).labels
+        with span("partition.readback"):
+            return labels.cpu().numpy()
 
     for li, level in enumerate(levels):
-        svl_radius = base_svl_radius * (2.0 ** (int(level) - 1))
-        if use_spt:
-            raw_s = spt_labels["src"][li][first_pt["src"]]
-            raw_t = spt_labels["tgt"][li][first_pt["tgt"]]
-        else:
-            raw_s = segment("src", src_vox_d, svl_radius)
-            raw_t = segment("tgt", tgt_vox_d, svl_radius)
-        lab_s, n_s = _compact_labels(raw_s, small_patch)
-        lab_t, n_t = _compact_labels(raw_t, small_patch)
-        if bool(cfg.get("use_debugging", False)):
-            # Only the first num_spt superpoints of each epoch
-            # (coarse_to_fine_matching.py:292-308).
-            num_spt = int(cfg.get("num_spt", 2))
-            lab_s = np.where(lab_s < num_spt, lab_s, -1)
-            lab_t = np.where(lab_t < num_spt, lab_t, -1)
-            n_s, n_t = min(n_s, num_spt), min(n_t, num_spt)
-        timer.mark(f"partition_l{level}")
-        if keep_interim:
-            interim_levels.append({"level": level, "lab_s": lab_s.copy(), "lab_t": lab_t.copy(),
-                                   "n_s": n_s, "n_t": n_t})
-        if n_s == 0 or n_t == 0:
-            per_level_stats.append((level, 0, 0))
-            timer.mark(f"match_l{level}")
-            continue
+        with timer.stage(f"partition_l{level}"):
+            svl_radius = base_svl_radius * (2.0 ** (int(level) - 1))
+            if use_spt:
+                raw_s = spt_labels["src"][li][first_pt["src"]]
+                raw_t = spt_labels["tgt"][li][first_pt["tgt"]]
+            else:
+                raw_s = segment("src", src_vox_d, svl_radius)
+                raw_t = segment("tgt", tgt_vox_d, svl_radius)
+            with span("partition.compact_labels"):
+                lab_s, n_s = _compact_labels(raw_s, small_patch)
+                lab_t, n_t = _compact_labels(raw_t, small_patch)
+            if bool(cfg.get("use_debugging", False)):
+                # Only the first num_spt superpoints of each epoch
+                # (coarse_to_fine_matching.py:292-308).
+                num_spt = int(cfg.get("num_spt", 2))
+                lab_s = np.where(lab_s < num_spt, lab_s, -1)
+                lab_t = np.where(lab_t < num_spt, lab_t, -1)
+                n_s, n_t = min(n_s, num_spt), min(n_t, num_spt)
+        with timer.stage(f"match_l{level}"):
+            if keep_interim:
+                interim_levels.append({"level": level, "lab_s": lab_s.copy(),
+                                       "lab_t": lab_t.copy(), "n_s": n_s, "n_t": n_t})
+            if n_s == 0 or n_t == 0:
+                per_level_stats.append((level, 0, 0))
+                continue
+            with span("partition.members"):
+                S_s, S_t = bucket_size(n_s), bucket_size(n_t)
+                P_s = bucket_size(int(np.bincount(lab_s[lab_s >= 0], minlength=n_s).max()))
+                P_t = bucket_size(int(np.bincount(lab_t[lab_t >= 0], minlength=n_t).max()))
+                lab_s_dev, lab_t_dev = on_dev(lab_s, torch.int32), on_dev(lab_t, torch.int32)
+                mem_s, memmask_s = label_members(lab_s_dev, S_s, P_s)
+                mem_t, memmask_t = label_members(lab_t_dev, S_t, P_t)
 
-        S_s, S_t = bucket_size(n_s), bucket_size(n_t)
-        P_s = bucket_size(int(np.bincount(lab_s[lab_s >= 0], minlength=n_s).max()))
-        P_t = bucket_size(int(np.bincount(lab_t[lab_t >= 0], minlength=n_t).max()))
-        lab_s_dev, lab_t_dev = on_dev(lab_s, torch.int32), on_dev(lab_t, torch.int32)
-        mem_s, memmask_s = label_members(lab_s_dev, S_s, P_s)
-        mem_t, memmask_t = label_members(lab_t_dev, S_t, P_t)
+            # 5. Superpoint aggregation (base:2561-2656) and coarse matching.
+            P_agg = min(int(cfg.get("agg_max_points", 512)), P_s, P_t)
+            spt_feat_s, spt_coord_s = aggregate_superpoints(agg, src_feat_d, src_vox_d, mem_s,
+                                                            memmask_s, agg_max_points=P_agg)
+            spt_feat_t, spt_coord_t = aggregate_superpoints(agg, tgt_feat_d, tgt_vox_d, mem_t,
+                                                            memmask_t, agg_max_points=P_agg)
+            valid_s = torch.arange(S_s, device=dev) < n_s
+            valid_t = torch.arange(S_t, device=dev) < n_t
+            # Coarse mode (coarse_matching_{fusion,only_3d,only_2d}).
+            has_2d = c2d_idx is not None
+            coarse_only_2d = bool(cfg.get("coarse_matching_only_2d", False)) and has_2d
+            coarse_fusion = (bool(cfg.get("coarse_matching_fusion", has_2d)) and has_2d
+                             and not coarse_only_2d)
+            pair_list = []
+            if not coarse_only_2d:
+                tgt_of_src, pair_valid = coarse_match_superpoints(
+                    spt_feat_s, spt_coord_s, valid_s, spt_feat_t, spt_coord_t, valid_t, max_mag,
+                    mutual=mutual_3d,
+                )
+                with span("matching.readback"):
+                    tgt_of_src = tgt_of_src.cpu().numpy().astype(np.int64)
+                    src_3d = np.where(pair_valid.cpu().numpy()[:n_s])[0]
+                    pair_list.append(np.stack([src_3d, tgt_of_src[src_3d]], axis=1))
+            if coarse_fusion or coarse_only_2d:
+                with span("matching.votes_2d"):
+                    vote_tgt, vote_ok = coarse_match_2d_votes(lab_s, lab_t, c2d_idx, c2d_valid,
+                                                              n_s, n_t)
+                    src_2d = np.where(vote_ok)[0]
+                    pair_list.append(np.stack([src_2d, vote_tgt[src_2d]], axis=1))
+            with span("matching.pairs"):
+                pairs = (np.unique(np.concatenate(pair_list, axis=0), axis=0) if pair_list
+                         else np.zeros((0, 2), np.int64))
+                pair_src, pair_tgt = pairs[:, 0], pairs[:, 1]
+            if pair_src.size == 0:
+                per_level_stats.append((level, n_s, 0))
+                continue
 
-        # 5. Superpoint aggregation (base:2561-2656) and coarse matching.
-        P_agg = min(int(cfg.get("agg_max_points", 512)), P_s, P_t)
-        spt_feat_s, spt_coord_s = aggregate_superpoints(agg, src_feat_d, src_vox_d, mem_s,
-                                                        memmask_s, agg_max_points=P_agg)
-        spt_feat_t, spt_coord_t = aggregate_superpoints(agg, tgt_feat_d, tgt_vox_d, mem_t,
-                                                        memmask_t, agg_max_points=P_agg)
-        valid_s = torch.arange(S_s, device=dev) < n_s
-        valid_t = torch.arange(S_t, device=dev) < n_t
-        # Coarse mode (coarse_matching_{fusion,only_3d,only_2d}).
-        has_2d = c2d_idx is not None
-        coarse_only_2d = bool(cfg.get("coarse_matching_only_2d", False)) and has_2d
-        coarse_fusion = (bool(cfg.get("coarse_matching_fusion", has_2d)) and has_2d
-                         and not coarse_only_2d)
-        pair_list = []
-        if not coarse_only_2d:
-            tgt_of_src, pair_valid = coarse_match_superpoints(
-                spt_feat_s, spt_coord_s, valid_s, spt_feat_t, spt_coord_t, valid_t, max_mag,
-                mutual=mutual_3d,
+            # 6. Fine matching over the pairs, the pair count padded to its
+            # bucket with dead pairs.
+            fine_only_2d = bool(cfg.get("fine_matching_only_2d", False)) and has_2d
+            fine_fusion = (bool(cfg.get("fine_matching_fusion", has_2d)) and has_2d
+                           and not fine_only_2d)
+            ch1_idx, ch1_valid = (c2d_idx, c2d_valid) if fine_only_2d else (g_idx, g_valid)
+            fine_kw = {}
+            if fine_fusion:
+                fine_kw = dict(corres2_tgt_idx=on_dev(c2d_idx, torch.int32),
+                               corres2_valid=on_dev(c2d_valid),
+                               weighting=bool(cfg.get("weighting_svd", False)))
+            n_pairs = pair_src.size
+            with span("fine.pairs"):
+                pairs_cap = bucket_size(n_pairs)
+                pair_src_b = np.zeros(pairs_cap, np.int64)
+                pair_src_b[:n_pairs] = pair_src
+                pair_tgt_b = np.full(pairs_cap, -1, np.int64)
+                pair_tgt_b[:n_pairs] = pair_tgt
+                psb = on_dev(pair_src_b)
+                memmask_pad = (memmask_s[psb]
+                               & (torch.arange(pairs_cap, device=dev) < n_pairs)[:, None])
+                ch1 = (on_dev(ch1_idx, torch.int32), on_dev(ch1_valid))
+            fine = fine_match_pairs(
+                mem_s[psb], memmask_pad, on_dev(pair_tgt_b, torch.int32),
+                *ch1, lab_t_dev, src_vox_d, tgt_vox_d,
+                num_min_quality=num_min_quality, thres_dist_diff=thres_dd,
+                thres_inlier_ratio=thres_ir, num_min_fine=num_min_fine, icp_threshold=icp_thr,
+                icp_max_iter=icp_iter, icp_type=icp_type, fine_max_matches=fine_cap, **fine_kw,
             )
-            tgt_of_src = tgt_of_src.cpu().numpy().astype(np.int64)
-            src_3d = np.where(pair_valid.cpu().numpy()[:n_s])[0]
-            pair_list.append(np.stack([src_3d, tgt_of_src[src_3d]], axis=1))
-        if coarse_fusion or coarse_only_2d:
-            vote_tgt, vote_ok = coarse_match_2d_votes(lab_s, lab_t, c2d_idx, c2d_valid, n_s, n_t)
-            src_2d = np.where(vote_ok)[0]
-            pair_list.append(np.stack([src_2d, vote_tgt[src_2d]], axis=1))
-        pairs = (np.unique(np.concatenate(pair_list, axis=0), axis=0) if pair_list
-                 else np.zeros((0, 2), np.int64))
-        pair_src, pair_tgt = pairs[:, 0], pairs[:, 1]
-        if pair_src.size == 0:
-            per_level_stats.append((level, n_s, 0))
-            timer.mark(f"match_l{level}")
-            continue
+            with span("fine.readback"):
+                fR = fine.R[:n_pairs].cpu().numpy()
+                ft = fine.t[:n_pairs].cpu().numpy()
+                frmse = fine.rmse[:n_pairs].cpu().numpy()
+                fvalid = fine.valid[:n_pairs].cpu().numpy()
 
-        # 6. Fine matching over the pairs, the pair count padded to its
-        # bucket with dead pairs.
-        fine_only_2d = bool(cfg.get("fine_matching_only_2d", False)) and has_2d
-        fine_fusion = (bool(cfg.get("fine_matching_fusion", has_2d)) and has_2d
-                       and not fine_only_2d)
-        ch1_idx, ch1_valid = (c2d_idx, c2d_valid) if fine_only_2d else (g_idx, g_valid)
-        fine_kw = {}
-        if fine_fusion:
-            fine_kw = dict(corres2_tgt_idx=on_dev(c2d_idx, torch.int32),
-                           corres2_valid=on_dev(c2d_valid),
-                           weighting=bool(cfg.get("weighting_svd", False)))
-        n_pairs = pair_src.size
-        pairs_cap = bucket_size(n_pairs)
-        pair_src_b = np.zeros(pairs_cap, np.int64)
-        pair_src_b[:n_pairs] = pair_src
-        pair_tgt_b = np.full(pairs_cap, -1, np.int64)
-        pair_tgt_b[:n_pairs] = pair_tgt
-        psb = on_dev(pair_src_b)
-        memmask_pad = memmask_s[psb] & (torch.arange(pairs_cap, device=dev) < n_pairs)[:, None]
-        fine = fine_match_pairs(
-            mem_s[psb], memmask_pad, on_dev(pair_tgt_b, torch.int32),
-            on_dev(ch1_idx, torch.int32), on_dev(ch1_valid), lab_t_dev, src_vox_d, tgt_vox_d,
-            num_min_quality=num_min_quality, thres_dist_diff=thres_dd,
-            thres_inlier_ratio=thres_ir, num_min_fine=num_min_fine, icp_threshold=icp_thr,
-            icp_max_iter=icp_iter, icp_type=icp_type, fine_max_matches=fine_cap, **fine_kw,
-        )
-        fR = fine.R[:n_pairs].cpu().numpy()
-        ft = fine.t[:n_pairs].cpu().numpy()
-        frmse = fine.rmse[:n_pairs].cpu().numpy()
-        fvalid = fine.valid[:n_pairs].cpu().numpy()
+            with span("tile.assign_level"):
+                # Per-pair transforms onto source-label slots.
+                lab_R = np.tile(np.eye(3, dtype=np.float32), (n_s, 1, 1))
+                lab_t_arr = np.zeros((n_s, 3), np.float32)
+                lab_rmse = np.zeros(n_s, np.float32)
+                lab_ok = np.zeros(n_s, bool)
+                lab_R[pair_src], lab_t_arr[pair_src] = fR, ft
+                lab_rmse[pair_src], lab_ok[pair_src] = frmse, fvalid
+                _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s,
+                               lab_t, pair_src, pair_tgt, ch1_idx, ch1_valid, rng_seed)
 
-        # Per-pair transforms onto source-label slots.
-        lab_R = np.tile(np.eye(3, dtype=np.float32), (n_s, 1, 1))
-        lab_t_arr = np.zeros((n_s, 3), np.float32)
-        lab_rmse = np.zeros(n_s, np.float32)
-        lab_ok = np.zeros(n_s, bool)
-        lab_R[pair_src], lab_t_arr[pair_src] = fR, ft
-        lab_rmse[pair_src], lab_ok[pair_src] = frmse, fvalid
-        _patch_figures(cfg, out_root, tile_id, level, center, src_vox, tgt_vox, lab_s, lab_t,
-                       pair_src, pair_tgt, ch1_idx, ch1_valid, rng_seed)
+                # 7. Dense per-point assignment, merged by level priority.
+                pt_label = np.where(s_p2v < s_nv, lab_s[np.clip(s_p2v, 0, max(s_nv - 1, 0))],
+                                    -1)
+                take = (pt_label >= 0) & lab_ok[np.clip(pt_label, 0, None)] & ~merged_valid
+                lbl = np.clip(pt_label, 0, None)[take]
+                merged_R[take], merged_t[take] = lab_R[lbl], lab_t_arr[lbl]
+                merged_rmse[take] = lab_rmse[lbl]
+                merged_level[take] = li
+                merged_valid |= take
 
-        # 7. Dense per-point assignment, merged by level priority.
-        pt_label = np.where(s_p2v < s_nv, lab_s[np.clip(s_p2v, 0, max(s_nv - 1, 0))], -1)
-        take = (pt_label >= 0) & lab_ok[np.clip(pt_label, 0, None)] & ~merged_valid
-        lbl = np.clip(pt_label, 0, None)[take]
-        merged_R[take], merged_t[take], merged_rmse[take] = lab_R[lbl], lab_t_arr[lbl], lab_rmse[lbl]
-        merged_level[take] = li
-        merged_valid |= take
-
-        if out_tgt2src:
-            Rinv = fR.transpose(0, 2, 1)
-            tinv = -np.einsum("nij,nj->ni", Rinv, ft)
-            tlab_R = np.tile(np.eye(3, dtype=np.float32), (n_t, 1, 1))
-            tlab_t = np.zeros((n_t, 3), np.float32)
-            tlab_ok = np.zeros(n_t, bool)
-            tlab_R[pair_tgt[fvalid]], tlab_t[pair_tgt[fvalid]] = Rinv[fvalid], tinv[fvalid]
-            tlab_ok[pair_tgt[fvalid]] = True
-            tp_label = np.where(t_p2v < t_nv, lab_t[np.clip(t_p2v, 0, max(t_nv - 1, 0))], -1)
-            ttake = (tp_label >= 0) & tlab_ok[np.clip(tp_label, 0, None)] & ~t2s_valid
-            tl = np.clip(tp_label, 0, None)[ttake]
-            t2s_R[ttake], t2s_t[ttake] = tlab_R[tl], tlab_t[tl]
-            t2s_level[ttake] = li
-            t2s_valid |= ttake
-        per_level_stats.append((level, n_s, int(fvalid.sum())))
-        log("tile %s level %s: %d src spts, %d matched pairs, %d fine-valid",
-            tile_id, level, n_s, n_pairs, int(fvalid.sum()))
-        timer.mark(f"match_l{level}")
+                if out_tgt2src:
+                    Rinv = fR.transpose(0, 2, 1)
+                    tinv = -np.einsum("nij,nj->ni", Rinv, ft)
+                    tlab_R = np.tile(np.eye(3, dtype=np.float32), (n_t, 1, 1))
+                    tlab_t = np.zeros((n_t, 3), np.float32)
+                    tlab_ok = np.zeros(n_t, bool)
+                    tlab_R[pair_tgt[fvalid]], tlab_t[pair_tgt[fvalid]] = (Rinv[fvalid],
+                                                                          tinv[fvalid])
+                    tlab_ok[pair_tgt[fvalid]] = True
+                    tp_label = np.where(t_p2v < t_nv,
+                                        lab_t[np.clip(t_p2v, 0, max(t_nv - 1, 0))], -1)
+                    ttake = (tp_label >= 0) & tlab_ok[np.clip(tp_label, 0, None)] & ~t2s_valid
+                    tl = np.clip(tp_label, 0, None)[ttake]
+                    t2s_R[ttake], t2s_t[ttake] = tlab_R[tl], tlab_t[tl]
+                    t2s_level[ttake] = li
+                    t2s_valid |= ttake
+            per_level_stats.append((level, n_s, int(fvalid.sum())))
+            log("tile %s level %s: %d src spts, %d matched pairs, %d fine-valid",
+                tile_id, level, n_s, n_pairs, int(fvalid.sum()))
 
     # Dense output R p + t of every assigned source point (base:3371-3380);
     # the text tables are written on a thread while the sparse
     # re-association runs, and joined before returning.
-    writer = ThreadPoolExecutor(max_workers=1)
-    write_futs = []
     # With superpoint tables over several levels the reference dedups each
     # output table across levels by priority with a distance threshold
     # (coarse_to_fine_matching.py:282-287).
@@ -861,58 +891,68 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
             [rows[row_level == li] for li in range(len(levels))],
             distance_threshold=merge_thr, device=dev)
 
-    moved = np.einsum("nij,nj->ni", merged_R, s) + merged_t
-    dvfs_dense = level_merge(np.hstack([src_core[merged_valid], moved[merged_valid] + center]),
-                             merged_level[merged_valid])
-    dvfms = np.hstack([dvfs_dense[:, :3], dvf_magnitudes(dvfs_dense)[:, None]])
+    with timer.stage("dense_output"):
+        writer = ThreadPoolExecutor(max_workers=1)
+        write_futs = []
+        with span("tile.dense_dvf"):
+            moved = np.einsum("nij,nj->ni", merged_R, s) + merged_t
+            dvfs_dense = level_merge(
+                np.hstack([src_core[merged_valid], moved[merged_valid] + center]),
+                merged_level[merged_valid])
+            dvfms = np.hstack([dvfs_dense[:, :3], dvf_magnitudes(dvfs_dense)[:, None]])
 
-    def write_dense():
-        save_txt(osp.join(results_dir, f"c2f_dvfs_src2tgt_tile_{tile_id}.txt"), dvfs_dense)
-        save_txt(osp.join(results_dir, f"c2f_dvfms_src2tgt_tile_{tile_id}.txt"), dvfms)
-        if dvfms.shape[0] > 2:
-            save_txt(osp.join(results_dir, f"c2f_dvfms_src2tgt_visualize_tile_{tile_id}.txt"),
-                     visual_clamp_magnitude(dvfms, dataset))
+        def write_dense():
+            save_txt(osp.join(results_dir, f"c2f_dvfs_src2tgt_tile_{tile_id}.txt"), dvfs_dense)
+            save_txt(osp.join(results_dir, f"c2f_dvfms_src2tgt_tile_{tile_id}.txt"), dvfms)
+            if dvfms.shape[0] > 2:
+                save_txt(osp.join(results_dir,
+                                  f"c2f_dvfms_src2tgt_visualize_tile_{tile_id}.txt"),
+                         visual_clamp_magnitude(dvfms, dataset))
 
-    write_futs.append(writer.submit(write_dense))
-    timer.mark("dense_output")
+        write_futs.append(writer.submit(write_dense))
 
     # Sparse 'assign_then_nn' output: the moved points re-associated with
     # target points within max(2 rmse, median_res) (base:3414-3436).
     dvfs_sparse = None
     if assign_type == "assign_then_nn" and merged_valid.any():
-        adaptive = np.maximum(2.0 * merged_rmse[merged_valid], median_res)
-        radius_nn = float(np.maximum(adaptive.max(), median_res))
-        nq = int(merged_valid.sum())
-        q = np.zeros((bucket_size(nq), 3), np.float32)
-        q[:nq] = moved[merged_valid]
-        d2, nn_idx, ov = sparse_assign_core(t_d, on_dev(q), radius_nn)
-        overflow["grid_knn"] += ov
-        d = np.sqrt(d2[:nq].cpu().numpy())
-        ok = np.isfinite(d) & (d < adaptive)
-        nn_idx = nn_idx[:nq].cpu().numpy()
-        dvfs_sparse = level_merge(np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center]),
-                                  merged_level[merged_valid][ok])
-        sparse_ms = np.hstack([dvfs_sparse[:, :3], dvf_magnitudes(dvfs_sparse)[:, None]])
-        write_futs.append(writer.submit(
-            save_txt,
-            osp.join(results_dir, f"c2f_dvfms_src2tgt_discrete_visualize_tile_{tile_id}.txt"),
-            visual_clamp_magnitude(sparse_ms, dataset),
-        ))
-        timer.mark("sparse_assign")
+        with timer.stage("sparse_assign"):
+            with span("tile.sparse_query"):
+                adaptive = np.maximum(2.0 * merged_rmse[merged_valid], median_res)
+                radius_nn = float(np.maximum(adaptive.max(), median_res))
+                nq = int(merged_valid.sum())
+                q = np.zeros((bucket_size(nq), 3), np.float32)
+                q[:nq] = moved[merged_valid]
+                q_d = on_dev(q)
+            d2, nn_idx, ov = sparse_assign_core(t_d, q_d, radius_nn)
+            overflow["grid_knn"] += ov
+            with span("tile.sparse_dvf"):
+                d = np.sqrt(d2[:nq].cpu().numpy())
+                ok = np.isfinite(d) & (d < adaptive)
+                nn_idx = nn_idx[:nq].cpu().numpy()
+                dvfs_sparse = level_merge(
+                    np.hstack([src_core[merged_valid][ok], t[nn_idx[ok]] + center]),
+                    merged_level[merged_valid][ok])
+                sparse_ms = np.hstack([dvfs_sparse[:, :3], dvf_magnitudes(dvfs_sparse)[:, None]])
+            write_futs.append(writer.submit(
+                save_txt,
+                osp.join(results_dir, f"c2f_dvfms_src2tgt_discrete_visualize_tile_{tile_id}.txt"),
+                visual_clamp_magnitude(sparse_ms, dataset),
+            ))
 
-    if out_tgt2src and t2s_valid.any():
-        src_est = np.einsum("nij,nj->ni", t2s_R[t2s_valid], t[t2s_valid]) + t2s_t[t2s_valid]
-        dvfs_t2s = level_merge(np.hstack([src_est + center, tgt_core[t2s_valid]]),
-                               t2s_level[t2s_valid])
-        save_txt(osp.join(results_dir, f"c2f_dvfms_tgt2src_tile_{tile_id}.txt"),
-                 np.hstack([dvfs_t2s[:, 3:6], dvf_magnitudes(dvfs_t2s)[:, None]]))
-
-    for fut in write_futs:
-        fut.result()
-    writer.shutdown()
-    timer.mark("write_tables")
-    log("tile %s stage times (s): %s", tile_id,
-        ", ".join(f"{k} {v:.3f}" for k, v in timer.timings.items()))
+    with timer.stage("write_tables"):
+        if out_tgt2src and t2s_valid.any():
+            src_est = (np.einsum("nij,nj->ni", t2s_R[t2s_valid], t[t2s_valid])
+                       + t2s_t[t2s_valid])
+            dvfs_t2s = level_merge(np.hstack([src_est + center, tgt_core[t2s_valid]]),
+                                   t2s_level[t2s_valid])
+            save_txt(osp.join(results_dir, f"c2f_dvfms_tgt2src_tile_{tile_id}.txt"),
+                     np.hstack([dvfs_t2s[:, 3:6], dvf_magnitudes(dvfs_t2s)[:, None]]))
+        with span("tables.wait"):
+            for fut in write_futs:
+                fut.result()
+            writer.shutdown()
+    log("tile %s stage times (s): %s", tile_id, ", ".join(
+        f"{k} {v:.3f}" for k, v in timer.timings.items() if k != "counters"))
     out = {
         "dvfs": dvfs_dense,
         "dvfs_sparse": dvfs_sparse,
@@ -928,10 +968,11 @@ def _fusion_tile_core(cfg, dips, agg, src_core: np.ndarray, tgt_core: np.ndarray
         "overflow_by_source": overflow,
     }
     if keep_interim:
-        out["interim"] = {
-            "center": center, "median_res": median_res, "src_vox": src_vox, "tgt_vox": tgt_vox,
-            "s_p2v": s_p2v, "t_p2v": t_p2v, "src_feat": src_feat_d.cpu().numpy(),
-            "tgt_feat": tgt_feat_d.cpu().numpy(), "g_idx": g_idx, "g_valid": g_valid,
-            "levels": interim_levels,
-        }
+        with span("tile.result"):
+            out["interim"] = {
+                "center": center, "median_res": median_res, "src_vox": src_vox,
+                "tgt_vox": tgt_vox, "s_p2v": s_p2v, "t_p2v": t_p2v,
+                "src_feat": src_feat_d.cpu().numpy(), "tgt_feat": tgt_feat_d.cpu().numpy(),
+                "g_idx": g_idx, "g_valid": g_valid, "levels": interim_levels,
+            }
     return out

@@ -70,6 +70,7 @@ from fusion4landslide_tpu_torch.pipelines.fusion import (
     fine_match_pairs,
     global_matches_3d,
 )
+from fusion4landslide_tpu_torch.utils.profiling import tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -277,6 +278,7 @@ def _per_level_caps(cap, n_levels: int, flat: bool = False):
     return tuple(cap)
 
 
+@tile("tile.fusion_step")
 @torch.inference_mode()
 def fusion3d_tile_step(
     dips,
@@ -367,9 +369,10 @@ def fusion3d_tile_step(
     ``pipelines/fusion_device.py:555``): here ``dips_draws`` (source,
     target ``DipsDraws``) gives them, and draws not given come from one
     ``torch.Generator`` on the device seeded with ``rng_seed`` (the
-    source's first; kernel 1 draws nothing). ``timings`` (optional dict)
-    accumulates per-stage seconds, synchronising the device at each stage
-    boundary.
+    source's first; kernel 1 draws nothing). Each stage is a span
+    (``utils.timing``); ``timings`` (optional dict) accumulates per-stage
+    seconds, synchronising the device at each stage boundary, and the
+    kernels' work under ``counters`` (``utils.profiling``).
     """
     dev = resolve_device(device)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
@@ -379,49 +382,49 @@ def fusion3d_tile_step(
     dips, agg = dips.to(dev), agg.to(dev)
     f32 = src.dtype
     stages = StageTimer(timings, dev)
-    N, M = src.shape[0], tgt.shape[0]
+    with stages.stage("median_res_voxels"):
+        N, M = src.shape[0], tgt.shape[0]
 
-    # 1. median resolution + voxel subsampling on the union min corner.
-    med_s, ov_s = median_nn_distance_traced(src, smask)
-    med_t, ov_t = median_nn_distance_traced(tgt, tmask)
-    median_res = torch.maximum(med_s, med_t)
-    ov_grid = ov_s + ov_t  # window overflow by kernel, summed over the step
-    # float32 throughout, as the JAX expression sqrt(3.0) * 10.0 * res.
-    radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
-    grid0 = torch.minimum(
-        torch.where(smask[:, None], src, torch.inf).min(dim=0).values,
-        torch.where(tmask[:, None], tgt, torch.inf).min(dim=0).values,
-    )
-    s_cent, s_p2v, _, s_nv = voxel_downsample(src, median_res, smask, origin=grid0)
-    t_cent, t_p2v, _, t_nv = voxel_downsample(tgt, median_res, tmask, origin=grid0)
-    vvalid_s = torch.arange(N, device=dev) < s_nv
-    vvalid_t = torch.arange(M, device=dev) < t_nv
-    stages.mark("median_res_voxels")
-
-    # 2. DIPs descriptors on the voxel clouds; support = full clouds.
-    feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
-                   sample_priority=sample_priority, dtype=feat_dtype,
-                   generator=torch.Generator(device=dev).manual_seed(rng_seed))
-    draws_s, draws_t = dips_draws or (None, None)
-    src_feat, ov_s = dips_features_device(dips, s_cent, src, smask, radius, draws=draws_s,
-                                          query_count=s_nv, **feat_kw)
-    tgt_feat, ov_t = dips_features_device(dips, t_cent, tgt, tmask, radius, draws=draws_t,
-                                          query_count=t_nv, **feat_kw)
-    ov_sampler = ov_s + ov_t
-    stages.mark("dips_features")
-
-    # 3. Global 3D voxel matches: the banded magnitude-gated search, or
-    # (global_gated=False) the reference's search-then-gate brute force
-    # through kernel 3.
-    if global_gated:
-        _, g_idx, g_valid = gated_feature_nn1(
-            src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
+        # 1. median resolution + voxel subsampling on the union min corner.
+        med_s, ov_s = median_nn_distance_traced(src, smask)
+        med_t, ov_t = median_nn_distance_traced(tgt, tmask)
+        median_res = torch.maximum(med_s, med_t)
+        ov_grid = ov_s + ov_t  # window overflow by kernel, summed over the step
+        # float32 throughout, as the JAX expression sqrt(3.0) * 10.0 * res.
+        radius = torch.sqrt(torch.tensor(3.0, dtype=f32, device=dev)) * 10.0 * median_res
+        grid0 = torch.minimum(
+            torch.where(smask[:, None], src, torch.inf).min(dim=0).values,
+            torch.where(tmask[:, None], tgt, torch.inf).min(dim=0).values,
         )
-    else:
-        g_idx, g_valid = global_matches_3d(
-            src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
-        )
-    stages.mark("global_match")
+        s_cent, s_p2v, _, s_nv = voxel_downsample(src, median_res, smask, origin=grid0)
+        t_cent, t_p2v, _, t_nv = voxel_downsample(tgt, median_res, tmask, origin=grid0)
+        vvalid_s = torch.arange(N, device=dev) < s_nv
+        vvalid_t = torch.arange(M, device=dev) < t_nv
+
+    with stages.stage("dips_features"):
+        # 2. DIPs descriptors on the voxel clouds; support = full clouds.
+        feat_kw = dict(k_max=k_max, patch_points=patch_points, chunk=chunk, sample_cap=sample_cap,
+                       sample_priority=sample_priority, dtype=feat_dtype,
+                       generator=torch.Generator(device=dev).manual_seed(rng_seed))
+        draws_s, draws_t = dips_draws or (None, None)
+        src_feat, ov_s = dips_features_device(dips, s_cent, src, smask, radius, draws=draws_s,
+                                              query_count=s_nv, **feat_kw)
+        tgt_feat, ov_t = dips_features_device(dips, t_cent, tgt, tmask, radius, draws=draws_t,
+                                              query_count=t_nv, **feat_kw)
+        ov_sampler = ov_s + ov_t
+
+    with stages.stage("global_match"):
+        # 3. Global 3D voxel matches: the banded magnitude-gated search, or
+        # (global_gated=False) the reference's search-then-gate brute force
+        # through kernel 3.
+        if global_gated:
+            _, g_idx, g_valid = gated_feature_nn1(
+                src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
+            )
+        else:
+            g_idx, g_valid = global_matches_3d(
+                src_feat, tgt_feat, s_cent, t_cent, max_magnitude, vvalid_s, vvalid_t
+            )
 
     # 3b. Voxel matches lifted from 2D pixel matches (base:1480-1675):
     # project both voxel clouds per image pair, chain or lift, merge
@@ -430,39 +433,39 @@ def fusion3d_tile_step(
     c2d_idx = torch.zeros((N,), dtype=torch.int64, device=dev)
     c2d_ok = torch.zeros((N,), dtype=torch.bool, device=dev)
     if with_2d:
-        if lifting not in ("nn_search", "interpolation"):
-            raise ValueError(f"unknown lifting_type '{lifting}' (nn_search | interpolation)")
-        image_size = tuple(int(v) for v in image_size)
-        pix_all = torch.as_tensor(pix_matches, dtype=f32, device=dev)
-        counts = torch.as_tensor(pix_count, device=dev)
-        K = torch.as_tensor(intrinsic, dtype=f32, device=dev)
-        sexts = torch.as_tensor(src_extrinsics, dtype=f32, device=dev)
-        texts = torch.as_tensor(tgt_extrinsics, dtype=f32, device=dev)
-        ctr = (torch.zeros((3,), dtype=f32, device=dev) if center is None
-               else torch.as_tensor(center, device=dev).to(f32))
-        mm2 = torch.as_tensor(max_magnitude, dtype=f32, device=dev) ** 2
-        for ip in range(pix_all.shape[0]):
-            uv_s, dep_s, pv_s = project_points(s_cent + ctr, sexts[ip], K, image_size,
-                                               mask=vvalid_s, v_flip=v_flip)
-            uv_t, dep_t, pv_t = project_points(t_cent + ctr, texts[ip], K, image_size,
-                                               mask=vvalid_t, v_flip=v_flip)
-            pix = pix_all[ip]
-            pmask = torch.arange(pix.shape[0], device=dev) < counts[ip]
-            if lifting == "interpolation":
-                t2d, v2d, ov = _lift_2d_device(
-                    s_cent, vvalid_s, t_cent, vvalid_t, uv_s, dep_s, pv_s, uv_t, dep_t,
-                    pv_t, pix, pmask, sexts[ip], texts[ip], K, ctr, median_res,
-                    image_size, v_flip,
-                )
-            else:
-                t2d, v2d, ov = _chain_2d_device(uv_s, pv_s, uv_t, pv_t, pix, pmask,
-                                                pixel_thres, matches_2d_mode)
-            ov_grid = ov_grid + ov
-            mag2 = ((t_cent[t2d] - s_cent) ** 2).sum(dim=1)
-            fill = ~c2d_ok & v2d & (mag2 <= mm2)
-            c2d_idx = torch.where(fill, t2d, c2d_idx)
-            c2d_ok = c2d_ok | fill
-        stages.mark("rgb_2d")
+        with stages.stage("rgb_2d"):
+            if lifting not in ("nn_search", "interpolation"):
+                raise ValueError(f"unknown lifting_type '{lifting}' (nn_search | interpolation)")
+            image_size = tuple(int(v) for v in image_size)
+            pix_all = torch.as_tensor(pix_matches, dtype=f32, device=dev)
+            counts = torch.as_tensor(pix_count, device=dev)
+            K = torch.as_tensor(intrinsic, dtype=f32, device=dev)
+            sexts = torch.as_tensor(src_extrinsics, dtype=f32, device=dev)
+            texts = torch.as_tensor(tgt_extrinsics, dtype=f32, device=dev)
+            ctr = (torch.zeros((3,), dtype=f32, device=dev) if center is None
+                   else torch.as_tensor(center, device=dev).to(f32))
+            mm2 = torch.as_tensor(max_magnitude, dtype=f32, device=dev) ** 2
+            for ip in range(pix_all.shape[0]):
+                uv_s, dep_s, pv_s = project_points(s_cent + ctr, sexts[ip], K, image_size,
+                                                   mask=vvalid_s, v_flip=v_flip)
+                uv_t, dep_t, pv_t = project_points(t_cent + ctr, texts[ip], K, image_size,
+                                                   mask=vvalid_t, v_flip=v_flip)
+                pix = pix_all[ip]
+                pmask = torch.arange(pix.shape[0], device=dev) < counts[ip]
+                if lifting == "interpolation":
+                    t2d, v2d, ov = _lift_2d_device(
+                        s_cent, vvalid_s, t_cent, vvalid_t, uv_s, dep_s, pv_s, uv_t, dep_t,
+                        pv_t, pix, pmask, sexts[ip], texts[ip], K, ctr, median_res,
+                        image_size, v_flip,
+                    )
+                else:
+                    t2d, v2d, ov = _chain_2d_device(uv_s, pv_s, uv_t, pv_t, pix, pmask,
+                                                    pixel_thres, matches_2d_mode)
+                ov_grid = ov_grid + ov
+                mag2 = ((t_cent[t2d] - s_cent) ** 2).sum(dim=1)
+                fill = ~c2d_ok & v2d & (mag2 <= mm2)
+                c2d_idx = torch.where(fill, t2d, c2d_idx)
+                c2d_ok = c2d_ok | fill
 
     base_svl = torch.clamp(radius, min=float(voxel_size_init))
     use_partition_inputs = sp_lab_src is not None
@@ -476,14 +479,14 @@ def fusion3d_tile_step(
         first_t = torch.full((M,), M, dtype=torch.int64, device=dev).scatter_reduce(
             0, t_p2v.long(), torch.arange(M, device=dev), reduce="amin")
     else:
-        gi_s, gm_s, ov_s = supervoxel_graph(s_cent, base_svl, vvalid_s,
-                                            k_neighbors=k_neighbors)
-        nrm_s = pca_normals(s_cent, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s)
-        gi_t, gm_t, ov_t = supervoxel_graph(t_cent, base_svl, vvalid_t,
-                                            k_neighbors=k_neighbors)
-        ov_sampler = ov_sampler + ov_s + ov_t
-        nrm_t = pca_normals(t_cent, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t)
-        stages.mark("graph_normals")
+        with stages.stage("graph_normals"):
+            gi_s, gm_s, ov_s = supervoxel_graph(s_cent, base_svl, vvalid_s,
+                                                k_neighbors=k_neighbors)
+            nrm_s = pca_normals(s_cent, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s)
+            gi_t, gm_t, ov_t = supervoxel_graph(t_cent, base_svl, vvalid_t,
+                                                k_neighbors=k_neighbors)
+            ov_sampler = ov_sampler + ov_s + ov_t
+            nrm_t = pca_normals(t_cent, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t)
 
     eye = torch.eye(3, dtype=f32, device=dev)
     merged_R = eye.repeat(N, 1, 1)
@@ -501,172 +504,173 @@ def fusion3d_tile_step(
 
     lab_s_prev = lab_t_prev = n_s_prev = n_t_prev = None
     for li, level in enumerate(levels):
-        sv_cap_l, sv_cap_tl = sv_caps[li], sv_caps_t[li]
-        svl_radius = base_svl * (2.0 ** (int(level) - 1))
-        if use_partition_inputs:
-            raw_s = torch.where(vvalid_s & (first_s < N),
-                                sp_lab_src[li][torch.clamp(first_s, max=N - 1)], -1)
-            raw_t = torch.where(vvalid_t & (first_t < M),
-                                sp_lab_tgt[li][torch.clamp(first_t, max=M - 1)], -1)
-        elif li == 0 or not nested_levels:
-            raw_s = supervoxel_segmentation(
-                s_cent, svl_radius, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s,
-                normals=nrm_s,
-            ).labels
-            raw_t = supervoxel_segmentation(
-                t_cent, svl_radius, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t,
-                normals=nrm_t,
-            ).labels
-        else:
-            raw_s, ov_s = _segment_centroids(s_cent, lab_s_prev, sv_caps[li - 1],
-                                             n_s_prev, svl_radius, k_neighbors)
-            raw_t, ov_t = _segment_centroids(t_cent, lab_t_prev, sv_caps_t[li - 1],
-                                             n_t_prev, svl_radius, k_neighbors)
-            ov_sampler = ov_sampler + ov_s + ov_t
-        lab_s, n_s = drop_small_and_compact(raw_s, vvalid_s, small_patch)
-        lab_t, n_t = drop_small_and_compact(raw_t, vvalid_t, small_patch)
-        lab_s_prev, n_s_prev, lab_t_prev, n_t_prev = lab_s, n_s, lab_t, n_t
-        stages.mark("partition")
+        with stages.stage("partition"):
+            sv_cap_l, sv_cap_tl = sv_caps[li], sv_caps_t[li]
+            svl_radius = base_svl * (2.0 ** (int(level) - 1))
+            if use_partition_inputs:
+                raw_s = torch.where(vvalid_s & (first_s < N),
+                                    sp_lab_src[li][torch.clamp(first_s, max=N - 1)], -1)
+                raw_t = torch.where(vvalid_t & (first_t < M),
+                                    sp_lab_tgt[li][torch.clamp(first_t, max=M - 1)], -1)
+            elif li == 0 or not nested_levels:
+                raw_s = supervoxel_segmentation(
+                    s_cent, svl_radius, vvalid_s, neigh_idx=gi_s, neigh_mask=gm_s,
+                    normals=nrm_s,
+                ).labels
+                raw_t = supervoxel_segmentation(
+                    t_cent, svl_radius, vvalid_t, neigh_idx=gi_t, neigh_mask=gm_t,
+                    normals=nrm_t,
+                ).labels
+            else:
+                raw_s, ov_s = _segment_centroids(s_cent, lab_s_prev, sv_caps[li - 1],
+                                                 n_s_prev, svl_radius, k_neighbors)
+                raw_t, ov_t = _segment_centroids(t_cent, lab_t_prev, sv_caps_t[li - 1],
+                                                 n_t_prev, svl_radius, k_neighbors)
+                ov_sampler = ov_sampler + ov_s + ov_t
+            lab_s, n_s = drop_small_and_compact(raw_s, vvalid_s, small_patch)
+            lab_t, n_t = drop_small_and_compact(raw_t, vvalid_t, small_patch)
+            lab_s_prev, n_s_prev, lab_t_prev, n_t_prev = lab_s, n_s, lab_t, n_t
+        with stages.stage("aggregate_coarse"):
 
-        mem_s, memmask_s = label_members(lab_s, sv_cap_l, member_cap)
-        mem_t, memmask_t = label_members(lab_t, sv_cap_tl, member_cap)
-        in_table = torch.zeros((N,), dtype=torch.bool, device=dev)
-        in_table[mem_s[memmask_s].long()] = True
-        n_dropped = n_dropped + (vvalid_s & (lab_s >= 0) & ~in_table).sum()
+            mem_s, memmask_s = label_members(lab_s, sv_cap_l, member_cap)
+            mem_t, memmask_t = label_members(lab_t, sv_cap_tl, member_cap)
+            in_table = torch.zeros((N,), dtype=torch.bool, device=dev)
+            in_table[mem_s[memmask_s].long()] = True
+            n_dropped = n_dropped + (vvalid_s & (lab_s >= 0) & ~in_table).sum()
 
-        svalid_s = torch.arange(sv_cap_l, device=dev) < n_s
-        svalid_t = torch.arange(sv_cap_tl, device=dev) < n_t
-        if with_2d and coarse_2d_mode == "only_2d":
-            # Reference coarse_matching_only_2d: the 2D votes alone propose
-            # pairs; no aggregation, no 3D coarse matcher.
-            vote_tgt, vote_cnt = _vote_2d_device(lab_s, lab_t, c2d_idx, c2d_ok,
-                                                 sv_cap_l, sv_cap_tl)
-            tgt_of_src, pair_valid = vote_tgt, (vote_cnt >= 1) & svalid_s
-        else:
-            # 4. Superpoint aggregation + coarse matching.
-            spt_feat_s, spt_coord_s = _aggregate_chunked(
-                agg, src_feat, s_cent, mem_s, memmask_s, agg_max_points=agg_max_points
+            svalid_s = torch.arange(sv_cap_l, device=dev) < n_s
+            svalid_t = torch.arange(sv_cap_tl, device=dev) < n_t
+            if with_2d and coarse_2d_mode == "only_2d":
+                # Reference coarse_matching_only_2d: the 2D votes alone propose
+                # pairs; no aggregation, no 3D coarse matcher.
+                vote_tgt, vote_cnt = _vote_2d_device(lab_s, lab_t, c2d_idx, c2d_ok,
+                                                     sv_cap_l, sv_cap_tl)
+                tgt_of_src, pair_valid = vote_tgt, (vote_cnt >= 1) & svalid_s
+            else:
+                # 4. Superpoint aggregation + coarse matching.
+                spt_feat_s, spt_coord_s = _aggregate_chunked(
+                    agg, src_feat, s_cent, mem_s, memmask_s, agg_max_points=agg_max_points
+                )
+                spt_feat_t, spt_coord_t = _aggregate_chunked(
+                    agg, tgt_feat, t_cent, mem_t, memmask_t, agg_max_points=agg_max_points
+                )
+                tgt_of_src, pair_valid = coarse_match_superpoints_chunked(
+                    spt_feat_s, spt_coord_s, svalid_s, spt_feat_t, spt_coord_t, svalid_t,
+                    max_magnitude, mutual=coarse_mutual,
+                )
+                tgt_of_src = tgt_of_src.long()
+            mem_f, memmask_f = mem_s, memmask_s & pair_valid[:, None]
+            tgtlab_f = torch.where(pair_valid, tgt_of_src, -1)
+
+            # 4b. Coarse fusion (base:3019-3146): 2D majority votes that no 3D
+            # pair proposed go to a compacted extras table, appended to the
+            # fine solve (valid rows first, in label order).
+            fusion_votes = with_2d and coarse_2d_mode == "fusion"
+            if fusion_votes:
+                vote_tgt, vote_cnt = _vote_2d_device(lab_s, lab_t, c2d_idx, c2d_ok,
+                                                     sv_cap_l, sv_cap_tl)
+                ext = _extras_table(vote_tgt, vote_cnt, svalid_s, tgt_of_src, pair_valid,
+                                    extra_pair_cap or max(sv_cap_l // 4, 64))
+                E_l = ext.sel.shape[0]
+                n_dropped = n_dropped + ext.n_over
+                mem_f = torch.cat([mem_s, mem_s[ext.sel]])
+                memmask_f = torch.cat([memmask_f, memmask_s[ext.sel] & ext.sel_ok[:, None]])
+                tgtlab_f = torch.cat([tgtlab_f, ext.tgt])
+        with stages.stage("fine"):
+
+            # 5. Fine matching per pair; with 2D matches in 'fusion' mode a
+            # second correspondence channel inside each pair (base:3258-3296).
+            if with_2d and fine_2d_mode == "only_2d":
+                ch1_idx, ch1_valid = c2d_idx, c2d_ok
+            else:
+                ch1_idx, ch1_valid = g_idx, g_valid
+            fine_kw = {}
+            if with_2d and fine_2d_mode == "fusion":
+                fine_kw = dict(corres2_tgt_idx=c2d_idx, corres2_valid=c2d_ok,
+                               weighting=weighting_svd)
+            fine = fine_match_pairs(
+                mem_f, memmask_f, tgtlab_f.to(torch.int32), ch1_idx, ch1_valid, lab_t,
+                s_cent, t_cent,
+                num_min_quality=num_min_quality, thres_dist_diff=thres_dist_diff,
+                thres_inlier_ratio=thres_inlier_ratio, num_min_fine=num_min_fine,
+                icp_threshold=icp_threshold, icp_max_iter=icp_max_iter,
+                icp_type=icp_type, fine_max_matches=fine_max_matches, **fine_kw,
             )
-            spt_feat_t, spt_coord_t = _aggregate_chunked(
-                agg, tgt_feat, t_cent, mem_t, memmask_t, agg_max_points=agg_max_points
-            )
-            tgt_of_src, pair_valid = coarse_match_superpoints_chunked(
-                spt_feat_s, spt_coord_s, svalid_s, spt_feat_t, spt_coord_t, svalid_t,
-                max_magnitude, mutual=coarse_mutual,
-            )
-            tgt_of_src = tgt_of_src.long()
-        mem_f, memmask_f = mem_s, memmask_s & pair_valid[:, None]
-        tgtlab_f = torch.where(pair_valid, tgt_of_src, -1)
+            lab_ok = fine.valid[:sv_cap_l] & pair_valid & svalid_s
+        with stages.stage("merge"):
 
-        # 4b. Coarse fusion (base:3019-3146): 2D majority votes that no 3D
-        # pair proposed go to a compacted extras table, appended to the
-        # fine solve (valid rows first, in label order).
-        fusion_votes = with_2d and coarse_2d_mode == "fusion"
-        if fusion_votes:
-            vote_tgt, vote_cnt = _vote_2d_device(lab_s, lab_t, c2d_idx, c2d_ok,
-                                                 sv_cap_l, sv_cap_tl)
-            ext = _extras_table(vote_tgt, vote_cnt, svalid_s, tgt_of_src, pair_valid,
-                                extra_pair_cap or max(sv_cap_l // 4, 64))
-            E_l = ext.sel.shape[0]
-            n_dropped = n_dropped + ext.n_over
-            mem_f = torch.cat([mem_s, mem_s[ext.sel]])
-            memmask_f = torch.cat([memmask_f, memmask_s[ext.sel] & ext.sel_ok[:, None]])
-            tgtlab_f = torch.cat([tgtlab_f, ext.tgt])
-        stages.mark("aggregate_coarse")
+            # 6. Dense per-point assignment, merged by level priority.
+            pt_vox = torch.clamp(s_p2v, 0, N - 1).long()
+            pt_label = torch.where(smask & (s_p2v < s_nv), lab_s[pt_vox], -1)
+            pl = torch.clamp(pt_label, 0, sv_cap_l - 1).long()
 
-        # 5. Fine matching per pair; with 2D matches in 'fusion' mode a
-        # second correspondence channel inside each pair (base:3258-3296).
-        if with_2d and fine_2d_mode == "only_2d":
-            ch1_idx, ch1_valid = c2d_idx, c2d_ok
+            def assign(has, rows):
+                nonlocal merged_R, merged_t, merged_rmse, merged_valid
+                take = has & ~merged_valid
+                merged_R = torch.where(take[:, None, None], fine.R[rows], merged_R)
+                merged_t = torch.where(take[:, None], fine.t[rows], merged_t)
+                merged_rmse = torch.where(take, fine.rmse[rows], merged_rmse)
+                merged_valid = merged_valid | take
+
+            assign((pt_label >= 0) & lab_ok[pl], pl)
+            if fusion_votes:
+                # A 2D-vote pair claims its superpoint's points only where the
+                # 3D pair (and earlier levels) left them unassigned.
+                e_fine_ok = fine.valid[sv_cap_l:] & ext.sel_ok
+                row_of_lab = _last_writer(ext.sel, ext.sel_ok, sv_cap_l)
+                prow = row_of_lab[pl]
+                prow_c = torch.clamp(prow, 0, E_l - 1)
+                assign((pt_label >= 0) & (prow >= 0) & e_fine_ok[prow_c], sv_cap_l + prow_c)
+
+            if with_tgt2src:
+                # Each pair's inverse transform applies to the TARGET patch's
+                # points (base:3386-3393); on a shared target label the 3D
+                # pair wins over an extra, and a later row over an earlier one.
+                Rinv = fine.R.transpose(-1, -2)
+                tinv = -torch.einsum("sij,sj->si", Rinv, fine.t)
+                rows = _last_writer(tgt_of_src, lab_ok, sv_cap_tl)
+                if fusion_votes:
+                    rows_e = _last_writer(ext.tgt, e_fine_ok, sv_cap_tl)
+                    rows = torch.where(rows >= 0, rows,
+                                       torch.where(rows_e >= 0, sv_cap_l + rows_e, -1))
+                pair_ok = rows >= 0
+                rc = torch.clamp(rows, min=0)
+                tp_vox = torch.clamp(t_p2v, 0, M - 1).long()
+                tp_label = torch.where(tmask & (t_p2v < t_nv), lab_t[tp_vox], -1)
+                tpl = torch.clamp(tp_label, 0, sv_cap_tl - 1).long()
+                ttake = (tp_label >= 0) & pair_ok[tpl] & ~t2s_valid
+                t2s_R = torch.where(ttake[:, None, None], Rinv[rc[tpl]], t2s_R)
+                t2s_t = torch.where(ttake[:, None], tinv[rc[tpl]], t2s_t)
+                t2s_valid = t2s_valid | ttake
+    with stages.stage("dense_sparse_out"):
+
+        # Dense output: R p + t for every assigned source point.
+        moved = torch.einsum("nij,nj->ni", merged_R, src) + merged_t
+        moved = torch.where(merged_valid[:, None], moved, src)
+
+        # Sparse assign_then_nn: re-associate moved points with target points
+        # within max(2 rmse, median_res) (bounded grid search, exact).
+        if with_sparse:
+            adaptive = torch.maximum(2.0 * merged_rmse, median_res)
+            r_need = torch.where(merged_valid, adaptive, 0.0).max()
+            nn_sq, nn_i, ov = knn_grid_traced(
+                moved, tgt, 1, r0=2.0 * median_res, ref_mask=tmask,
+                query_mask=merged_valid, r_max=r_need * 1.001,
+            )
+            ov_grid = ov_grid + ov
+            nn_d = torch.sqrt(nn_sq[:, 0])
+            sparse_ok = merged_valid & torch.isfinite(nn_d) & (nn_d < adaptive)
+            sparse_tgt = tgt[nn_i[:, 0].long()]
         else:
-            ch1_idx, ch1_valid = g_idx, g_valid
-        fine_kw = {}
-        if with_2d and fine_2d_mode == "fusion":
-            fine_kw = dict(corres2_tgt_idx=c2d_idx, corres2_valid=c2d_ok,
-                           weighting=weighting_svd)
-        fine = fine_match_pairs(
-            mem_f, memmask_f, tgtlab_f.to(torch.int32), ch1_idx, ch1_valid, lab_t,
-            s_cent, t_cent,
-            num_min_quality=num_min_quality, thres_dist_diff=thres_dist_diff,
-            thres_inlier_ratio=thres_inlier_ratio, num_min_fine=num_min_fine,
-            icp_threshold=icp_threshold, icp_max_iter=icp_max_iter,
-            icp_type=icp_type, fine_max_matches=fine_max_matches, **fine_kw,
-        )
-        lab_ok = fine.valid[:sv_cap_l] & pair_valid & svalid_s
-        stages.mark("fine")
-
-        # 6. Dense per-point assignment, merged by level priority.
-        pt_vox = torch.clamp(s_p2v, 0, N - 1).long()
-        pt_label = torch.where(smask & (s_p2v < s_nv), lab_s[pt_vox], -1)
-        pl = torch.clamp(pt_label, 0, sv_cap_l - 1).long()
-
-        def assign(has, rows):
-            nonlocal merged_R, merged_t, merged_rmse, merged_valid
-            take = has & ~merged_valid
-            merged_R = torch.where(take[:, None, None], fine.R[rows], merged_R)
-            merged_t = torch.where(take[:, None], fine.t[rows], merged_t)
-            merged_rmse = torch.where(take, fine.rmse[rows], merged_rmse)
-            merged_valid = merged_valid | take
-
-        assign((pt_label >= 0) & lab_ok[pl], pl)
-        if fusion_votes:
-            # A 2D-vote pair claims its superpoint's points only where the
-            # 3D pair (and earlier levels) left them unassigned.
-            e_fine_ok = fine.valid[sv_cap_l:] & ext.sel_ok
-            row_of_lab = _last_writer(ext.sel, ext.sel_ok, sv_cap_l)
-            prow = row_of_lab[pl]
-            prow_c = torch.clamp(prow, 0, E_l - 1)
-            assign((pt_label >= 0) & (prow >= 0) & e_fine_ok[prow_c], sv_cap_l + prow_c)
+            sparse_ok = torch.zeros((N,), dtype=torch.bool, device=dev)
+            sparse_tgt = torch.zeros((N, 3), dtype=f32, device=dev)
 
         if with_tgt2src:
-            # Each pair's inverse transform applies to the TARGET patch's
-            # points (base:3386-3393); on a shared target label the 3D
-            # pair wins over an extra, and a later row over an earlier one.
-            Rinv = fine.R.transpose(-1, -2)
-            tinv = -torch.einsum("sij,sj->si", Rinv, fine.t)
-            rows = _last_writer(tgt_of_src, lab_ok, sv_cap_tl)
-            if fusion_votes:
-                rows_e = _last_writer(ext.tgt, e_fine_ok, sv_cap_tl)
-                rows = torch.where(rows >= 0, rows, torch.where(rows_e >= 0, sv_cap_l + rows_e, -1))
-            pair_ok = rows >= 0
-            rc = torch.clamp(rows, min=0)
-            tp_vox = torch.clamp(t_p2v, 0, M - 1).long()
-            tp_label = torch.where(tmask & (t_p2v < t_nv), lab_t[tp_vox], -1)
-            tpl = torch.clamp(tp_label, 0, sv_cap_tl - 1).long()
-            ttake = (tp_label >= 0) & pair_ok[tpl] & ~t2s_valid
-            t2s_R = torch.where(ttake[:, None, None], Rinv[rc[tpl]], t2s_R)
-            t2s_t = torch.where(ttake[:, None], tinv[rc[tpl]], t2s_t)
-            t2s_valid = t2s_valid | ttake
-        stages.mark("merge")
-
-    # Dense output: R p + t for every assigned source point.
-    moved = torch.einsum("nij,nj->ni", merged_R, src) + merged_t
-    moved = torch.where(merged_valid[:, None], moved, src)
-
-    # Sparse assign_then_nn: re-associate moved points with target points
-    # within max(2 rmse, median_res) (bounded grid search, exact).
-    if with_sparse:
-        adaptive = torch.maximum(2.0 * merged_rmse, median_res)
-        r_need = torch.where(merged_valid, adaptive, 0.0).max()
-        nn_sq, nn_i, ov = knn_grid_traced(
-            moved, tgt, 1, r0=2.0 * median_res, ref_mask=tmask,
-            query_mask=merged_valid, r_max=r_need * 1.001,
-        )
-        ov_grid = ov_grid + ov
-        nn_d = torch.sqrt(nn_sq[:, 0])
-        sparse_ok = merged_valid & torch.isfinite(nn_d) & (nn_d < adaptive)
-        sparse_tgt = tgt[nn_i[:, 0].long()]
-    else:
-        sparse_ok = torch.zeros((N,), dtype=torch.bool, device=dev)
-        sparse_tgt = torch.zeros((N, 3), dtype=f32, device=dev)
-
-    if with_tgt2src:
-        t2s_src_est = torch.einsum("mij,mj->mi", t2s_R, tgt) + t2s_t
-        t2s_src_est = torch.where(t2s_valid[:, None], t2s_src_est, tgt)
-    else:
-        t2s_src_est = torch.zeros((M, 3), dtype=f32, device=dev)
-        t2s_valid = torch.zeros((M,), dtype=torch.bool, device=dev)
-    stages.mark("dense_sparse_out")
+            t2s_src_est = torch.einsum("mij,mj->mi", t2s_R, tgt) + t2s_t
+            t2s_src_est = torch.where(t2s_valid[:, None], t2s_src_est, tgt)
+        else:
+            t2s_src_est = torch.zeros((M, 3), dtype=f32, device=dev)
+            t2s_valid = torch.zeros((M,), dtype=torch.bool, device=dev)
 
     return Fusion3DTileResult(
         moved=moved, valid=merged_valid, rmse=merged_rmse, sparse_tgt=sparse_tgt,

@@ -30,6 +30,7 @@ from fusion4landslide_tpu_torch.io.results import (
 )
 from fusion4landslide_tpu_torch.ops.knn import nn1_xla_rounded
 from fusion4landslide_tpu_torch.ops.voxel import grid_cells, group_by_cells, segment_sum
+from fusion4landslide_tpu_torch.utils.profiling import tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -131,6 +132,7 @@ def write_piecewise_tables(results: str, tile_id, dvfs: np.ndarray, dataset) -> 
              visual_clamp_magnitude(dvfms, dataset))
 
 
+@tile("tile.piecewise_icp")
 @torch.inference_mode()
 def run_piecewise_icp(src_points: np.ndarray, tgt_points: np.ndarray, *, smax: float,
                       number_points_min: int, output_dir: str | None = None, tile_id=0,
@@ -142,28 +144,28 @@ def run_piecewise_icp(src_points: np.ndarray, tgt_points: np.ndarray, *, smax: f
     (optional dict) collects per-stage seconds."""
     dev = resolve_device(device)
     timer = StageTimer(timings, dev)
-    center = src_points.mean(axis=0)
-    src = (src_points - center).astype(np.float32)
-    tgt = (tgt_points - center).astype(np.float32)
-    lo = np.minimum(src.min(axis=0), tgt.min(axis=0))
-    hi = np.maximum(src.max(axis=0), tgt.max(axis=0))
-    res = piecewise_icp_core(
-        torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev),
-        torch.ones(src.shape[0], dtype=torch.bool, device=dev),
-        torch.ones(tgt.shape[0], dtype=torch.bool, device=dev),
-        float(smax), int(number_points_min),
-        max_cells=suggest_max_cells(float((hi - lo).max()), float(smax), src.shape[0],
-                                    int(number_points_min)),
-    )
-    keep = res.out_mask.cpu().numpy()
-    src_kept = src_points[keep]
-    dvfs = np.hstack([src_kept, src_kept + res.displacement.cpu().numpy()[keep]])
-    timer.mark("cells_match")
+    with timer.stage("cells_match"):
+        center = src_points.mean(axis=0)
+        src = (src_points - center).astype(np.float32)
+        tgt = (tgt_points - center).astype(np.float32)
+        lo = np.minimum(src.min(axis=0), tgt.min(axis=0))
+        hi = np.maximum(src.max(axis=0), tgt.max(axis=0))
+        res = piecewise_icp_core(
+            torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev),
+            torch.ones(src.shape[0], dtype=torch.bool, device=dev),
+            torch.ones(tgt.shape[0], dtype=torch.bool, device=dev),
+            float(smax), int(number_points_min),
+            max_cells=suggest_max_cells(float((hi - lo).max()), float(smax), src.shape[0],
+                                        int(number_points_min)),
+        )
+        keep = res.out_mask.cpu().numpy()
+        src_kept = src_points[keep]
+        dvfs = np.hstack([src_kept, src_kept + res.displacement.cpu().numpy()[keep]])
     if logger is not None:
         logger.info("piecewise_icp tile %s: %d cells, %d/%d points stable", tile_id,
                     int(res.n_cells_src), int(res.stable_point.cpu().numpy()[keep].sum()),
                     int(keep.sum()))
     if output_dir is not None:
-        write_piecewise_tables(os.path.join(output_dir, "results"), tile_id, dvfs, dataset)
-        timer.mark("write_tables")
+        with timer.stage("write_tables"):
+            write_piecewise_tables(os.path.join(output_dir, "results"), tile_id, dvfs, dataset)
     return dvfs

@@ -36,6 +36,7 @@ from fusion4landslide_tpu_torch.ops.knn import median_nn_distance_counted
 from fusion4landslide_tpu_torch.ops.registration import icp_by_type
 from fusion4landslide_tpu_torch.ops.segments import bucket_size, label_members
 from fusion4landslide_tpu_torch.ops.supervoxel import supervoxel_segmentation
+from fusion4landslide_tpu_torch.utils.profiling import tile
 from fusion4landslide_tpu_torch.utils.timing import StageTimer
 from fusion4landslide_tpu_torch.utils.visualization import require_matplotlib, save_matching_figure
 
@@ -105,6 +106,7 @@ def write_rgb_guided_tables(results_dir: str, tile_id, wo: np.ndarray, dvfs: np.
                  visual_clamp_magnitude(dvfms, dataset))
 
 
+@tile("tile.rgb_guided")
 @torch.inference_mode()
 def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_image, tgt_image,
                         intrinsic: np.ndarray, src_extrinsic: np.ndarray,
@@ -116,8 +118,10 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
     ``configs/landslide/rgb_guided_brienz.yaml``; ``corres_2d`` injects
     precomputed (M, 4) pixel matches instead of running the matcher. The
     tile is projected in its original (georeferenced) coordinates and
-    solved centred on its source mean. ``timings`` (optional dict)
-    collects per-stage seconds, synchronised at each stage boundary.
+    solved centred on its source mean. Each stage is a span
+    (``utils.timing``); ``timings`` (optional dict) collects per-stage
+    seconds, synchronised at each stage boundary, and the kernels' work
+    under ``counters`` (``utils.profiling``).
 
     Returns {"dvfs", "n_matches", "n_supervoxels", "corres_2d", "matched",
     "quality", "overflow_by_source"}."""
@@ -133,31 +137,32 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
     def on_dev(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    # 1. Projection (rgb_guided.py:2284).
-    K_t = intrinsic if tgt_intrinsic is None else tgt_intrinsic
-    uv_s, _, val_s = project_points(on_dev(src_core), on_dev(src_extrinsic), on_dev(intrinsic),
-                                    image_size, v_flip=v_flip)
-    uv_t, _, val_t = project_points(on_dev(tgt_core), on_dev(tgt_extrinsic), on_dev(K_t),
-                                    image_size, v_flip=v_flip)
-    if logger:
-        logger.info("tile %s: %d/%d src and %d/%d tgt points project in-image", tile_id,
-                    int(val_s.sum()), len(src_core), int(val_t.sum()), len(tgt_core))
+    with timer.stage("match_2d"):
+        # 1. Projection (rgb_guided.py:2284).
+        K_t = intrinsic if tgt_intrinsic is None else tgt_intrinsic
+        uv_s, _, val_s = project_points(on_dev(src_core), on_dev(src_extrinsic), on_dev(intrinsic),
+                                        image_size, v_flip=v_flip)
+        uv_t, _, val_t = project_points(on_dev(tgt_core), on_dev(tgt_extrinsic), on_dev(K_t),
+                                        image_size, v_flip=v_flip)
+        if logger:
+            logger.info("tile %s: %d/%d src and %d/%d tgt points project in-image", tile_id,
+                        int(val_s.sum()), len(src_core), int(val_t.sum()), len(tgt_core))
 
-    # 2. Dense 2D matching (rgb_guided.py:2063).
-    if corres_2d is None:
-        corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg), logger=logger,
-                                       weights=cfg.get("img_matcher_weights"), device=dev)
-    timer.mark("match_2d")
+        # 2. Dense 2D matching (rgb_guided.py:2063).
+        if corres_2d is None:
+            corres_2d = match_epoch_images(src_image, tgt_image, **matcher_options(cfg),
+                                           logger=logger, weights=cfg.get("img_matcher_weights"),
+                                           device=dev)
     if logger:
         logger.info("tile %s: %d 2D matches", tile_id, len(corres_2d))
     if bool(cfg.get("save_img_matching_visualization", False)) and len(corres_2d):
         # Reference rgb_guided.py:2269-2279 (make_matching_figure JPG).
-        save_matching_figure(
-            src_image, tgt_image, np.asarray(corres_2d),
-            osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
-                     "img_matching_results", "visualization", f"tile_{tile_id}.jpg"),
-            text=f"tile {tile_id}")
-        timer.mark("figures")
+        with timer.stage("figures"):
+            save_matching_figure(
+                src_image, tgt_image, np.asarray(corres_2d),
+                osp.join(str(cfg.get("output_dir", ".")), str(cfg.get("output_folder", "run")),
+                         "img_matching_results", "visualization", f"tile_{tile_id}.jpg"),
+                text=f"tile {tile_id}")
     corres_2d = np.asarray(corres_2d, np.float32).reshape(-1, 4)
 
     center = src_core.mean(axis=0)
@@ -174,70 +179,73 @@ def run_rgb_guided_tile(cfg, src_core: np.ndarray, tgt_core: np.ndarray, src_ima
                  np.zeros((0, 4)))
         return {"dvfs": np.zeros((0, 6)), "n_matches": 0, "overflow_by_source": none}
 
-    # 3. Pixel-NN chaining (rgb_guided.py:1096-1100), magnitude prune.
-    tgt_idx, valid = chain_2d_matches_to_3d(on_dev(corres_2d), uv_s, uv_t, pixel_thres,
-                                            src_valid=val_s, tgt_valid=val_t)
-    tgt_match = t[tgt_idx.cpu().numpy()]
-    mag = np.linalg.norm(tgt_match - s, axis=1)
-    matched = valid.cpu().numpy() & (mag <= max_mag)
-    timer.mark("chain_2d")
+    with timer.stage("chain_2d"):
+        # 3. Pixel-NN chaining (rgb_guided.py:1096-1100), magnitude prune.
+        tgt_idx, valid = chain_2d_matches_to_3d(on_dev(corres_2d), uv_s, uv_t, pixel_thres,
+                                                src_valid=val_s, tgt_valid=val_t)
+        tgt_match = t[tgt_idx.cpu().numpy()]
+        mag = np.linalg.norm(tgt_match - s, axis=1)
+        matched = valid.cpu().numpy() & (mag <= max_mag)
     if logger:
         logger.info("tile %s: %d/%d points lifted to 3D matches", tile_id, int(matched.sum()),
                     len(s))
     wo = np.hstack([src_core[matched], mag[matched][:, None]])
 
-    # 4. Segmentation (rgb_guided.py:868-931); segments with > 10 matches.
-    s_d = torch.from_numpy(s).to(dev)
-    med, med_overflow = median_nn_distance_counted(s_d)
-    median_res = float(med)
-    clustering = str(cfg.get("clustering_type", "supervoxel")).lower()
-    overflow = dict(none, grid_knn=med_overflow)
-    if clustering == "hdbscan":
-        from fusion4landslide_tpu_torch.ops.clustering import hdbscan_labels
+    with timer.stage("segmentation"):
+        # 4. Segmentation (rgb_guided.py:868-931); segments with > 10 matches.
+        s_d = torch.from_numpy(s).to(dev)
+        med, med_overflow = median_nn_distance_counted(s_d)
+        median_res = float(med)
+        clustering = str(cfg.get("clustering_type", "supervoxel")).lower()
+        overflow = dict(none, grid_knn=med_overflow)
+        if clustering == "hdbscan":
+            from fusion4landslide_tpu_torch.ops.clustering import hdbscan_labels
 
-        labels = hdbscan_labels(s, min_cluster_size=int(cfg.get("hdbscan_min_cluster_size", 10)),
-                                min_samples=int(cfg.get("hdbscan_min_samples", 1000)))
-        n_lab = int(labels.max()) + 1 if labels.max() >= 0 else 0
-    else:
-        svl_radius = max(float(np.sqrt(3) * 10.0 * median_res),
-                         float(cfg.get("voxel_size", 0.0) or 0.0))
-        seg = supervoxel_segmentation(s_d, svl_radius, k_neighbors=int(cfg.get("n_normals", 30)))
-        labels = seg.labels.cpu().numpy()
-        n_lab = int(seg.n_supervoxels)
-        overflow["sampler"] += int(seg.overflow)
-    match_counts = np.bincount(labels[(labels >= 0) & matched], minlength=max(n_lab, 1))
-    keep_lab = match_counts > 10
-    remap = np.full(max(n_lab, 1), -1)
-    remap[keep_lab] = np.arange(keep_lab.sum())
-    labels = np.where(labels >= 0, remap[np.clip(labels, 0, None)], -1)
-    n_kept = int(keep_lab.sum())
-    timer.mark("segmentation")
+            labels = hdbscan_labels(s,
+                                    min_cluster_size=int(cfg.get("hdbscan_min_cluster_size", 10)),
+                                    min_samples=int(cfg.get("hdbscan_min_samples", 1000)))
+            n_lab = int(labels.max()) + 1 if labels.max() >= 0 else 0
+        else:
+            svl_radius = max(float(np.sqrt(3) * 10.0 * median_res),
+                             float(cfg.get("voxel_size", 0.0) or 0.0))
+            seg = supervoxel_segmentation(s_d, svl_radius,
+                                          k_neighbors=int(cfg.get("n_normals", 30)))
+            labels = seg.labels.cpu().numpy()
+            n_lab = int(seg.n_supervoxels)
+            overflow["sampler"] += int(seg.overflow)
+        match_counts = np.bincount(labels[(labels >= 0) & matched], minlength=max(n_lab, 1))
+        keep_lab = match_counts > 10
+        remap = np.full(max(n_lab, 1), -1)
+        remap[keep_lab] = np.arange(keep_lab.sum())
+        labels = np.where(labels >= 0, remap[np.clip(labels, 0, None)], -1)
+        n_kept = int(keep_lab.sum())
     if logger:
         logger.info("tile %s: %d/%d supervoxels with >10 matches", tile_id, n_kept, n_lab)
 
-    # 5. Rigid refinement, then every point of a quality supervoxel moves.
-    dvfs = np.zeros((0, 6))
-    quality = np.zeros((0,), bool)
-    if n_kept > 0:
-        counts = np.bincount(labels[labels >= 0], minlength=n_kept)
-        members, member_mask = label_members(torch.from_numpy(labels.astype(np.int32)).to(dev),
-                                             bucket_size(n_kept), bucket_size(int(counts.max())))
-        ref = refine_supervoxels_rigid(
-            members, member_mask, torch.from_numpy(matched).to(dev), s_d,
-            torch.from_numpy(np.ascontiguousarray(tgt_match)).to(dev),
-            icp_threshold=float(cfg.get("icp_threshold", cfg.get("threshold", 0.1))),
-            icp_type=str(cfg.get("icp_type", "point2point")),
-            icp_max_iter=30 if bool(cfg.get("icp_refine", True)) else 0,
-        )
-        Rs, ts = ref.R.cpu().numpy(), ref.t.cpu().numpy()
-        quality = ref.quality.cpu().numpy()
-        lbl = np.clip(labels, 0, None)
-        has = (labels >= 0) & quality[lbl]
-        moved = np.einsum("nij,nj->ni", Rs[lbl], s) + ts[lbl]
-        dvfs = np.hstack([src_core[has], moved[has] + center])
-    timer.mark("refine")
-    write_rgb_guided_tables(results_dir, tile_id, wo, dvfs, dataset)
-    timer.mark("write_tables")
+    with timer.stage("refine"):
+        # 5. Rigid refinement, then every point of a quality supervoxel moves.
+        dvfs = np.zeros((0, 6))
+        quality = np.zeros((0,), bool)
+        if n_kept > 0:
+            counts = np.bincount(labels[labels >= 0], minlength=n_kept)
+            members, member_mask = label_members(
+                torch.from_numpy(labels.astype(np.int32)).to(dev), bucket_size(n_kept),
+                bucket_size(int(counts.max())))
+            ref = refine_supervoxels_rigid(
+                members, member_mask, torch.from_numpy(matched).to(dev), s_d,
+                torch.from_numpy(np.ascontiguousarray(tgt_match)).to(dev),
+                icp_threshold=float(cfg.get("icp_threshold", cfg.get("threshold", 0.1))),
+                icp_type=str(cfg.get("icp_type", "point2point")),
+                icp_max_iter=30 if bool(cfg.get("icp_refine", True)) else 0,
+            )
+            Rs, ts = ref.R.cpu().numpy(), ref.t.cpu().numpy()
+            quality = ref.quality.cpu().numpy()
+            lbl = np.clip(labels, 0, None)
+            has = (labels >= 0) & quality[lbl]
+            moved = np.einsum("nij,nj->ni", Rs[lbl], s) + ts[lbl]
+            dvfs = np.hstack([src_core[has], moved[has] + center])
+    with timer.stage("write_tables"):
+        write_rgb_guided_tables(results_dir, tile_id, wo, dvfs, dataset)
     return {
         "dvfs": dvfs,
         "n_matches": int(matched.sum()),

@@ -1,5 +1,9 @@
 """What a driver run reports at its end: seconds per tile with the tile's
-stage times, seconds of tiling, weight loading and tile reading (the
+stage times and, under the stages' ``counters`` key, the work of the
+hand-written kernels in that tile (``utils.profiling``: window positions,
+candidate evaluations, output rows and slots of kernels 1-2, query rows
+and rescored candidates of kernel 3; an operator's view of kernel work
+per tile), seconds of tiling, weight loading and tile reading (the
 reader thread's time the loop waited for), peak device memory, the
 kernel launches of the run (``ops.cuda_build.LAUNCHES``, counted from the
 summary's creation), the grid-window overflow summed over the run's
@@ -49,7 +53,8 @@ class RunSummary:
 
     @contextlib.contextmanager
     def tile(self, tile_id):
-        """Times one tile; yields the dict its stage times go into."""
+        """Times one tile; yields the dict its stage times and kernel
+        counters go into."""
         timings: dict = {}
         t0 = time.perf_counter()
         try:
