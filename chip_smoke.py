@@ -34,6 +34,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    k = 8 with ``exclude_self``: exact duplicates, rows one ulp apart,
    norms over 1e-3..1e3) on every row; prints the rescored candidates per
    row and the tensor-core bound beside the float32 one;
+4b. the DIPs epilogue (``csrc/dips_epilogue.cu``: each trunk dense
+   layer's BatchNorm with its ReLU or max-pool) against the plain chain:
+   both entry points at the trunk shapes, ragged shapes, C = 4 and NaN /
+   +-0 inputs, then ``PointNetFeature`` in float32 and bf16
+   (``epilogue_entry_check``, ``pointnet_epilogue_check``); each of a
+   trunk's five epilogues timed at a 2 048-patch chunk of 256 points
+   beside the plain chain and the bytes-once bound;
 5. small tiles on the card against the port's CPU path (the path the CPU
    tests hold against the JAX package): the fusion step with the gated
    and with the ungated global match (scored as ``tools/parity_check.py``
@@ -219,6 +226,7 @@ plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing as mp
 import os
@@ -945,6 +953,189 @@ def knn_phase(dev, N: int, n_valid: int) -> dict:
         plain_ms=plain_ms, plain_rows=rows, bound_ms=b_ms, bound_by=b_by,
         library_ms=library_ms, library="chunked torch.matmul + torch.min (composite, TF32 off)",
         bound_f32_ms=f32_ms, bound_epilogue_ms=epi_ms, rescored_per_row=rescored,
+    )
+
+
+#: The DIPs trunks' epilogues on the main path, for a chunk of 2 048
+#: patches of 256 points: (layer, activation shape, max-pool).
+DIPS_EPILOGUES = (
+    ("bn1", (2048, 256, 256), False),
+    ("bn2", (2048, 256, 512), False),
+    ("bn3_max", (2048, 256, 1024), True),
+    ("bn4", (2048, 512), False),
+    ("bn5", (2048, 256), False),
+)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values (+0 == -0) and NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0.0), b.masked_fill(nb, 0.0))
+
+
+def randomize_batch_norms(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Give every ``EvalBatchNorm`` of ``model`` non-trivial statistics
+    (``gen`` is a CPU generator)."""
+    from fusion4landslide_tpu_torch.models.dips import EvalBatchNorm
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, EvalBatchNorm):
+                c = mod.mean.shape[0]
+                mod.mean.copy_(torch.randn(c, generator=gen) * 0.5)
+                mod.var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+                mod.scale.copy_(1.0 + 0.3 * torch.randn(c, generator=gen))
+                mod.bias.copy_(0.3 * torch.randn(c, generator=gen))
+
+
+def random_bn_factors(c: int, gen: torch.Generator, dev) -> tuple:
+    """``EvalBatchNorm.factors()`` of a ``c``-channel BatchNorm with
+    non-trivial statistics from the CPU generator ``gen``, on ``dev``."""
+    from fusion4landslide_tpu_torch.models.dips import EvalBatchNorm
+
+    bn = EvalBatchNorm(c)
+    randomize_batch_norms(bn, gen)
+    return tuple(t.detach() for t in bn.to(dev).factors())
+
+
+@contextlib.contextmanager
+def plain_epilogues():
+    """Within the block, ``models/dips.py``'s trunks run the plain chain
+    (``EvalBatchNorm.forward``, then ``relu_`` or ``amax``) on any device."""
+    from fusion4landslide_tpu_torch.ops import dips_epilogue as de
+
+    saved = de.bn_relu_, de.bn_max
+    de.bn_relu_ = lambda x, *f: de.batch_norm_plain(x, *f).relu_()
+    de.bn_max = lambda x, *f: de.batch_norm_plain(x, *f).amax(dim=-2)
+    try:
+        yield
+    finally:
+        de.bn_relu_, de.bn_max = saved
+
+
+def epilogue_entry_check(dev) -> None:
+    """The DIPs epilogue (``csrc/dips_epilogue.cu`` on the card) against
+    the plain chain on ``dev``: both entry points at the trunk shapes, at
+    a ragged batch and point count (37 x 100), at C = 4 and on inputs that
+    hold NaN and +-0 (``bn_relu_`` bit for bit; ``bn_max`` equal values
+    with NaN in the same places, since the sign of a zero max follows the
+    reduction order). Raises on the first difference."""
+    from fusion4landslide_tpu_torch.ops import dips_epilogue as de
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bn_gen = torch.Generator().manual_seed(18)
+    cases = [(f"{label} {shape}", shape, pool) for label, shape, pool in DIPS_EPILOGUES]
+    cases += [(f"ragged {c}", (37, 100, c), pool) for c in (4, 256, 1024) for pool in (False, True)]
+    cases += [("C=4 rows", (5, 4), False), ("C=4 one point", (3, 1, 4), True)]
+    for tag, shape, pool in cases:
+        f = random_bn_factors(shape[-1], bn_gen, dev)
+        x = torch.randn(shape, generator=gen, device=dev) * 2.0
+        if pool:
+            want = de.batch_norm_plain(x, *f).amax(dim=-2)
+            check(equal_nan(de.bn_max(x, *f), want), f"bn_max {tag}")
+        else:
+            want = de.batch_norm_plain(x, *f).relu_()
+            check(bits_equal(de.bn_relu_(x, *f), want), f"bn_relu_ {tag}")
+        del x, want
+    # NaN and +-0: mean 0, scale 1, inv 1 and a bias of -0 or +0 carry a
+    # signed zero through all four operations; NaN inputs and a NaN factor.
+    for c in (4, 12, 256):
+        x = torch.randn((37, 100, c), generator=gen, device=dev)
+        x[:, ::3] = 0.0
+        x[:, 1::3] = -0.0
+        x[5, 7, :] = torch.nan
+        x[6, :, 1] = torch.nan
+        inv = torch.ones(c, device=dev)
+        inv[-1] = torch.nan
+        bias = torch.where(torch.arange(c, device=dev) % 2 == 0, -0.0, 0.0)
+        f = (torch.zeros(c, device=dev), torch.ones(c, device=dev), inv, bias)
+        want = de.batch_norm_plain(x, *f).relu_()
+        check(bits_equal(de.bn_relu_(x.clone(), *f), want), f"bn_relu_ NaN/+-0 C={c}")
+        # And with every value +-0 or below, so that most maxima are zeros.
+        for tag, xs in (("NaN/+-0", x), ("non-positive", -x.abs())):
+            want = de.batch_norm_plain(xs, *f).amax(dim=-2)
+            check(equal_nan(de.bn_max(xs, *f), want), f"bn_max {tag} C={c}")
+    log(f"# DIPs epilogue: equal to the plain chain on {len(cases)} shapes and on NaN / +-0 "
+        "inputs")
+
+
+def pointnet_epilogue_check(dev) -> None:
+    """``PointNetFeature`` on ``dev``, the epilogue's path against the plain
+    chain (``plain_epilogues``), in float32 and bf16 with non-trivial
+    BatchNorm statistics (``torch.equal``); ten ``dips.epilogues`` and ten
+    kernel launches a call (on the card). Raises on the first difference."""
+    from fusion4landslide_tpu_torch.models.convert import seeded_models
+    from fusion4landslide_tpu_torch.ops.cuda_build import LAUNCHES
+    from fusion4landslide_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    dips, _ = seeded_models(0, dev)
+    randomize_batch_norms(dips, torch.Generator().manual_seed(18))
+    patches = torch.randn((300, 256, 3), generator=gen, device=dev)
+    for dtype in (None, torch.bfloat16):
+        with torch.inference_mode():
+            launches0 = LAUNCHES["dips_epilogue"]
+            timings: dict = {}
+            got = profiling.tile("pointnet_epilogue_check")(
+                lambda timings=None: dips(patches, dtype))(timings=timings)
+            launched = LAUNCHES["dips_epilogue"] - launches0
+            with plain_epilogues():
+                want = dips(patches, dtype)
+        check(torch.equal(got, want), f"PointNetFeature {dtype}: kernel path vs plain chain")
+        check(timings["counters"].get("dips.epilogues") == 10
+              and launched == (10 if dev.type == "cuda" else 0),
+              (dtype, timings["counters"], launched))
+    log("# DIPs epilogue: PointNetFeature equal to the plain chain (float32, bf16); 10 "
+        f"epilogues and {launched} launches a call")
+
+
+def dips_epilogue_phase(dev=None) -> dict:
+    """``epilogue_entry_check`` and ``pointnet_epilogue_check``, then each of
+    the five epilogues of a trunk timed at the main path's shapes against
+    the plain chain and against the least time: the activation read once
+    (and written once) at the HBM rate."""
+    from fusion4landslide_tpu_torch.ops import cuda_build
+    from fusion4landslide_tpu_torch.ops import dips_epilogue as de
+
+    dev = torch.device("cuda") if dev is None else dev
+    t0 = time.perf_counter()
+    log(f"# nvcc dips_epilogue: {cuda_build.build_all()['dips_epilogue'].strip()!r} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    epilogue_entry_check(dev)
+    pointnet_epilogue_check(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for label, shape, pool in DIPS_EPILOGUES:
+        f = random_bn_factors(shape[-1], torch.Generator().manual_seed(0), dev)
+        x = torch.randn(shape, generator=gen, device=dev)
+        if pool:
+            ms = cuda_ms(lambda: de.bn_max(x, *f), reps=20)
+            plain_ms = cuda_ms(lambda: de.batch_norm_plain(x, *f).amax(dim=-2), reps=5)
+            moved = 4 * (x.numel() + x.numel() // shape[-2])
+        else:
+            ms = cuda_ms(lambda: de.bn_relu_(x, *f), reps=20)
+            plain_ms = cuda_ms(lambda: de.batch_norm_plain(x, *f).relu_(), reps=5)
+            moved = 2 * 4 * x.numel()
+        b_ms, b_by = bound(moved, 5.0 * x.numel())
+        rows.append(dict(epilogue=label, shape=list(shape), ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"# DIPs epilogue {label} {shape}: kernel {ms:.4f} ms, plain chain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), {100.0 * b_ms / ms:.1f}% of the bound")
+        del x
+    torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"# phase DIPs epilogue ({card()}): a trunk's five epilogues {total['ms']:.4f} ms, "
+        f"plain chain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
+    return dict(
+        name="dips_epilogue", route="cuda",
+        source="fusion4landslide_tpu_torch/csrc/dips_epilogue.cu",
+        replaces="none: XLA fuses BatchNorm, ReLU and the max-pool on the TPU",
+        max_abs_err=0.0, ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"], bound_by="bytes", library_ms=None, by_epilogue=rows,
     )
 
 
@@ -3083,6 +3274,8 @@ def main() -> int:
     # ---- 4. kernel 3: feature-space kNN ----------------------------------
     kernels["knn"] = knn_phase(dev, N, n)
     torch.cuda.empty_cache()
+    # ---- 4b. the DIPs epilogue -------------------------------------------
+    kernels["dips_epilogue"] = dips_epilogue_phase(dev)
 
     log_elapsed(t_start, "the kernel checks")
 
@@ -3352,7 +3545,7 @@ def main() -> int:
     log(f"# chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernel build "
         "included")
     for name, row in kernels.items():
-        row["ms_before"] = MS_BEFORE[name]
+        row["ms_before"] = MS_BEFORE.get(name)
         # Launches on the main path, bench.py's RGB tile through the fusion
         # runner (phase 7); kernel 3 is not on it (the gated match is plain,
         # as in JAX), so its count is the F2S3 production tile's (phase 8).

@@ -16,12 +16,20 @@ precision; rounding it too moves more descriptors away from Flax's), and
 the float32 BatchNorm parameters take it from there, so the max-pool runs
 on float32. Both ``fc3`` layers, the
 T-net product and the L2 norm stay float32.
+
+Each trunk dense layer's BatchNorm and the ReLU or max-pool after it run
+as one epilogue (``ops/dips_epilogue.py``): a hand-written kernel for
+tensors on the card, the plain chain (``EvalBatchNorm.forward`` and
+``relu_`` / ``amax``) for tensors on the CPU, the same bits either way.
+The dense layers themselves are unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from fusion4landslide_tpu_torch.ops import dips_epilogue
 
 __all__ = ["EvalBatchNorm", "PointNetFeature", "STN3d", "feat_torch_dtype"]
 
@@ -47,12 +55,15 @@ class EvalBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def factors(self):
+        """(mean, scale, inv, bias), inv = rsqrt(var + eps): the per-channel
+        factors of ``forward``'s four operations."""
+        return self.mean, self.scale, torch.rsqrt(self.var + self.eps), self.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The operations of scale * (x - mean) * rsqrt(var + eps) + bias in
         # their order, on one temporary (multiplication commutes exactly).
-        y = x - self.mean
-        y.mul_(self.scale).mul_(torch.rsqrt(self.var + self.eps)).add_(self.bias)
-        return y
+        return dips_epilogue.batch_norm_plain(x, *self.factors())
 
 
 class _MLPStack(nn.Module):
@@ -73,12 +84,12 @@ class _MLPStack(nn.Module):
             y = torch.matmul(h.to(dtype), layer.weight.to(dtype).T)
             return y.float() + layer.bias.to(dtype).float()
 
-        x = self.bn1(dense(self.conv1, x)).relu_()
-        x = self.bn2(dense(self.conv2, x)).relu_()
-        x = self.bn3(dense(self.conv3, x))
-        x = x.amax(dim=-2)
-        x = torch.relu(self.bn4(dense(self.fc1, x)))
-        return torch.relu(self.bn5(dense(self.fc2, x)))
+        relu_, max_ = dips_epilogue.bn_relu_, dips_epilogue.bn_max
+        x = relu_(dense(self.conv1, x), *self.bn1.factors())
+        x = relu_(dense(self.conv2, x), *self.bn2.factors())
+        x = max_(dense(self.conv3, x), *self.bn3.factors())
+        x = relu_(dense(self.fc1, x), *self.bn4.factors())
+        return relu_(dense(self.fc2, x), *self.bn5.factors())
 
 
 class STN3d(nn.Module):

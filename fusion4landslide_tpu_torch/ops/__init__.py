@@ -2,7 +2,7 @@
 exported under the JAX package's names, with one exception: ``ops.knn``
 stays the submodule (the function is ``ops.knn.knn``), which the port's
 code and tests import by that name. The CUDA kernels live in
-``hashgrid_cuda`` and ``knn_cuda``."""
+``hashgrid_cuda``, ``knn_cuda`` and ``dips_epilogue``."""
 
 from fusion4landslide_tpu_torch.ops.kabsch import (
     rt_to_transform,

@@ -30,7 +30,7 @@ __all__ = ["LAUNCHES", "SOURCES", "build_all", "count_launch", "load", "nvcc_pat
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("grid_knn", "radius_sample", "knn")
+SOURCES = ("grid_knn", "radius_sample", "knn", "dips_epilogue")
 #: Kernel launches per source.
 LAUNCHES = {name: 0 for name in SOURCES}
 _FLAGS = (

@@ -27,7 +27,8 @@ blocks), ``.evaluations`` (positions x block: candidate evaluations),
 ``grid_knn.positions``, ``.evaluations``, ``.rows`` (``n_pad``) and
 ``.slots`` (``n_pad`` x k); kernel 3 (on the card only) ``knn.rows`` (query
 rows) and ``knn.rescored`` (candidates its filter passed to the exact
-rescoring).
+rescoring); the DIPs epilogue (``ops/dips_epilogue.py``, both paths)
+``dips.epilogues`` (calls: ten per ``PointNetFeature`` call).
 """
 
 from __future__ import annotations

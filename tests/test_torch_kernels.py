@@ -240,3 +240,30 @@ def test_kernel_matches_plain_on_card():
         border = sampler_borderline_rows(win, cen, r2, P, prio)
         agr = sample_agreement(out_p[0], out_p[1], out_k[0], out_k[1], border)
         assert agr["exact_frac"] >= 0.999 and agr["unexplained_rows"] == 0, agr
+
+
+@pytest.mark.cuda
+def test_dips_epilogue_matches_plain_on_card():
+    """The DIPs epilogue kernel's two entry points against the plain chain
+    on the card: the trunk shapes (2048 x 256 x {256, 512}, 2048 x 256 x
+    1024 for the max-pool), a ragged batch and point count (37 x 100),
+    C = 4, and inputs with NaN and +-0 (``chip_smoke.epilogue_entry_check``,
+    which ``chip_smoke.py`` runs on the card as well)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    chip_smoke.epilogue_entry_check(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_pointnet_epilogue_path_matches_plain_on_card():
+    """``PointNetFeature`` on the card with non-trivial BatchNorm
+    statistics: the epilogue kernel's path equal to the plain chain's in
+    float32 and bf16, ten epilogues and ten launches a call
+    (``chip_smoke.pointnet_epilogue_check``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    chip_smoke.pointnet_epilogue_check(torch.device("cuda"))
